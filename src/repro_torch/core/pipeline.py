@@ -14,7 +14,8 @@ block through the region / segment kernels.
 Entry points run on CUDA unless the caller passes ``device="cpu"``; there
 every kernel wrapper runs its plain PyTorch version.  Repeat compilations
 with the same ``(fn, order, trace shape, dtype, resolved config, device)``
-return the same artifact from an in-process cache.
+return the same artifact from an in-process cache; ``store=`` adds the
+artifact store as a second, on-disk level (``serve.store``).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from repro_torch.core.segment import (INTERPRET, SegmentPlan,
                                       build_segment_plan, dispatch_table,
                                       segment_dispatch, _p)
 from repro_torch.kernels.common import fp32_strict, resolve_device
+from repro_torch.obs.metrics import MetricsView, counter as _obs_counter
 
 
 class CompiledGradient:
@@ -50,6 +52,10 @@ class CompiledGradient:
         self.fn = fn
         self.order = order
         self.region_plan = region_plan    # RegionPlan (None: per-segment)
+        self.provenance = "trace"         # "trace" | "store" (set on restore)
+        self.cache_hits = 0               # in-process hits served (metadata)
+        self._signature = None            # lazy architecture signature
+        self._stored_in: set[str] = set()  # store roots known to hold this
         self._decisions = {
             s.id: (segment_dispatch(plan, s) if config.use_pallas
                    else INTERPRET) for s in plan.segments}
@@ -170,6 +176,18 @@ class CompiledGradient:
             v = v[:1].expand((n,) + tuple(v.shape[1:]))
         return v
 
+    @property
+    def signature(self) -> str:
+        """Weight-independent architecture signature (graph structure +
+        order + resolved config) — the artifact store's canonical key.
+        Computed lazily and cached; store-restored artifacts carry the
+        signature they were stored under."""
+        if self._signature is None:
+            from repro_torch.serve.store import arch_signature
+            self._signature = arch_signature(self.graph, self.order,
+                                             self.config)
+        return self._signature
+
 
 # ---------------------------------------------------------------------------
 # compilation
@@ -230,6 +248,19 @@ def compile_from_graph(g: ComputeGraph, *,
 
 
 _CACHE: dict[tuple, CompiledGradient] = {}
+# the compile-layer accounting, as registry metrics (a dict-shaped view)
+_STATS = MetricsView({
+    "hits": _obs_counter("compile_cache_hits",
+                         "in-process compile cache hits"),
+    "misses": _obs_counter("compile_cache_misses",
+                           "in-process compile cache misses"),
+    "store_hits": _obs_counter("compile_store_hits",
+                               "artifact-store restore hits"),
+    "store_misses": _obs_counter("compile_store_misses",
+                                 "artifact-store restore misses"),
+    "store_puts": _obs_counter("compile_store_puts",
+                               "artifacts persisted to a store"),
+})
 
 
 def _fn_key(fn):
@@ -242,8 +273,20 @@ def _fn_key(fn):
         return id(fn)
 
 
+def compile_cache_info() -> dict:
+    """The compile cache's size, the monotonic tracer counter, and the
+    in-process and artifact-store hit/miss/put accounting."""
+    from repro_torch.core import trace
+    return {"size": len(_CACHE), "traces": trace.TRACE_CALLS,
+            **{k: _STATS[k] for k in _STATS}}
+
+
 def clear_compile_cache() -> None:
+    """Drop every cached artifact and reset the hit/miss accounting (the
+    tracer counter is monotonic by design: tests measure deltas)."""
     _CACHE.clear()
+    for k in _STATS:
+        _STATS[k] = 0
 
 
 def _trace_graph(fn, order: int, trace_b: int, shape, dtype,
@@ -270,6 +313,7 @@ def compile_gradient(fn, order: int, example_coords, *,
                      config: HardwareConfig | None = None,
                      block: int | None = None,
                      use_pallas: bool | None = None,
+                     store=None,
                      device=None) -> CompiledGradient:
     """The pipeline front door: compile-or-hit the compiler for the
     ``order``-th input gradients of INR ``fn`` (a torch callable on
@@ -280,10 +324,18 @@ def compile_gradient(fn, order: int, example_coords, *,
     batch; ``apply_batched`` serves any N).  ``config`` is a
     ``HardwareConfig`` or ``None`` (``DEFAULT_CONFIG``); ``block`` /
     ``use_pallas`` override its fields.  ``device`` defaults to CUDA and
-    raises without it; pass ``"cpu"`` to run the plain versions."""
+    raises without it; pass ``"cpu"`` to run the plain versions.
+
+    ``store`` (a ``serve.ArtifactStore`` or a directory path) makes this a
+    three-level lookup: in-process cache -> store -> trace + compile +
+    persist.  A store hit rebuilds the artifact from the persisted graph,
+    config and weights without a single tracer call."""
     device = resolve_device(device)
     shape = tuple(example_coords.shape)
     dtype = str(example_coords.dtype).removeprefix("torch.")
+    if store is not None:
+        from repro_torch.serve.store import as_store
+        store = as_store(store)
     cfg = as_hardware_config(config, block=block,
                              use_pallas=use_pallas).resolved()
     trace_b = shape[0] + (-shape[0]) % cfg.block
@@ -291,8 +343,41 @@ def compile_gradient(fn, order: int, example_coords, *,
            cfg.clamped(trace_b), device)
     hit = _CACHE.get(key)
     if hit is not None:
+        _STATS["hits"] += 1
+        hit.cache_hits += 1
+        if store is not None and store.root not in hit._stored_in:
+            # a store handed in late still ends up populated
+            store.ensure(hit, request_key=_request_key(fn, order, trace_b,
+                                                       shape, dtype, cfg))
+            hit._stored_in.add(store.root)
         return hit
+    _STATS["misses"] += 1
+
+    rk = None
+    if store is not None:
+        rk = _request_key(fn, order, trace_b, shape, dtype, cfg)
+        cg = store.restore_request(rk, device=device)
+        if cg is not None:
+            _STATS["store_hits"] += 1
+            if cg.fn is None:
+                cg.fn = fn
+            _CACHE[key] = cg
+            return cg
+        _STATS["store_misses"] += 1
+
     g = _trace_graph(fn, order, trace_b, shape, dtype, device)
     cg = compile_from_graph(g, config=cfg, device=device, fn=fn, order=order)
     _CACHE[key] = cg
+    if store is not None:
+        store.put(cg, request_key=rk)
+        cg._stored_in.add(store.root)
+        _STATS["store_puts"] += 1
     return cg
+
+
+def _request_key(fn, order, trace_b, shape, dtype, cfg):
+    """Disk-index key for one request (None when fn has no stable
+    cross-process fingerprint — the disk level is then skipped)."""
+    from repro_torch.serve.store import request_key
+    return request_key(fn, order, (trace_b,) + tuple(shape[1:]), dtype,
+                       cfg.clamped(trace_b))

@@ -39,7 +39,8 @@ LAUNCHES: collections.Counter = collections.Counter()
 # constants the Python side shares with csrc/abi.cuh, checked at load time
 ABI = {"region_rows": 8, "region_threads": 256, "region_instr_ints": 96,
        "max_ptrs": 96, "max_chain": 32, "max_extra": 16, "n_chain_ops": 18,
-       "region_red_floats": 2048, "smem_dynamic_bytes": 231424}
+       "region_red_floats": 2048, "smem_dynamic_bytes": 231424,
+       "max_lanes": 65535}
 
 _LIB = None
 _LOCK = threading.Lock()
@@ -151,7 +152,7 @@ _SIGNATURES = {
     "rt_fused_chain": ([_VP, _VP, _LL, _I, _I, _VP, _VP, _I, _VP, _VP, _VP,
                         _VP], _I),
     "rt_matmul": ([_VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _I, _VP], _I),
-    "rt_region": ([_VP, _VP, _I, _I, _VP, _LL, _I, _VP, _VP], _I),
+    "rt_region": ([_VP, _VP, _I, _I, _VP, _VP, _I, _LL, _I, _VP, _VP], _I),
 }
 
 

@@ -9,6 +9,7 @@
 #define RT_REGION_THREADS 256   // threads of one region CTA
 #define RT_INSTR_INTS 96        // ints per region instruction
 #define RT_MAX_PTRS 96          // tensors one region launch may name
+#define RT_MAX_LANES 65535      // weight lanes of one region launch
 #define RT_MAX_CHAIN 32         // steps of one elementwise chain
 #define RT_MAX_EXTRA 16         // streamed operands of one chain
 // mm partial sums one region CTA keeps in shared memory

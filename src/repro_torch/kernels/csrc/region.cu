@@ -17,6 +17,13 @@
 // launch uploads nothing: it passes only the tensor pointers (by value, in
 // the parameter block) and the row count.
 //
+// The same launch serves K weight lanes (repro/kernels/region.py::
+// region_call_stacked, pallas_call at region.py:329): grid (row tiles, K),
+// and every pointer moves by lane x its per-lane stride.  Each CTA runs the
+// single-lane arithmetic, so lane k equals a K = 1 launch on lane k's
+// operands bit for bit.  A lane's tiles have consecutive block indices, so
+// they run together while that lane's weights are hot in L2.
+//
 // What bounds it on the H100: per 8-row block an mm step does 2*8*K*N flops
 // against K*N*4 weight bytes, so the region is bound by bytes (weights) at
 // 3.35 TB/s, and at the main path's 8 rows per launch by the launch and by
@@ -33,9 +40,18 @@
 #define MM_UNROLL 8  // weight loads an mm thread keeps in flight
 #define MM_XCHUNK (RT_RED_FLOATS / RT_REGION_ROWS)  // x columns staged at once
 
-struct PtrTable {
+// The pointer table: each tensor's base and its per-lane stride in elements
+// (all 0 for a single-lane launch).
+struct LaneTable {
   const float* p[RT_MAX_PTRS];
+  long long stride[RT_MAX_PTRS];
 };
+
+// Tensor i of the pointer table, as seen by lane `lane`.
+__device__ __forceinline__ const float* tensor(const LaneTable& P, int i,
+                                               long long lane) {
+  return P.p[i] + lane * P.stride[i];
+}
 
 // A view is 5 ints: space (0 = a tensor of the pointer table, 1 = the CTA's
 // workspace), index (pointer-table index or workspace offset in floats),
@@ -43,10 +59,11 @@ struct PtrTable {
 // Rows of a tensor view start at the CTA's first row; a row stride of 0
 // broadcasts one [1, C] row.
 __device__ __forceinline__ const float* view_base(const int* v,
-                                                  const PtrTable& P,
+                                                  const LaneTable& P,
                                                   const float* ws,
+                                                  long long lane,
                                                   long long row0) {
-  return v[0] ? ws + v[1] + v[3] : P.p[v[1]] + row0 * v[2] + v[3];
+  return v[0] ? ws + v[1] + v[3] : tensor(P, v[1], lane) + row0 * v[2] + v[3];
 }
 
 // Instruction layouts (RT_INSTR_INTS ints each); kernels/region.py writes them.
@@ -58,9 +75,9 @@ __device__ __forceinline__ const float* view_base(const int* v,
 //          (1 sin, 2 accumulate into out, 4 epilogue) [9]=w0 offset (fc)
 //          [10..14]=out view [15..19]=x view
 __device__ __forceinline__ void chain_step(const int* I, const int* prog,
-                                           const float* fc, const PtrTable& P,
-                                           float* ws, long long row0,
-                                           int rows) {
+                                           const float* fc, const LaneTable& P,
+                                           float* ws, long long lane,
+                                           long long row0, int rows) {
   // decode the step once into shared memory instead of once per element
   __shared__ int s_ops[RT_MAX_CHAIN];
   __shared__ float s_vals[RT_MAX_CHAIN];
@@ -74,15 +91,15 @@ __device__ __forceinline__ void chain_step(const int* I, const int* prog,
   }
   if (t < n_extra) {
     const int* v = I + 16 + 5 * t;
-    s_ext[t] = view_base(v, P, ws, row0);
+    s_ext[t] = view_base(v, P, ws, lane, row0);
     s_eld[t] = v[2];
     s_ecs[t] = v[4];
   }
   __syncthreads();
   const int* ov = I + 6;
   const int* xv = I + 11;
-  float* ob = const_cast<float*>(view_base(ov, P, ws, row0));
-  const float* xb = view_base(xv, P, ws, row0);
+  float* ob = const_cast<float*>(view_base(ov, P, ws, lane, row0));
+  const float* xb = view_base(xv, P, ws, lane, row0);
   const int old = ov[2], xld = xv[2], xcs = xv[4];
   for (int i = t; i < rows * C; i += blockDim.x) {
     const int r = i / C, c = i - r * C;
@@ -99,18 +116,19 @@ __device__ __forceinline__ void chain_step(const int* I, const int* prog,
 // order (k, k + ksplit, ...); the ksplit partial sums then add up in order
 // through shared memory.
 __device__ __forceinline__ void mm_step(const int* I, const float* fc,
-                                        const PtrTable& P, float* ws,
-                                        float* red, long long row0, int rows) {
+                                        const LaneTable& P, float* ws,
+                                        float* red, long long lane,
+                                        long long row0, int rows) {
   const int N = I[1], K = I[2];
-  const float* W = P.p[I[3]];
+  const float* W = tensor(P, I[3], lane);
   const int ldw = I[4], k0 = I[5], n0 = I[6];
-  const float* bias = I[7] >= 0 ? P.p[I[7]] + n0 : nullptr;
+  const float* bias = I[7] >= 0 ? tensor(P, I[7], lane) + n0 : nullptr;
   const int flags = I[8];
   const float w0 = fc[I[9]];
   const int* ov = I + 10;
   const int* xv = I + 15;
-  float* ob = const_cast<float*>(view_base(ov, P, ws, row0));
-  const float* xb = view_base(xv, P, ws, row0);
+  float* ob = const_cast<float*>(view_base(ov, P, ws, lane, row0));
+  const float* xb = view_base(xv, P, ws, lane, row0);
   const int old = ov[2], xld = xv[2], xcs = xv[4];
 
   int pw = 1;
@@ -217,13 +235,16 @@ __device__ __forceinline__ void mm_step(const int* I, const float* fc,
   }
 }
 
+// grid (row tiles, K): one CTA walks the region's step program on the
+// RT_REGION_ROWS rows of its tile, blockIdx.y is the lane; R rows per lane.
 __global__ void __launch_bounds__(RT_REGION_THREADS)
     region_kernel(const int* __restrict__ prog, const float* __restrict__ fc,
-                  int n_instr, PtrTable P, long long R, int ws_floats,
+                  int n_instr, LaneTable P, long long R, int ws_floats,
                   float* gws) {
   extern __shared__ float smem[];
   float* red = smem;  // RT_RED_FLOATS partial sums of the mm steps
-  float* ws = gws ? gws + (long long)blockIdx.x * ws_floats
+  const long long lane = blockIdx.y;
+  float* ws = gws ? gws + (lane * gridDim.x + blockIdx.x) * ws_floats
                   : smem + RT_RED_FLOATS;
   const long long row0 = (long long)blockIdx.x * RT_REGION_ROWS;
   const long long left = R - row0;
@@ -231,22 +252,28 @@ __global__ void __launch_bounds__(RT_REGION_THREADS)
   for (int s = 0; s < n_instr; ++s) {
     const int* I = prog + (long long)s * RT_INSTR_INTS;
     if (I[0] == 0)
-      chain_step(I, prog, fc, P, ws, row0, rows);
+      chain_step(I, prog, fc, P, ws, lane, row0, rows);
     else
-      mm_step(I, fc, P, ws, red, row0, rows);
+      mm_step(I, fc, P, ws, red, lane, row0, rows);
     __syncthreads();
   }
 }
 
+// K lanes of R rows each.  strides[i]: elements between lane k and lane
+// k + 1 of tensor i (a single-lane launch passes K = 1 and no strides).
 extern "C" int rt_region(const int* prog, const float* fc, int n_instr,
-                         int n_ptrs, const long long* ptrs, long long R,
+                         int n_ptrs, const long long* ptrs,
+                         const long long* strides, int K, long long R,
                          int ws_floats, float* gws, void* stream) {
-  if (n_ptrs < 0 || n_ptrs > RT_MAX_PTRS || ws_floats < 0)
+  if (n_ptrs < 0 || n_ptrs > RT_MAX_PTRS || ws_floats < 0 || K < 0 ||
+      K > RT_MAX_LANES)
     return (int)cudaErrorInvalidValue;
-  PtrTable P;
-  for (int i = 0; i < RT_MAX_PTRS; ++i)
+  LaneTable P;
+  for (int i = 0; i < RT_MAX_PTRS; ++i) {
     P.p[i] = i < n_ptrs ? reinterpret_cast<const float*>(ptrs[i]) : nullptr;
-  if (R <= 0) return 0;
+    P.stride[i] = i < n_ptrs && strides ? strides[i] : 0;
+  }
+  if (R <= 0 || K == 0) return 0;
   const long long grid = (R + RT_REGION_ROWS - 1) / RT_REGION_ROWS;
   const size_t smem =
       sizeof(float) * ((size_t)RT_RED_FLOATS + (gws ? 0 : (size_t)ws_floats));
@@ -267,7 +294,7 @@ extern "C" int rt_region(const int* prog, const float* fc, int n_instr,
       if (dev < 64) opted[dev] = true;
     }
   }
-  region_kernel<<<(unsigned)grid, RT_REGION_THREADS, smem,
+  region_kernel<<<dim3((unsigned)grid, (unsigned)K), RT_REGION_THREADS, smem,
                   (cudaStream_t)stream>>>(prog, fc, n_instr, P, R, ws_floats,
                                           gws);
   return (int)cudaGetLastError();

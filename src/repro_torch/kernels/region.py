@@ -15,6 +15,9 @@ plus ``bcast_rows`` (row-constant operands passed as one ``[1, C]`` row)
 and ``tile_groups`` (runs of wide steps evaluated ``bn`` columns at a time,
 the closing "reducer" mm accumulating partial products across tiles).
 
+``region_call_stacked`` (port of ``region_call_stacked``) runs one spec over
+K weight lanes in one launch: every operand is a ``[K, ...]`` stack.
+
 The plain version (``region_call_plain``: ``_eval_steps`` / ``_eval_group``
 / ``_eval_mm``) follows the reference line by line.  The CUDA kernel is one
 compiled-once interpreter: ``lower`` turns a spec, once per spec and operand
@@ -27,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -434,8 +438,39 @@ def _device_program(prog: RegionProgram, device: torch.device):
 
 
 # ---------------------------------------------------------------------------
-# the wrapper
+# the wrappers
 # ---------------------------------------------------------------------------
+
+def _check_arity(name, spec: RegionKernelSpec, stream, rows, residents):
+    if len(stream) != len(spec.stream_inputs) or not stream:
+        raise ValueError(f"{name}: {len(stream)} stream inputs for "
+                         f"{spec.stream_inputs}")
+    if len(rows) != len(spec.bcast_rows):
+        raise ValueError(f"{name}: {len(rows)} rows for {spec.bcast_rows}")
+    if len(residents) != len(spec.residents):
+        raise ValueError(f"{name}: {len(residents)} residents for "
+                         f"{spec.residents}")
+
+
+def _lowered(name, spec: RegionKernelSpec, stream_cols, row_cols,
+             res_shapes, out_info) -> RegionProgram:
+    """The spec's program for one lane's operand widths; ``out_info`` must
+    name its float32 outputs."""
+    prog = lower(spec, stream_cols, row_cols, res_shapes)
+    if tuple(c for c, _ in out_info) != prog.out_cols:
+        raise ValueError(f"{name}: out_info {out_info} vs computed widths "
+                         f"{prog.out_cols}")
+    if any(_dtype(dt) != torch.float32 for _, dt in out_info):
+        raise TypeError(f"{name}: outputs must be float32, got {out_info}")
+    return prog
+
+
+def _pointers(name, tensors) -> list[int]:
+    if len(tensors) > ABI["max_ptrs"]:
+        raise ValueError(f"{name}: {len(tensors)} tensors exceed the "
+                         f"kernel's {ABI['max_ptrs']}")
+    return [a.data_ptr() for a in tensors]
+
 
 def region_call(spec: RegionKernelSpec, stream, rows, residents, out_info):
     """Execute one region over ``[R, C]`` streamed inputs.
@@ -447,14 +482,7 @@ def region_call(spec: RegionKernelSpec, stream, rows, residents, out_info):
 
     CPU tensors take the plain version; CUDA tensors the kernel.  Returns
     one tensor per output."""
-    if len(stream) != len(spec.stream_inputs) or not stream:
-        raise ValueError(f"region: {len(stream)} stream inputs for "
-                         f"{spec.stream_inputs}")
-    if len(rows) != len(spec.bcast_rows):
-        raise ValueError(f"region: {len(rows)} rows for {spec.bcast_rows}")
-    if len(residents) != len(spec.residents):
-        raise ValueError(f"region: {len(residents)} residents for "
-                         f"{spec.residents}")
+    _check_arity("region", spec, stream, rows, residents)
     dev = stream[0].device
     if dev.type == "cpu":
         return region_call_plain(spec, stream, rows, residents, out_info)
@@ -477,20 +505,12 @@ def region_call(spec: RegionKernelSpec, stream, rows, residents, out_info):
             raise ValueError(f"region: resident {k} must be 1-D or 2-D")
         named[f"resident{k}"] = a
     check_cuda_f32("region", dev, **named)
-    prog = lower(spec, tuple(a.shape[1] for a in stream),
-                  tuple(a.shape[1] for a in rows),
-                  tuple(tuple(a.shape) for a in residents))
-    if tuple(c for c, _ in out_info) != prog.out_cols:
-        raise ValueError(f"region: out_info {out_info} vs computed widths "
-                         f"{prog.out_cols}")
-    if any(_dtype(dt) != torch.float32 for _, dt in out_info):
-        raise TypeError(f"region: outputs must be float32, got {out_info}")
+    prog = _lowered("region", spec, tuple(a.shape[1] for a in stream),
+                    tuple(a.shape[1] for a in rows),
+                    tuple(tuple(a.shape) for a in residents), out_info)
     outs = tuple(torch.empty((R, c), device=dev, dtype=torch.float32)
                  for c in prog.out_cols)
-    ptrs = [a.data_ptr() for a in (*stream, *rows, *residents, *outs)]
-    if len(ptrs) > ABI["max_ptrs"]:
-        raise ValueError(f"region: {len(ptrs)} tensors exceed the kernel's "
-                         f"{ABI['max_ptrs']}")
+    ptrs = _pointers("region", (*stream, *rows, *residents, *outs))
     if R == 0:
         return outs
     prog_d, consts_d = _device_program(prog, dev)
@@ -500,9 +520,97 @@ def region_call(spec: RegionKernelSpec, stream, rows, residents, out_info):
                           dtype=torch.float32)
     lib = load_library()
     rc = lib.rt_region(prog_d.data_ptr(), consts_d.data_ptr(), prog.n_instr,
-                       len(ptrs), (ctypes.c_longlong * len(ptrs))(*ptrs), R,
-                       prog.ws_floats,
+                       len(ptrs), (ctypes.c_longlong * len(ptrs))(*ptrs),
+                       None, 1, R, prog.ws_floats,
                        gws.data_ptr() if gws is not None else None,
                        stream_handle(dev))
     check_launch(rc, "region")
+    return outs
+
+
+# ---------------------------------------------------------------------------
+# K weight lanes in one launch
+# ---------------------------------------------------------------------------
+
+def lane_strides(shapes) -> list[int]:
+    """The per-lane element stride of each contiguous ``[K, ...]`` operand
+    of a stacked launch, in pointer-table order: lane k of a stack starts
+    ``k * prod(shape[1:])`` elements after lane 0."""
+    return [math.prod(tuple(s)[1:]) for s in shapes]
+
+
+def region_call_stacked_plain(spec: RegionKernelSpec, stream, rows,
+                              residents, out_info):
+    """Lane by lane through ``region_call_plain``; ``[K, R, cols]`` out."""
+    lanes = [region_call_plain(spec, [a[k] for a in stream],
+                               [a[k] for a in rows],
+                               [a[k] for a in residents], out_info)
+             for k in range(stream[0].shape[0])]
+    return tuple(torch.stack(col) for col in zip(*lanes))
+
+
+def region_call_stacked(spec: RegionKernelSpec, stream, rows, residents,
+                        out_info):
+    """Execute one region over K stacked weight lanes in ONE launch.
+
+    ``stream``    — ``[K, R, Ci]`` tensors aligned with ``spec.stream_inputs``.
+    ``rows``      — ``[K, 1, Ci]`` tensors aligned with ``spec.bcast_rows``.
+    ``residents`` — ``[K, ...]`` stacked whole tensors per ``spec.residents``.
+    ``out_info``  — ``(cols, dtype)`` per output; returns ``[K, R, cols]``.
+
+    Lane k of the result is ``region_call`` on lane k's operands (on the
+    card bit for bit: every CTA runs the single-lane kernel's arithmetic).
+    CPU tensors take the plain version; CUDA tensors the kernel."""
+    _check_arity("region_stacked", spec, stream, rows, residents)
+    if stream[0].dim() != 3:
+        raise ValueError(f"region_stacked: stream input 0 must be [K, R, C], "
+                         f"got {tuple(stream[0].shape)}")
+    K, R = stream[0].shape[:2]
+    if not 0 < K <= ABI["max_lanes"]:
+        raise ValueError(f"region_stacked: {K} lanes (1..{ABI['max_lanes']})")
+    named = {}
+    for k, a in enumerate(stream):
+        if a.dim() != 3 or a.shape[:2] != (K, R):
+            raise ValueError(f"region_stacked: stream input {k} must be "
+                             f"[{K}, {R}, C], got {tuple(a.shape)}")
+        named[f"stream{k}"] = a
+    for k, a in enumerate(rows):
+        if a.dim() != 3 or a.shape[:2] != (K, 1):
+            raise ValueError(f"region_stacked: row {k} must be [{K}, 1, C], "
+                             f"got {tuple(a.shape)}")
+        named[f"row{k}"] = a
+    for k, a in enumerate(residents):
+        if a.dim() not in (2, 3) or a.shape[0] != K:
+            raise ValueError(f"region_stacked: resident {k} must be [{K}, N] "
+                             f"or [{K}, M, N], got {tuple(a.shape)}")
+        named[f"resident{k}"] = a
+    dev = stream[0].device
+    if dev.type == "cpu":
+        return region_call_stacked_plain(spec, stream, rows, residents,
+                                         out_info)
+    if dev.type != "cuda":
+        raise ValueError(f"region_stacked: unsupported device {dev}")
+    check_cuda_f32("region_stacked", dev, **named)
+    prog = _lowered("region_stacked", spec, tuple(a.shape[2] for a in stream),
+                    tuple(a.shape[2] for a in rows),
+                    tuple(tuple(a.shape[1:]) for a in residents), out_info)
+    outs = tuple(torch.empty((K, R, c), device=dev, dtype=torch.float32)
+                 for c in prog.out_cols)
+    tensors = (*stream, *rows, *residents, *outs)
+    ptrs = _pointers("region_stacked", tensors)
+    if R == 0:
+        return outs
+    strides = lane_strides(a.shape for a in tensors)
+    prog_d, consts_d = _device_program(prog, dev)
+    gws = None
+    if not prog.in_smem:
+        gws = torch.empty(K * cdiv(R, _ROWS) * prog.ws_floats, device=dev,
+                          dtype=torch.float32)
+    lib = load_library()
+    rc = lib.rt_region(
+        prog_d.data_ptr(), consts_d.data_ptr(), prog.n_instr, len(ptrs),
+        (ctypes.c_longlong * len(ptrs))(*ptrs),
+        (ctypes.c_longlong * len(strides))(*strides), K, R, prog.ws_floats,
+        gws.data_ptr() if gws is not None else None, stream_handle(dev))
+    check_launch(rc, "region_stacked")
     return outs

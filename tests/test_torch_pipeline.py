@@ -121,8 +121,9 @@ def test_entry_point_raises_without_cuda(monkeypatch, both):
 
 
 def test_port_imports_no_jax():
-    """Compile and serve through the port in a fresh interpreter: neither
-    JAX nor the reference package may be imported."""
+    """Compile and serve through the port in a fresh interpreter, with its
+    serving, telemetry and checkpoint packages loaded: neither JAX nor the
+    reference package may be imported."""
     code = """
 import sys, torch
 from repro_torch.configs.siren import SirenConfig
@@ -130,6 +131,7 @@ from repro_torch.core.pipeline import compile_gradient
 from repro_torch.inr.siren import siren_fn, siren_init
 import repro_torch.kernels.region, repro_torch.kernels.siren_layer
 import repro_torch.kernels.stream_matmul, repro_torch.kernels.fused_chain
+import repro_torch.serve, repro_torch.obs, repro_torch.checkpoint.ckpt
 cfg = SirenConfig(hidden_features=16, hidden_layers=1)
 f = siren_fn(cfg, siren_init(cfg, torch.Generator().manual_seed(0)))
 cg = compile_gradient(f, 2, torch.zeros(16, 2), device="cpu")
