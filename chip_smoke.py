@@ -25,12 +25,22 @@ Phases (any failure exits non-zero; nothing is caught):
      a zero-row request, a K = 1 non-base weight id, stats) and a fresh
      engine restored from an ArtifactStore by signature alone (no tracer
      call, outputs torch.equal);
-  6. the launches of every kernel on each path, counted from 0 just before
+  6. streamed fitting at full width (phase 4's weights): region_bwd on the
+     real regions of orders 1-2 and a column-tiled one, at the fit path's
+     R = 8 and at R = 1,000 (many CTAs, a ragged tile, the partial
+     reduction), against its plain version (<= 1e-4 scaled); compile_fit
+     -> value_and_grad at order 1 (GradMSE) and 2 (LaplacianMSE) on N =
+     4,096 rows against a float64 whole-grid torch.autograd oracle (loss
+     and every leaf gradient <= 1e-4 scaled); fit at order 2 (3 steps of
+     1,024-row chunks) -> ArtifactStore -> a fresh ServingEngine, within
+     1e-4 of compile_gradient of the fitted weights; fit_many with K = 2
+     lanes, each torch.equal to fit;
+  7. the launches of every kernel on each path, counted from 0 just before
      the path and read just after it: phase 4 must launch region,
      fused_chain, stream_matmul and siren_layer, phase 5 region_stacked
-     (stacked path) and region and fused_chain (per-lane path); one JSON
-     line of per-kernel numbers;
-  7. the last line: {"ok": true, "device": {...}}.
+     (stacked path) and region and fused_chain (per-lane path), phase 6
+     region and region_bwd; one JSON line of per-kernel numbers;
+  8. the last line: {"ok": true, "device": {...}}.
 
 Times: ``ms`` is the device time of one call (torch.profiler, the sum of
 the kernel records per call; for a plain version, every kernel it
@@ -447,15 +457,22 @@ def main() -> int:
         log, torch, dev, cfg, f, params, coords, fused_cfg, oracle,
         scaled_err, device_ms, timing, record)
 
-    # -- 6. launches ---------------------------------------------------------
+    # -- 6. streamed fitting -------------------------------------------------
+    launches_fit = fit_phase(
+        log, torch, dev, cfg, f, params, coords_small, fused_cfg, tiled_cfg,
+        walk_block, scaled_err, device_ms, timing, record)
+
+    # -- 7. launches ---------------------------------------------------------
     # ``launches`` counts the path a kernel was ported for (phase 4's for
-    # PR 11's kernels, phase 5's for region_stacked); ``launches_by_path``
-    # gives every path's own count.
-    paths = {"compile_gradient": launches_main, "multi_inr": launches_multi}
+    # PR 11's kernels, phase 5's for region_stacked, phase 6's for
+    # region_bwd); ``launches_by_path`` gives every path's own count.
+    paths = {"compile_gradient": launches_main, "multi_inr": launches_multi,
+             "fit": launches_fit}
+    home = {"region_stacked": "multi_inr", "region_bwd": "fit"}
     for name, rec in kernels.items():
         rec["launches_by_path"] = {p: c.get(name, 0) for p, c in paths.items()}
         rec["launches"] = rec["launches_by_path"][
-            "multi_inr" if name == "region_stacked" else "compile_gradient"]
+            home.get(name, "compile_gradient")]
     log(f"[launches] by path: "
         f"{ {k: kernels[k]['launches_by_path'] for k in kernels} }")
     missing = [k for k in kernels if kernels[k]["launches"] == 0]
@@ -672,6 +689,223 @@ def multi_inr_phase(log, torch, dev, cfg, f, params, coords, fused_cfg,
     shutil.rmtree(store_dir, ignore_errors=True)
     launches = dict(common.LAUNCHES)
     log(f"[launches] phase 5 (multi-INR serving): {launches}")
+    return launches
+
+
+def fit_phase(log, torch, dev, cfg, f, params, coords, fused_cfg, tiled_cfg,
+              walk_block, scaled_err, device_ms, timing, record):
+    """Phase 6; returns the launches made while it drove the fit path (the
+    kernel checks before it are not counted)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core.pipeline import compile_gradient
+    from repro_torch.fit import (GradMSE, LaplacianMSE, compile_fit, fit,
+                                 fit_many)
+    from repro_torch.inr.siren import siren_fn, siren_init
+    from repro_torch.kernels import common
+    from repro_torch.kernels.region import (RegionKernelSpec, lower_bwd,
+                                           region_bwd_call, region_bwd_plain)
+    from repro_torch.serve import ArtifactStore, ServingEngine
+
+    gen = torch.Generator().manual_seed(SEED + 6)
+    N = coords.shape[0]
+
+    # -- 6a. region_bwd against its plain version ----------------------------
+    def regions(order, conf):
+        """(region, (stream, rows, residents, out_info)) of every fused
+        region of one 8-row block, as the fit path hands them over."""
+        cg = compile_gradient(f, order, coords[:cfg.batch], config=conf,
+                              device="cuda")
+        out = []
+        walk_block(cg, coords[1000:1000 + cg.config.block],
+                   lambda u, ops: out.append((u, ops)))
+        return out
+
+    bwd_errs, timed = [], None
+    for order, conf, label in [(1, fused_cfg, "fused"), (2, fused_cfg, "fused"),
+                               (1, tiled_cfg, f"bn={tiled_cfg.bn}")]:
+        for region, (stream, rows, res, out_info) in regions(order, conf):
+            spec = region.spec
+            for R in (8, 1000):
+                st = stream if R == 8 else [
+                    (torch.rand(R, a.shape[1], generator=gen) * 2 - 1).to(dev)
+                    for a in stream]
+                cots = [torch.randn(R, c, generator=gen).to(dev)
+                        for c, _ in out_info]
+                got = region_bwd_call(spec, st, rows, res, cots)
+                want = region_bwd_plain(spec, st, rows, res, cots)
+                torch.cuda.synchronize()
+                errs = [scaled_err(a, b) for gs, ws in zip(got, want)
+                        for a, b in zip(gs, ws)]
+                bwd_errs += errs
+                t = device_ms(lambda: region_bwd_call(spec, st, rows, res,
+                                                      cots), 10)
+                prog = lower_bwd(spec, tuple(a.shape[1] for a in st),
+                                 tuple(a.shape[1] for a in rows),
+                                 tuple(tuple(a.shape) for a in res))
+                log(f"[fit] region_bwd order {order} {label}: "
+                    f"{len(spec.steps)} steps, {len(spec.tile_groups)} tile "
+                    f"groups, R={R}: {t} ms per call on the device, "
+                    f"{4 * prog.ws_floats} workspace bytes/CTA "
+                    f"({'shared' if prog.in_smem else 'global'}), scaled err "
+                    f"{max(s for _, s in errs):.3e}")
+                if order == 2 and R == 8 and timed is None:
+                    timed = (spec, (st, rows, res, cots), prog)
+    worst = max(s for _, s in bwd_errs)
+    if worst > 1e-4:
+        raise AssertionError(f"region_bwd disagrees: scaled err {worst:.3e}")
+    # the cost of one backward step: 1 and 16 chained mm steps
+    # ([8,256]@[256,256] + bias, sin(1 .)) and cos-mul-scale chain steps
+    x, e1 = [(torch.rand(8, 256, generator=gen) * 2 - 1).to(dev)
+             for _ in range(2)]
+    w = ((torch.rand(256, 256, generator=gen) * 2 - 1) / 16.0).to(dev)
+    b = (torch.rand(256, generator=gen) * 2 - 1).to(dev)
+    cot = [torch.randn(8, 256, generator=gen).to(dev)]
+    chain = (("cos", None), ("mul", None), ("scale", 30.0))
+    for label, steps, stream, res in [
+            ("mm", tuple(("mm", i + 1, i, 100, 101, 1.0, True)
+                         for i in range(16)), [x], [w, b]),
+            ("chain", tuple(("chain", i + 1, i, chain, (102,))
+                            for i in range(16)), [x, e1], [])]:
+        one = RegionKernelSpec(steps=steps[:1],
+                               stream_inputs=(0, 102)[:len(stream)],
+                               residents=(100, 101)[:len(res)], outputs=(1,))
+        many = dataclasses.replace(one, steps=steps, outputs=(16,))
+        t1 = device_ms(lambda: region_bwd_call(one, stream, [], res, cot), 10)
+        t16 = device_ms(lambda: region_bwd_call(many, stream, [], res, cot),
+                        10)
+        log(f"[fit] region_bwd one {label} step [8,256]: {t1} ms/launch; "
+            f"16 steps: {t16} ms/launch")
+    spec, ops, prog = timed
+    st, rows, res, cots = ops
+    elems = 2 * sum(t.numel() for t in (*st, *rows, *res)) \
+        + sum(c.numel() for c in cots)
+    record("region_bwd", "src/repro_torch/kernels/csrc/region_bwd.cu",
+           "src/repro/kernels/region.py:393", bwd_errs,
+           timing(lambda: region_bwd_call(spec, *ops), 20, 50),
+           timing(lambda: region_bwd_plain(spec, *ops), 20, 50),
+           4 * elems, prog.flops(8))
+
+    # -- 6b. the fit path, counted -------------------------------------------
+    def oracle_vg(loss, order, x, target, weights):
+        """Mean loss and its gradient per leaf, in float64 over the whole
+        grid: nested torch.autograd through the SIREN, no streaming."""
+        leaves = [[p[k].double().requires_grad_(True) for k in sorted(p)]
+                  for p in weights]                      # (b, w) per layer
+        xx = x.double().clone().requires_grad_(True)
+        y = xx
+        for li, (b, w) in enumerate(leaves):
+            y = y @ w + b
+            if li < len(leaves) - 1:
+                y = torch.sin(cfg.w0 * y)
+        outs = [y]
+        level = [y[:, c].sum() for c in range(y.shape[1])]
+        for _ in range(order):
+            grads = [torch.autograd.grad(s, xx, create_graph=True)[0]
+                     for s in level]
+            outs += grads
+            level = [gr[:, j].sum() for gr in grads
+                     for j in range(xx.shape[1])]
+        val = torch.mean(loss.row_loss(outs, target.double(), y.shape[1],
+                                       xx.shape[1]))
+        flat = [t for pair in leaves for t in pair]
+        grads = torch.autograd.grad(val, flat, allow_unused=True)
+        return val.detach(), [torch.zeros_like(t) if gr is None else gr
+                              for gr, t in zip(grads, flat)]
+
+    common.reset_launches()
+    rng = np.random.default_rng(SEED)
+    for order, loss in [(1, GradMSE()), (2, LaplacianMSE())]:
+        target = torch.from_numpy(rng.standard_normal(
+            (N, loss.target_cols(cfg.out_features, cfg.in_features))
+        ).astype(np.float32)).to(dev)
+        cf = compile_fit(f, loss, order, coords[:cfg.batch], params=params,
+                         config=fused_cfg, device="cuda")
+        cf.value_and_grad(params, coords[:cf.config.block],
+                          target[:cf.config.block])             # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        val, grads = cf.value_and_grad(params, coords, target)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        want_val, want = oracle_vg(loss, order, coords, target, params)
+        got = [p[k] for p in grads for k in sorted(p)]
+        errs = [scaled_err(a, b)[1] for a, b in zip(got, want)]
+        val_err = scaled_err(val.reshape(1), want_val.reshape(1))[1]
+        part = 512
+        part_ms = device_ms(lambda: cf.value_and_grad(
+            params, coords[:part], target[:part]), 1)
+        busy = (f"{part_ms * N / part / (wall * 1e3):.3f}"
+                if part_ms is not None else "not measured")
+        log(f"[fit] value_and_grad order {order} {type(loss).__name__}: "
+            f"N={N} {cf.describe()} loss={float(val):.6f} "
+            f"(scaled err {val_err:.3e}) leaf grad scaled errs "
+            f"{[f'{e:.2e}' for e in errs]} wall={wall * 1e3:.1f} ms "
+            f"us_per_row={wall * 1e6 / N:.3f} device_busy_share={busy}")
+        if max(errs + [val_err]) > 1e-4:
+            raise AssertionError(f"fit order {order}: scaled err "
+                                 f"{max(errs + [val_err]):.3e} > 1e-4")
+
+    # fit -> store -> a fresh engine serves the fitted weights
+    store_dir = ROOT / "build" / "chip_smoke_fit_store"
+    shutil.rmtree(store_dir, ignore_errors=True)
+    store = ArtifactStore(store_dir)
+    loss = LaplacianMSE()
+    target = torch.from_numpy(rng.standard_normal((N, 1)).astype(
+        np.float32)).to(dev)
+    cf = compile_fit(f, loss, 2, coords[:cfg.batch], params=params,
+                     config=fused_cfg, store=store, device="cuda")
+    t0 = time.perf_counter()
+    r = fit(cf, coords, target, steps=3, batch_rows=1024, key=SEED,
+            store=store, inr_id="fitted")
+    wall = time.perf_counter() - t0
+    if not all(np.isfinite(r.losses)):
+        raise AssertionError(f"fit losses {r.losses}")
+    engine = ServingEngine(store_dir)
+    engine.register("fitted", signature=cf.signature, weight_id="fitted")
+    (served,) = engine.serve([("fitted", coords)])
+    fitted_cg = compile_gradient(siren_fn(cfg, r.params), 2,
+                                 coords[:cfg.batch], config=fused_cfg,
+                                 device="cuda")
+    want = fitted_cg.apply_batched(coords)
+    serve_err = max(scaled_err(a, b)[1] for a, b in zip(served, want))
+    log(f"[fit] fit order 2 LaplacianMSE: 3 steps of 1,024 rows in "
+        f"{wall * 1e3:.1f} ms, losses {r.losses}; served from a fresh "
+        f"engine after put_weights: scaled err {serve_err:.3e} against "
+        f"compile_gradient of the fitted weights")
+    if serve_err > 1e-4:
+        raise AssertionError(f"fitted weights serve with err {serve_err:.3e}")
+    shutil.rmtree(store_dir, ignore_errors=True)
+
+    # fit_many: K = 2 lanes, each lane equal to fit with its weights
+    lanes = [params, siren_init(cfg, torch.Generator().manual_seed(SEED + 1),
+                                device=dev)]
+    targets = [torch.from_numpy(rng.standard_normal((N, 2)).astype(
+        np.float32)).to(dev) for _ in lanes]
+    cf = compile_fit(f, GradMSE(), 1, coords[:cfg.batch], params=params,
+                     config=fused_cfg, device="cuda")
+    t0 = time.perf_counter()
+    many = fit_many(cf, lanes, coords, targets, steps=2, batch_rows=1024,
+                    key=SEED)
+    wall = time.perf_counter() - t0
+    for k, (w, t) in enumerate(zip(lanes, targets)):
+        solo = fit(cf, coords, t, steps=2, params=w, batch_rows=1024,
+                   key=SEED)
+        same = solo.losses == many[k].losses and all(
+            torch.equal(a[key], b[key]) for a, b in zip(solo.params,
+                                                        many[k].params)
+            for key in a)
+        if not same:
+            raise AssertionError(f"fit_many lane {k} differs from fit")
+    log(f"[fit] fit_many K=2 order 1: 2 steps of 1,024 rows per lane in "
+        f"{wall * 1e3:.1f} ms; each lane torch.equal to fit")
+    launches = dict(common.LAUNCHES)
+    log(f"[launches] phase 6 (streamed fitting): {launches}")
+    if not (launches.get("region") and launches.get("region_bwd")):
+        raise AssertionError(f"the fit path launched {launches}, needs "
+                             f"region and region_bwd")
     return launches
 
 

@@ -282,9 +282,11 @@ def compile_cache_info() -> dict:
 
 
 def clear_compile_cache() -> None:
-    """Drop every cached artifact and reset the hit/miss accounting (the
-    tracer counter is monotonic by design: tests measure deltas)."""
+    """Drop every cached artifact (``compile_gradient``'s and
+    ``compile_fit``'s) and reset the hit/miss accounting (the tracer counter
+    is monotonic by design: tests measure deltas)."""
     _CACHE.clear()
+    _FIT_CACHE.clear()
     for k in _STATS:
         _STATS[k] = 0
 
@@ -373,6 +375,25 @@ def compile_gradient(fn, order: int, example_coords, *,
         cg._stored_in.add(store.root)
         _STATS["store_puts"] += 1
     return cg
+
+
+# compile_fit artifacts, keyed (CompiledGradient identity, Objective,
+# checkpoint cuts) — the heavy compile half already dedupes through _CACHE /
+# the store, so fit keys ride on the cg object itself (which the entry
+# keeps alive).  Populated by repro_torch.fit.compile.
+_FIT_CACHE: dict[tuple, object] = {}
+
+
+def compile_fit(fn, loss, order: int, example_coords, *, params,
+                config=None, block=None, use_pallas=None, store=None,
+                checkpoints="auto", device=None):
+    """Streamed-fitting front door: ``compile_gradient`` for the heavy half
+    (same three-level cache/store lookup), plus the online loss-gradient
+    program of DESIGN.md §11.  See ``repro_torch.fit.compile.compile_fit``."""
+    from repro_torch.fit.compile import compile_fit as _compile_fit
+    return _compile_fit(fn, loss, order, example_coords, params=params,
+                        config=config, block=block, use_pallas=use_pallas,
+                        store=store, checkpoints=checkpoints, device=device)
 
 
 def _request_key(fn, order, trace_b, shape, dtype, cfg):

@@ -40,7 +40,7 @@ LAUNCHES: collections.Counter = collections.Counter()
 ABI = {"region_rows": 8, "region_threads": 256, "region_instr_ints": 96,
        "max_ptrs": 96, "max_chain": 32, "max_extra": 16, "n_chain_ops": 18,
        "region_red_floats": 2048, "smem_dynamic_bytes": 231424,
-       "max_lanes": 65535}
+       "max_lanes": 65535, "region_bwd_io_ints": 4}
 
 _LIB = None
 _LOCK = threading.Lock()
@@ -153,6 +153,9 @@ _SIGNATURES = {
                         _VP], _I),
     "rt_matmul": ([_VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _I, _VP], _I),
     "rt_region": ([_VP, _VP, _I, _I, _VP, _VP, _I, _LL, _I, _VP, _VP], _I),
+    "rt_region_bwd": ([_VP, _VP, _I, _I, _I, _I, _VP, _LL, _I, _I, _VP, _LL,
+                       _VP, _VP], _I),
+    "rt_region_bwd_reduce": ([_VP, _LL, _LL, _VP, _VP], _I),
 }
 
 

@@ -12,6 +12,7 @@
 #define RT_MAX_LANES 65535      // weight lanes of one region launch
 #define RT_MAX_CHAIN 32         // steps of one elementwise chain
 #define RT_MAX_EXTRA 16         // streamed operands of one chain
+#define RT_BWD_IO_INTS 4        // ints per io entry of a backward program
 // mm partial sums one region CTA keeps in shared memory
 #define RT_RED_FLOATS (RT_REGION_THREADS * RT_REGION_ROWS)
 #define RT_SMEM_BYTES 232448    // shared memory one CTA may use on Hopper

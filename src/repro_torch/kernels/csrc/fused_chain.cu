@@ -69,7 +69,8 @@ extern "C" int rt_abi(int* vals, int n) {
   const int abi[] = {RT_REGION_ROWS, RT_REGION_THREADS, RT_INSTR_INTS,
                      RT_MAX_PTRS,    RT_MAX_CHAIN,      RT_MAX_EXTRA,
                      OP_COUNT,       RT_RED_FLOATS,
-                     RT_SMEM_BYTES - RT_SMEM_STATIC,    RT_MAX_LANES};
+                     RT_SMEM_BYTES - RT_SMEM_STATIC,    RT_MAX_LANES,
+                     RT_BWD_IO_INTS};
   const int m = (int)(sizeof(abi) / sizeof(abi[0]));
   for (int i = 0; i < n && i < m; ++i) vals[i] = abi[i];
   return m;

@@ -24,8 +24,10 @@ from repro_torch.kernels.common import (ABI, check_cuda_f32, check_launch,
 
 UNARY = {
     "sin": torch.sin, "cos": torch.cos, "exp": torch.exp, "tanh": torch.tanh,
-    "neg": torch.neg, "abs": torch.abs,
-    "relu": torch.relu,
+    # |x| with jnp.abs's derivative: 1 at 0, not torch.abs's 0
+    "neg": torch.neg, "abs": lambda x: x * torch.where(x >= 0, 1.0, -1.0),
+    # max(x, 0), as the reference's jnp.maximum: autograd splits ties evenly
+    "relu": lambda x: torch.maximum(x, x.new_zeros(())),
     "sigmoid": torch.sigmoid, "silu": lambda x: x * torch.sigmoid(x),
     "square": torch.square,
 }

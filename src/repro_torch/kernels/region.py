@@ -24,6 +24,12 @@ compiled-once interpreter: ``lower`` turns a spec, once per spec and operand
 widths, into an int32 instruction table (tile groups unrolled into
 per-tile instructions) and a float table that stay on the device, with every
 intermediate given a liveness-packed slot of a per-CTA workspace.
+
+``region_bwd_call`` (port of ``_region_bwd_call``) is the region's vjp for
+the fit path, on ``csrc/region_bwd.cu``: ``lower_bwd`` adds a backward
+table beside the forward one; ``region_bwd_plain`` is autograd through the
+plain region; ``region_grad_fn`` wraps forward and backward in a
+``torch.autograd.Function``.
 """
 
 from __future__ import annotations
@@ -215,6 +221,7 @@ _FLAG_SIN, _FLAG_ACC, _FLAG_EPI = 1, 2, 4
 # kernel's static arrays (csrc/abi.cuh RT_SMEM_BYTES - RT_SMEM_STATIC)
 _SMEM_BYTES = ABI["smem_dynamic_bytes"]
 _RED_FLOATS = ABI["region_red_floats"]
+_IO = ABI["region_bwd_io_ints"]
 
 
 @dataclass(frozen=True, eq=False)
@@ -236,24 +243,27 @@ class RegionProgram:
         """Operations one launch does on ``rows`` rows: 2 K N per row for an
         mm, one per element for each chain op."""
         table = self.prog[:self.n_instr * _INSTR].reshape(self.n_instr, _INSTR)
-        total = 0
-        for ins in table:
-            total += rows * int(ins[1]) * (int(ins[2]) if ins[0] == 0
-                                           else 2 * int(ins[2]))
-        return total
+        return _flops(table, rows)
 
 
-@functools.lru_cache(maxsize=512)
-def lower(spec: RegionKernelSpec, stream_cols: tuple, row_cols: tuple,
-          res_shapes: tuple) -> RegionProgram:
-    """Lower ``spec`` for operands of the given widths (stream inputs, rows)
-    and shapes (residents): tile groups unroll into per-tile instructions,
-    concat steps into column copies, and every intermediate gets a
-    workspace slot that is reused once the value is dead."""
-    ns, nb, nr = len(stream_cols), len(row_cols), len(res_shapes)
+@dataclass(frozen=True)
+class _Abstract:
+    """A spec unrolled into abstract instructions over values (tile groups
+    per tile, concats per operand): an operand is ``(value, column offset)``.
+    ``glob`` maps the kernel operands among the values (stream inputs and
+    bcast rows) to ``(pointer index, row stride)``."""
+    instrs: tuple
+    width: dict
+    glob: dict
+    res_ptr: dict
+    res_shape: dict
+
+
+def _abstract(spec: RegionKernelSpec, stream_cols: tuple, row_cols: tuple,
+              res_shapes: tuple) -> _Abstract:
+    ns, nb = len(stream_cols), len(row_cols)
     res_ptr = {nid: ns + nb + i for i, nid in enumerate(spec.residents)}
     res_shape = dict(zip(spec.residents, res_shapes))
-    out_ptr = {nid: ns + nb + nr + o for o, nid in enumerate(spec.outputs)}
     width: dict = {}
     glob: dict = {}                        # value -> (pointer, row stride)
     for i, (nid, c) in enumerate(zip(spec.stream_inputs, stream_cols)):
@@ -261,7 +271,6 @@ def lower(spec: RegionKernelSpec, stream_cols: tuple, row_cols: tuple,
     for j, (nid, c) in enumerate(zip(spec.bcast_rows, row_cols)):
         width[nid], glob[nid] = c, (ns + j, 0)
 
-    # abstract instructions over values; an operand is (value, column offset)
     instrs: list[tuple] = []
 
     def chain(out, coff, cols, x, ops, extras):
@@ -351,20 +360,89 @@ def lower(spec: RegionKernelSpec, stream_cols: tuple, row_cols: tuple,
     missing = [o for o in spec.outputs if o not in width]
     if missing:
         raise ValueError(f"region: outputs {missing} are never computed")
+    return _Abstract(instrs=tuple(instrs), width=width, glob=glob,
+                     res_ptr=res_ptr, res_shape=res_shape)
+
+
+def _viewer(width: dict, locate):
+    """``view(operand, cols) -> 5 ints`` (space, index, row stride, column
+    offset, column stride) for ``locate(value) -> (space, index, row
+    stride)``; a width-1 value read ``cols`` wide broadcasts its column."""
+    def view(operand, cols):
+        key, coff = operand
+        cs = 0 if (width[key] == 1 and cols > 1) else 1
+        if cs and coff + cols > width[key]:
+            raise ValueError(f"region: operand {key} of width {width[key]} "
+                             f"read at columns {coff}:{coff + cols}")
+        return [*locate(key), coff, cs]
+    return view
+
+
+def _encode(ab: _Abstract, view, base: int):
+    """The instruction table (``_INSTR`` ints per instruction), the chains'
+    opcodes (at ``base`` ints into the program) and the float constants."""
+    table = np.zeros((len(ab.instrs), _INSTR), np.int32)
+    op_ints: list[int] = []
+    consts: list[float] = []
+    for idx, ins in enumerate(ab.instrs):
+        if ins[0] == CHAIN:
+            _, out, cols, x, chain_steps, extras = ins
+            if len(extras) > ABI["max_extra"]:
+                raise ValueError(f"region: chain with {len(extras)} extras")
+            ops, vals = encode_chain(chain_steps)
+            fields = [0, cols, len(ops), base + len(op_ints), len(consts),
+                      len(extras)] + view(out, cols) + view(x, cols)
+            for e in extras:
+                fields += view(e, cols)
+            op_ints += ops
+            consts += vals
+        else:
+            _, out, N, x, (w, k0, n0, K, bias, w0, flags) = ins
+            xv = view(x, K)
+            xv[4] = 1
+            fields = ([1, N, K, ab.res_ptr[w], ab.res_shape[w][1], k0, n0,
+                       ab.res_ptr[bias] if bias is not None else -1, flags,
+                       len(consts)] + view(out, N) + xv)
+            consts.append(w0)
+        table[idx, :len(fields)] = fields
+    return table, op_ints, consts
+
+
+def _reads(ins):
+    if ins[0] == CHAIN:
+        return [ins[3][0]] + [k for k, _ in ins[5]]
+    return [ins[3][0]] + ([ins[1][0]] if ins[4][6] & _FLAG_ACC else [])
+
+
+def _flops(table: np.ndarray, rows: int) -> int:
+    """2 K N per row for an mm, one per element for each chain op."""
+    total = 0
+    for ins in table:
+        total += rows * int(ins[1]) * (int(ins[2]) if ins[0] == 0
+                                       else 2 * int(ins[2]))
+    return total
+
+
+@functools.lru_cache(maxsize=512)
+def lower(spec: RegionKernelSpec, stream_cols: tuple, row_cols: tuple,
+          res_shapes: tuple) -> RegionProgram:
+    """Lower ``spec`` for operands of the given widths (stream inputs, rows)
+    and shapes (residents): tile groups unroll into per-tile instructions,
+    concat steps into column copies, and every intermediate gets a
+    workspace slot that is reused once the value is dead."""
+    ab = _abstract(spec, stream_cols, row_cols, res_shapes)
+    instrs, width, glob = ab.instrs, ab.width, ab.glob
+    nbase = len(stream_cols) + len(row_cols) + len(res_shapes)
+    out_ptr = {nid: nbase + o for o, nid in enumerate(spec.outputs)}
 
     # liveness-packed workspace slots for every value that is neither a
     # kernel operand nor an output
     def in_ws(key):
         return key not in glob and key not in out_ptr
 
-    def reads(ins):
-        if ins[0] == CHAIN:
-            return [ins[3][0]] + [k for k, _ in ins[5]]
-        return [ins[3][0]] + ([ins[1][0]] if ins[4][6] & _FLAG_ACC else [])
-
     last_use = {}
     for idx, ins in enumerate(instrs):
-        for k in [ins[1][0]] + reads(ins):
+        for k in [ins[1][0]] + _reads(ins):
             last_use[k] = idx
     slots: dict = {}
     live: list[tuple[int, int, object]] = []   # (offset, size, value)
@@ -383,45 +461,15 @@ def lower(spec: RegionKernelSpec, stream_cols: tuple, row_cols: tuple,
             ws_floats = max(ws_floats, off + size)
         live = [t for t in live if last_use[t[2]] > idx]
 
-    def view(operand, cols):
-        key, coff = operand
-        cs = 0 if (width[key] == 1 and cols > 1) else 1
-        if cs and coff + cols > width[key]:
-            raise ValueError(f"region: operand {key} of width {width[key]} "
-                             f"read at columns {coff}:{coff + cols}")
+    def locate(key):
         if key in glob:
-            ptr, ld = glob[key]
-            return [0, ptr, ld, coff, cs]
+            return (0, *glob[key])
         if key in out_ptr:
-            return [0, out_ptr[key], width[key], coff, cs]
-        return [1, slots[key], width[key], coff, cs]
+            return (0, out_ptr[key], width[key])
+        return (1, slots[key], width[key])
 
-    table = np.zeros((len(instrs), _INSTR), np.int32)
-    op_ints: list[int] = []
-    consts: list[float] = []
-    base = len(instrs) * _INSTR
-    for idx, ins in enumerate(instrs):
-        row = table[idx]
-        if ins[0] == CHAIN:
-            _, out, cols, x, chain_steps, extras = ins
-            if len(extras) > ABI["max_extra"]:
-                raise ValueError(f"region: chain with {len(extras)} extras")
-            ops, vals = encode_chain(chain_steps)
-            fields = [0, cols, len(ops), base + len(op_ints), len(consts),
-                      len(extras)] + view(out, cols) + view(x, cols)
-            for e in extras:
-                fields += view(e, cols)
-            op_ints += ops
-            consts += vals
-        else:
-            _, out, N, x, (w, k0, n0, K, bias, w0, flags) = ins
-            xv = view(x, K)
-            xv[4] = 1
-            fields = ([1, N, K, res_ptr[w], res_shape[w][1], k0, n0,
-                       res_ptr[bias] if bias is not None else -1, flags,
-                       len(consts)] + view(out, N) + xv)
-            consts.append(w0)
-        row[:len(fields)] = fields
+    table, op_ints, consts = _encode(ab, _viewer(width, locate),
+                                     len(instrs) * _INSTR)
     prog = np.concatenate([table.ravel(), np.asarray(op_ints, np.int32)])
     return RegionProgram(prog=prog,
                          consts=np.asarray(consts or [0.0], np.float32),
@@ -429,10 +477,131 @@ def lower(spec: RegionKernelSpec, stream_cols: tuple, row_cols: tuple,
                          out_cols=tuple(width[o] for o in spec.outputs))
 
 
+@dataclass(frozen=True, eq=False)
+class RegionBwdProgram:
+    """A spec lowered for ``csrc/region_bwd.cu``: the forward table (every
+    value in its own workspace slot), the backward table beside it, the
+    chains' opcodes, then ``n_io`` io entries at ``io_off``; float
+    constants; the per-CTA workspace (values and sin arguments, then the
+    cotangent slots from ``cot_off``); and the layout of the flat parameter
+    cotangent: ``part_offsets`` per bcast row then per resident, of
+    ``part_floats`` floats in all."""
+    prog: np.ndarray
+    consts: np.ndarray
+    n_instr: int
+    io_off: int
+    n_io: int
+    ws_floats: int
+    cot_off: int
+    out_cols: tuple[int, ...]
+    part_offsets: tuple[int, ...]
+    part_floats: int
+
+    @property
+    def in_smem(self) -> bool:
+        """Whether the workspace fits in shared memory beside the two
+        staging buffers (x and dpre) of the mm steps."""
+        return 4 * (2 * _RED_FLOATS + self.ws_floats) <= _SMEM_BYTES
+
+    def flops(self, rows: int) -> int:
+        """Operations one launch does on ``rows`` rows: the forward's
+        (``RegionProgram.flops``), then 4 K N per row for an mm's dx and dW
+        and two per element for each chain op's pullback."""
+        table = self.prog[:self.n_instr * _INSTR].reshape(self.n_instr,
+                                                          _INSTR)
+        return 3 * _flops(table, rows)
+
+
 @functools.lru_cache(maxsize=512)
-def _device_program(prog: RegionProgram, device: torch.device):
-    """The program's tables on ``device``, uploaded once per program (a
-    program hashes by identity, and ``lower`` returns one per spec)."""
+def lower_bwd(spec: RegionKernelSpec, stream_cols: tuple, row_cols: tuple,
+              res_shapes: tuple) -> RegionBwdProgram:
+    """Lower ``spec``'s backward for operands of the given widths and
+    shapes.  The forward table is ``lower``'s with every value (outputs
+    too) in its own workspace slot, since the reverse walk reads them all;
+    each mm with a sin epilogue gets a slot for its argument.  The backward
+    table gives each instruction the cotangent views of its output and
+    operands (one slot per value, kernel operands included) and, for an mm,
+    where its weight's and bias's cotangents start in the flat parameter
+    cotangent."""
+    ab = _abstract(spec, stream_cols, row_cols, res_shapes)
+    instrs, width, glob = ab.instrs, ab.width, ab.glob
+    n = len(instrs)
+    ns, nb, nr = len(stream_cols), len(row_cols), len(res_shapes)
+    n_out = len(spec.outputs)
+
+    ws_floats = 0
+
+    def alloc(cols):
+        nonlocal ws_floats
+        ws_floats += _ROWS * cols
+        return ws_floats - _ROWS * cols
+
+    slots: dict = {}
+    for ins in instrs:
+        out = ins[1][0]
+        if out not in glob and out not in slots:
+            slots[out] = alloc(width[out])
+    pre = {idx: alloc(ins[2]) for idx, ins in enumerate(instrs)
+           if ins[0] == MM
+           and ins[4][6] & (_FLAG_EPI | _FLAG_SIN) == _FLAG_EPI | _FLAG_SIN}
+    cot_off = ws_floats
+    cot = {key: alloc(width[key]) for key in (*glob, *slots)}
+
+    offsets, part = [], 0
+    for c in row_cols:
+        offsets.append(part)
+        part += c
+    for shape in res_shapes:
+        offsets.append(part)
+        part += math.prod(shape)
+    res_off = {nid: offsets[nb + i] for i, nid in enumerate(spec.residents)}
+
+    def locate(key):
+        if key in glob:
+            return (0, *glob[key])
+        return (1, slots[key], width[key])
+
+    table, op_ints, consts = _encode(ab, _viewer(width, locate), 2 * n * _INSTR)
+    cview = _viewer(width, lambda key: (1, cot[key], width[key]))
+    btable = np.zeros((n, _INSTR), np.int32)
+    for idx, ins in enumerate(instrs):
+        if ins[0] == CHAIN:
+            _, out, cols, x, _, extras = ins
+            fields = cview(out, cols) + cview(x, cols)
+            for e in extras:
+                fields += cview(e, cols)
+        else:
+            _, out, N, x, (w, _, _, K, bias, _, _) = ins
+            xv = cview(x, K)
+            xv[4] = 1
+            fields = cview(out, N) + xv + [
+                pre.get(idx, -1), res_off[w],
+                res_off[bias] if bias is not None else -1]
+        btable[idx, :len(fields)] = fields
+
+    io: list[int] = []
+    for o, nid in enumerate(spec.outputs):
+        io += [0, ns + nb + nr + o, width[nid], cot[nid]]
+    for j, nid in enumerate(spec.stream_inputs):
+        io += [1, ns + nb + nr + n_out + j, width[nid], cot[nid]]
+    for j, nid in enumerate(spec.bcast_rows):
+        io += [2, offsets[j], width[nid], cot[nid]]
+    io_off = 2 * n * _INSTR + len(op_ints)
+    prog = np.concatenate([table.ravel(), btable.ravel(),
+                           np.asarray(op_ints, np.int32),
+                           np.asarray(io, np.int32)])
+    return RegionBwdProgram(
+        prog=prog, consts=np.asarray(consts or [0.0], np.float32),
+        n_instr=n, io_off=io_off, n_io=len(io) // _IO, ws_floats=ws_floats,
+        cot_off=cot_off, out_cols=tuple(width[o] for o in spec.outputs),
+        part_offsets=tuple(offsets), part_floats=part)
+
+
+@functools.lru_cache(maxsize=512)
+def _device_program(prog, device: torch.device):
+    """A ``RegionProgram``'s or ``RegionBwdProgram``'s tables on ``device``,
+    uploaded once per program (a program hashes by identity, and ``lower``
+    / ``lower_bwd`` return one per spec)."""
     return (torch.from_numpy(prog.prog).to(device),
             torch.from_numpy(prog.consts).to(device))
 
@@ -450,6 +619,27 @@ def _check_arity(name, spec: RegionKernelSpec, stream, rows, residents):
     if len(residents) != len(spec.residents):
         raise ValueError(f"{name}: {len(residents)} residents for "
                          f"{spec.residents}")
+
+
+def _operand_names(name, R, stream, rows, residents) -> dict:
+    """The operands of a single-lane launch by name, once their shapes are
+    checked: stream inputs [R, C], rows [1, C], residents 1-D or 2-D."""
+    named = {}
+    for k, a in enumerate(stream):
+        if a.dim() != 2 or a.shape[0] != R:
+            raise ValueError(f"{name}: stream input {k} must be [{R}, C], "
+                             f"got {tuple(a.shape)}")
+        named[f"stream{k}"] = a
+    for k, a in enumerate(rows):
+        if a.dim() != 2 or a.shape[0] != 1:
+            raise ValueError(f"{name}: row {k} must be [1, C], got "
+                             f"{tuple(a.shape)}")
+        named[f"row{k}"] = a
+    for k, a in enumerate(residents):
+        if a.dim() not in (1, 2):
+            raise ValueError(f"{name}: resident {k} must be 1-D or 2-D")
+        named[f"resident{k}"] = a
+    return named
 
 
 def _lowered(name, spec: RegionKernelSpec, stream_cols, row_cols,
@@ -489,22 +679,8 @@ def region_call(spec: RegionKernelSpec, stream, rows, residents, out_info):
     if dev.type != "cuda":
         raise ValueError(f"region: unsupported device {dev}")
     R = stream[0].shape[0]
-    named = {}
-    for k, a in enumerate(stream):
-        if a.dim() != 2 or a.shape[0] != R:
-            raise ValueError(f"region: stream input {k} must be [{R}, C], "
-                             f"got {tuple(a.shape)}")
-        named[f"stream{k}"] = a
-    for k, a in enumerate(rows):
-        if a.dim() != 2 or a.shape[0] != 1:
-            raise ValueError(f"region: row {k} must be [1, C], got "
-                             f"{tuple(a.shape)}")
-        named[f"row{k}"] = a
-    for k, a in enumerate(residents):
-        if a.dim() not in (1, 2):
-            raise ValueError(f"region: resident {k} must be 1-D or 2-D")
-        named[f"resident{k}"] = a
-    check_cuda_f32("region", dev, **named)
+    check_cuda_f32("region", dev,
+                   **_operand_names("region", R, stream, rows, residents))
     prog = _lowered("region", spec, tuple(a.shape[1] for a in stream),
                     tuple(a.shape[1] for a in rows),
                     tuple(tuple(a.shape) for a in residents), out_info)
@@ -614,3 +790,126 @@ def region_call_stacked(spec: RegionKernelSpec, stream, rows, residents,
         gws.data_ptr() if gws is not None else None, stream_handle(dev))
     check_launch(rc, "region_stacked")
     return outs
+
+
+# ---------------------------------------------------------------------------
+# the backward: the fit path's differentiable region call
+# ---------------------------------------------------------------------------
+
+def region_bwd_plain(spec: RegionKernelSpec, stream, rows, residents, cots):
+    """The region's vjp by ``torch.autograd.grad`` through
+    ``region_call_plain``: the reference kernel body's replay under
+    ``jax.vjp``.  Returns ``(d_stream, d_rows, d_residents)``, each a tuple
+    of float32 tensors shaped like its operands (zeros where an operand
+    does not reach an output)."""
+    ns, nb = len(stream), len(rows)
+    with torch.enable_grad():
+        ops = [a.detach().float().requires_grad_(True)
+               for a in (*stream, *rows, *residents)]
+        outs = region_call_plain(spec, ops[:ns], ops[ns:ns + nb],
+                                 ops[ns + nb:],
+                                 [(c.shape[1], torch.float32) for c in cots])
+        grads = torch.autograd.grad(outs, ops,
+                                    grad_outputs=[c.float() for c in cots],
+                                    allow_unused=True)
+    flat = tuple(torch.zeros_like(o) if g is None else g
+                 for g, o in zip(grads, ops))
+    return flat[:ns], flat[ns:ns + nb], flat[ns + nb:]
+
+
+def region_bwd_call(spec: RegionKernelSpec, stream, rows, residents, cots):
+    """The vjp of ``region_call`` at ``(stream, rows, residents)`` for the
+    output cotangents ``cots`` ([R, C_out] per ``spec.outputs`` entry).
+
+    Returns ``(d_stream, d_rows, d_residents)``: per-row ``[R, C]`` stream
+    cotangents, and ``[1, C]`` row and resident-shaped cotangents summed
+    over all rows.  CPU tensors take the plain version; CUDA tensors the
+    kernel (one ``region_bwd`` launch, and one ``region_bwd_reduce``
+    launch when ``R`` spans more than one row tile)."""
+    _check_arity("region_bwd", spec, stream, rows, residents)
+    if len(cots) != len(spec.outputs):
+        raise ValueError(f"region_bwd: {len(cots)} cotangents for "
+                         f"{spec.outputs}")
+    dev = stream[0].device
+    if dev.type == "cpu":
+        return region_bwd_plain(spec, stream, rows, residents, cots)
+    if dev.type != "cuda":
+        raise ValueError(f"region_bwd: unsupported device {dev}")
+    R = stream[0].shape[0]
+    named = _operand_names("region_bwd", R, stream, rows, residents)
+    named.update((f"cot{k}", a) for k, a in enumerate(cots))
+    check_cuda_f32("region_bwd", dev, **named)
+    prog = lower_bwd(spec, tuple(a.shape[1] for a in stream),
+                     tuple(a.shape[1] for a in rows),
+                     tuple(tuple(a.shape) for a in residents))
+    want = tuple((R, c) for c in prog.out_cols)
+    if tuple(tuple(c.shape) for c in cots) != want:
+        raise ValueError(f"region_bwd: cotangents "
+                         f"{[tuple(c.shape) for c in cots]}, want {want}")
+    d_stream = tuple(torch.empty_like(a) for a in stream)
+    flat = torch.empty(prog.part_floats, device=dev, dtype=torch.float32)
+    if R:
+        n_tiles = cdiv(R, _ROWS)
+        part = flat if n_tiles == 1 else torch.empty(
+            n_tiles * prog.part_floats, device=dev, dtype=torch.float32)
+        gws = None
+        if not prog.in_smem:
+            gws = torch.empty(n_tiles * prog.ws_floats, device=dev,
+                              dtype=torch.float32)
+        ptrs = _pointers("region_bwd",
+                         (*stream, *rows, *residents, *cots, *d_stream))
+        prog_d, consts_d = _device_program(prog, dev)
+        lib = load_library()
+        rc = lib.rt_region_bwd(
+            prog_d.data_ptr(), consts_d.data_ptr(), prog.n_instr, prog.io_off,
+            prog.n_io, len(ptrs), (ctypes.c_longlong * len(ptrs))(*ptrs), R,
+            prog.ws_floats, prog.cot_off,
+            gws.data_ptr() if gws is not None else None, prog.part_floats,
+            part.data_ptr(), stream_handle(dev))
+        check_launch(rc, "region_bwd")
+        if n_tiles > 1:
+            rc = lib.rt_region_bwd_reduce(part.data_ptr(), n_tiles,
+                                          prog.part_floats, flat.data_ptr(),
+                                          stream_handle(dev))
+            check_launch(rc, "region_bwd_reduce")
+    else:
+        flat.zero_()
+    shapes = [(1, a.shape[1]) for a in rows] + [tuple(a.shape)
+                                                for a in residents]
+    grads = tuple(flat[off:off + math.prod(shape)].view(shape)
+                  for off, shape in zip(prog.part_offsets, shapes))
+    return d_stream, grads[:len(rows)], grads[len(rows):]
+
+
+class _RegionGrad(torch.autograd.Function):
+    """``region_call`` forward, ``region_bwd_call`` backward, over the flat
+    operand tuple ``(*stream, *rows, *residents)``."""
+
+    @staticmethod
+    def forward(ctx, spec, out_info, n_stream, n_rows, *ops):
+        ctx.spec, ctx.ns, ctx.nb = spec, n_stream, n_rows
+        ctx.save_for_backward(*ops)
+        return region_call(spec, list(ops[:n_stream]),
+                           list(ops[n_stream:n_stream + n_rows]),
+                           list(ops[n_stream + n_rows:]), out_info)
+
+    @staticmethod
+    def backward(ctx, *cots):
+        ops = ctx.saved_tensors
+        ns, nb = ctx.ns, ctx.nb
+        d_stream, d_rows, d_res = region_bwd_call(
+            ctx.spec, list(ops[:ns]), list(ops[ns:ns + nb]),
+            list(ops[ns + nb:]), [c.float().contiguous() for c in cots])
+        flat = (*d_stream, *d_rows, *d_res)
+        return (None, None, None, None,
+                *(d.to(o.dtype) for d, o in zip(flat, ops)))
+
+
+@functools.lru_cache(maxsize=512)
+def region_grad_fn(spec: RegionKernelSpec, out_info: tuple):
+    """Differentiable region call for the streamed fitting path, cached per
+    ``(spec, out_info)``: a callable over the flat operand tuple
+    ``(*stream, *rows, *residents)`` whose forward IS ``region_call``
+    (bit-identical to serving) and whose backward is ``region_bwd_call``."""
+    ns, nb = len(spec.stream_inputs), len(spec.bcast_rows)
+    return functools.partial(_RegionGrad.apply, spec, out_info, ns, nb)

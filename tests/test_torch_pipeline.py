@@ -121,9 +121,9 @@ def test_entry_point_raises_without_cuda(monkeypatch, both):
 
 
 def test_port_imports_no_jax():
-    """Compile and serve through the port in a fresh interpreter, with its
-    serving, telemetry and checkpoint packages loaded: neither JAX nor the
-    reference package may be imported."""
+    """Compile, serve and fit through the port in a fresh interpreter, with
+    its serving, telemetry, checkpoint, fitting and optimizer packages
+    loaded: neither JAX nor the reference package may be imported."""
     code = """
 import sys, torch
 from repro_torch.configs.siren import SirenConfig
@@ -132,11 +132,18 @@ from repro_torch.inr.siren import siren_fn, siren_init
 import repro_torch.kernels.region, repro_torch.kernels.siren_layer
 import repro_torch.kernels.stream_matmul, repro_torch.kernels.fused_chain
 import repro_torch.serve, repro_torch.obs, repro_torch.checkpoint.ckpt
+import repro_torch.fit, repro_torch.optim.adam
 cfg = SirenConfig(hidden_features=16, hidden_layers=1)
-f = siren_fn(cfg, siren_init(cfg, torch.Generator().manual_seed(0)))
+params = siren_init(cfg, torch.Generator().manual_seed(0))
+f = siren_fn(cfg, params)
 cg = compile_gradient(f, 2, torch.zeros(16, 2), device="cpu")
 outs = cg.apply_batched(torch.rand(20, 2))
 assert [tuple(o.shape) for o in outs] == [(20, 1), (20, 2), (20, 2), (20, 2)]
+cf = repro_torch.fit.compile_fit(f, repro_torch.fit.GradMSE(), 1,
+                                 torch.zeros(16, 2), params=params,
+                                 device="cpu")
+r = repro_torch.fit.fit(cf, torch.rand(20, 2), torch.rand(20, 2), steps=1)
+assert len(r.losses) == 1
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
