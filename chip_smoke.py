@@ -35,20 +35,37 @@ Phases (any failure exits non-zero; nothing is caught):
      1,024-row chunks) -> ArtifactStore -> a fresh ServingEngine, within
      1e-4 of compile_gradient of the fitted weights; fit_many with K = 2
      lanes, each torch.equal to fit;
-  7. the launches of every kernel on each path, counted from 0 just before
+  7. LM serving: flash_attention against its plain version and a float64
+     evaluation (sliced over heads) at the qwen3-8b prefill shape (bf16,
+     causal), a gemma3-4b local layer (bf16, window 1,024, ragged length),
+     q shorter than k (fp32) and a phi3-like MHA (fp32, D = 96): fp32 within
+     1e-5 of max|oracle|, bf16 at most twice the plain version's error;
+     ssd_scan against its plain version (<= 1e-6 scaled) at the mamba2-2.7b
+     shape and a ragged one, then through ``kernels/ops.py``; qwen3-8b at
+     full width: 4 layers in fp32, the kernel prefill against the "flash"
+     prefill (last logits and caches <= 1e-4 scaled) and one decode step
+     against the kernel forward's argmax; then all 36 layers served in
+     bf16 (B = 2, S = 4,096): prefill through the kernel (36 launches per
+     prefill), 16 greedy decode steps (no launch), the "flash" prefill's
+     logits beside the kernel's;
+  8. the launches of every kernel on each path, counted from 0 just before
      the path and read just after it: phase 4 must launch region,
      fused_chain, stream_matmul and siren_layer, phase 5 region_stacked
      (stacked path) and region and fused_chain (per-lane path), phase 6
-     region and region_bwd; one JSON line of per-kernel numbers;
-  8. the last line: {"ok": true, "device": {...}}.
+     region and region_bwd, phase 7 flash_attention (LM serving) and
+     ssd_scan (the kernel library's entry point); one JSON line of
+     per-kernel numbers;
+  9. the last line: {"ok": true, "device": {...}}.
 
 Times: ``ms`` is the device time of one call (torch.profiler, the sum of
 the kernel records per call; for a plain version, every kernel it
 launches), ``call_ms`` the time per call of back-to-back calls on the
 stream (CUDA events; includes the host's launch path, so a plain version
 of many small launches reads host time).  ``bound_ms`` is the larger
-of bytes / 3.35 TB/s and flops / 67 TFLOP/s (H100 SXM fp32 without tensor
-cores), each input and output counted once.
+of bytes / 3.35 TB/s and flops / the card's peak rate for the inputs'
+type, each input and output counted once: 67 TFLOP/s for fp32 (H100 SXM
+without tensor cores) and 989 TFLOP/s for bf16 (dense tensor cores),
+whichever units a kernel actually uses.
 """
 
 from __future__ import annotations
@@ -64,16 +81,31 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 SEED = 0
+# phase 7: attention checks (label, (B, Sq, H, KH, D), Sk, dtype, window),
+# the first at the served model's prefill shape; ssd_scan shapes [BH, NC, P,
+# N], the first mamba2-2.7b's (B = 2, S = 4,096, chunk 128); the served
+# model, its fp32 check's depth and length, its length, its decode steps
+ATTN_CASES = [("qwen3-8b prefill", (2, 4096, 32, 8, 128), 4096, "bfloat16", 0),
+              ("gemma3-4b local layer", (1, 3000, 8, 4, 256), 3000,
+               "bfloat16", 1024),
+              ("q shorter than k", (2, 100, 32, 8, 128), 1000, "float32", 0),
+              ("phi3-like MHA", (1, 2048, 32, 32, 96), 2048, "float32", 0)]
+SCAN_SHAPES = [(160, 32, 64, 128), (3, 5, 7, 9)]
+LM_ARCH, LM_F32_LAYERS, LM_F32_SEQ, LM_SEQ, LM_STEPS = \
+    "qwen3-8b", 4, 1024, 4096, 16
 
 
 def log(*a):
     print(*a, flush=True)
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, peak_flops_per_s: float):
+    """The least time the card could take: bytes at the memory rate or
+    flops at ``peak_flops_per_s``, the peak of the inputs' type."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / peak_flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -150,8 +182,9 @@ def main() -> int:
         e.synchronize()
         return s.elapsed_time(e) / iters
 
-    def device_ms(fn, iters=50):
+    def device_ms(fn, iters=50, by_kernel=False):
         """Kernel time per call from torch.profiler; None if it saw none.
+        ``by_kernel``: a dict of it by kernel name instead of the sum.
 
         Once many launches have run unprofiled, the profiler leaves out the
         first few kernel records of a session (on the H100, a stacked
@@ -182,10 +215,16 @@ def main() -> int:
         else:
             log("[timing] the profiler lost the leading records 3 times")
             return None
-        total = sum(getattr(ev, "self_device_time_total", None)
+        times = {}
+        for ev in recs:
+            if "spin_kernel" not in ev.key:
+                t = getattr(ev, "self_device_time_total", None) \
                     or getattr(ev, "self_cuda_time_total", 0.0)
-                    for ev in recs if "spin_kernel" not in ev.key)
-        return total / iters / 1e3 if total > 0 else None
+                times[ev.key] = times.get(ev.key, 0.0) + t / iters / 1e3
+        total = sum(times.values())
+        if total <= 0:
+            return None
+        return times if by_kernel else total
 
     def timing(fn, iters=50, call_iters=200):
         dms, cms = device_ms(fn, iters), call_ms(fn, call_iters)
@@ -194,8 +233,8 @@ def main() -> int:
     kernels = {}
 
     def record(name, source, replaces, errs, t_k, t_p, nbytes, flops,
-               library_ms=None):
-        b, by = bound_ms(nbytes, flops)
+               library_ms=None, peak_flops_per_s=FP32_FLOPS_PER_S):
+        b, by = bound_ms(nbytes, flops, peak_flops_per_s)
         kernels[name] = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": 0,
@@ -462,13 +501,20 @@ def main() -> int:
         log, torch, dev, cfg, f, params, coords_small, fused_cfg, tiled_cfg,
         walk_block, scaled_err, device_ms, timing, record)
 
-    # -- 7. launches ---------------------------------------------------------
+    # -- 7. LM serving --------------------------------------------------------
+    launches_ops, launches_lm = lm_phase(log, torch, dev, scaled_err,
+                                         device_ms, timing, record)
+
+    # -- 8. launches ---------------------------------------------------------
     # ``launches`` counts the path a kernel was ported for (phase 4's for
     # PR 11's kernels, phase 5's for region_stacked, phase 6's for
-    # region_bwd); ``launches_by_path`` gives every path's own count.
+    # region_bwd, phase 7's for flash_attention and ssd_scan);
+    # ``launches_by_path`` gives every path's own count.
     paths = {"compile_gradient": launches_main, "multi_inr": launches_multi,
-             "fit": launches_fit}
-    home = {"region_stacked": "multi_inr", "region_bwd": "fit"}
+             "fit": launches_fit, "lm_serve": launches_lm,
+             "kernel_ops": launches_ops}
+    home = {"region_stacked": "multi_inr", "region_bwd": "fit",
+            "flash_attention": "lm_serve", "ssd_scan": "kernel_ops"}
     for name, rec in kernels.items():
         rec["launches_by_path"] = {p: c.get(name, 0) for p, c in paths.items()}
         rec["launches"] = rec["launches_by_path"][
@@ -907,6 +953,302 @@ def fit_phase(log, torch, dev, cfg, f, params, coords, fused_cfg, tiled_cfg,
         raise AssertionError(f"the fit path launched {launches}, needs "
                              f"region and region_bwd")
     return launches
+
+
+
+def attention_flops(B, Sq, Sk, H, D, *, causal, window):
+    """Operations of one attention call on these masks: 4 D for each
+    visible (query, key) pair (q.k and p.v), for every batch and q head."""
+    pairs = 0
+    for i in range(Sq):
+        q_pos = Sk - Sq + i
+        hi = min(q_pos + 1, Sk) if causal else Sk
+        lo = max(q_pos - window + 1, 0) if window > 0 else 0
+        pairs += max(hi - lo, 0)
+    return 4 * D * pairs * B * H
+
+
+def kernel_classes(times):
+    """Device ms by class of kernel name: the port's attention kernel,
+    library GEMMs (cuBLAS names them gemm*, gemv* or nvjet*), and everything
+    else (norms, rope, casts, copies)."""
+    out = {"flash_attention": 0.0, "gemm": 0.0, "other": 0.0}
+    for key, ms in times.items():
+        low = key.lower()
+        if "fa_fwd_kernel" in key:
+            out["flash_attention"] += ms
+        elif any(w in low for w in ("gemm", "gemv", "nvjet", "cutlass",
+                                    "xmma", "sm90_")):
+            out["gemm"] += ms
+        else:
+            out["other"] += ms
+    total = sum(out.values())
+    return {k: f"{v:.3f} ms ({v / total:.3f})" for k, v in out.items()}
+
+
+def lm_phase(log, torch, dev, scaled_err, device_ms, timing, record):
+    """Phase 7; returns the launches of the kernel library's entry point
+    (``kernels/ops.py``) and of LM serving, each counted from 0 just before
+    it (the kernel checks before them are not counted)."""
+    import dataclasses
+    import math
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import common, ops
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    from repro_torch.launch.steps import (HParams, build_prefill_step,
+                                          build_serve_step, serving_params)
+    from repro_torch.models import zoo
+    from repro_torch.models.template import init_params, tree_leaves
+
+    t_phase = time.perf_counter()
+    # XLA accumulates bf16 products in fp32: so must every reference here
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+
+    # -- 7a. flash_attention at the path's shapes ---------------------------
+    def oracle64(q, k, v, causal, window):
+        """float64 attention on the (rounded) inputs, one q head at a time."""
+        B, Sq, H, D = q.shape
+        Sk, G = k.shape[1], H // k.shape[2]
+        q_pos = (Sk - Sq) + torch.arange(Sq, device=dev)
+        k_pos = torch.arange(Sk, device=dev)
+        mask = torch.ones((Sq, Sk), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= q_pos[:, None] >= k_pos[None, :]
+        if window > 0:
+            mask &= (q_pos[:, None] - k_pos[None, :]) < window
+        out = torch.empty((B, Sq, H, D), dtype=torch.float64, device=dev)
+        for h in range(H):
+            s = q[:, :, h].double() @ k[:, :, h // G].double().transpose(1, 2)
+            s = torch.where(mask, s / math.sqrt(D), -math.inf)
+            out[:, :, h] = torch.softmax(s, -1) @ v[:, :, h // G].double()
+        return out
+
+    fa_errs, timed = [], None
+    for label, (B, Sq, H, KH, D), Sk, dt, window in ATTN_CASES:
+        dt = getattr(torch, dt)
+        q = torch.randn((B, Sq, H, D), generator=gen, device=dev).to(dt)
+        k = torch.randn((B, Sk, KH, D), generator=gen, device=dev).to(dt)
+        v = torch.randn((B, Sk, KH, D), generator=gen, device=dev).to(dt)
+        got = flash_attention(q, k, v, causal=True, window=window)
+        plain = flash_attention_plain(q, k, v, causal=True, window=window)
+        exact = oracle64(q, k, v, True, window)
+        torch.cuda.synchronize()
+        if got.dtype != dt or tuple(got.shape) != (B, Sq, H, D) or \
+                not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"flash_attention {label}: bad output "
+                                 f"{got.dtype} {tuple(got.shape)}")
+        k_err, k_scaled = scaled_err(got, exact)
+        p_err, p_scaled = scaled_err(plain, exact)
+        vs_plain = scaled_err(got, plain)
+        fa_errs.append(vs_plain)
+        if dt == torch.float32:
+            ok = k_scaled <= 1e-5 and vs_plain[1] <= 1e-5
+            rule = "fp32: <= 1e-5 of max|oracle|"
+        else:
+            ok = k_err <= 2 * p_err
+            rule = "bf16: at most 2x the plain version's error"
+        t = device_ms(lambda: flash_attention(q, k, v, causal=True,
+                                              window=window), 5)
+        log(f"[lm] flash_attention {label}: q {tuple(q.shape)} k "
+            f"{tuple(k.shape)} {str(dt)[6:]} window {window}: err against "
+            f"float64 {k_err:.3e} (scaled {k_scaled:.3e}), plain "
+            f"{p_err:.3e} (scaled {p_scaled:.3e}), against plain "
+            f"{vs_plain[0]:.3e}; {t} ms/launch on the device; {rule}")
+        if not ok:
+            raise AssertionError(f"flash_attention {label} disagrees ({rule})")
+        if timed is None:
+            timed = (q, k, v, window)
+        del got, plain, exact
+    q, k, v, window = timed
+    B, Sq, H, D = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_ms = timing(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), 10, 20)[0]
+    record("flash_attention",
+           "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "src/repro/kernels/flash_attention.py:68", fa_errs,
+           timing(lambda: flash_attention(q, k, v, causal=True), 10, 20),
+           timing(lambda: flash_attention_plain(q, k, v, causal=True), 3, 3),
+           q.element_size() * (2 * q.numel() + k.numel() + v.numel()),
+           attention_flops(B, Sq, Sk, H, D, causal=True, window=0),
+           library_ms=lib_ms, peak_flops_per_s=BF16_FLOPS_PER_S)
+    del q, k, v, qt, kt, vt, timed
+    torch.cuda.empty_cache()
+
+    # -- 7b. ssd_scan ---------------------------------------------------------
+    scan_errs = []
+    inputs = []
+    for shape in SCAN_SHAPES:
+        st = torch.randn(shape, generator=gen, device=dev)
+        dec = 1.0 - torch.rand(shape[:2], generator=gen, device=dev)  # (0, 1]
+        got, want = ssd_scan(st, dec), ssd_scan_plain(st, dec)
+        torch.cuda.synchronize()
+        scan_errs.append(scaled_err(got, want))
+        log(f"[lm] ssd_scan {shape}: scaled err {scan_errs[-1][1]:.3e}, "
+            f"torch.equal {torch.equal(got, want)}")
+        if scan_errs[-1][1] > 1e-6:
+            raise AssertionError(f"ssd_scan {shape} disagrees")
+        inputs.append((st, dec))
+    st, dec = inputs[0]
+    record("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+           "src/repro/kernels/ssd_scan.py:36", scan_errs,
+           timing(lambda: ssd_scan(st, dec)), timing(lambda: ssd_scan_plain(
+               st, dec), 10, 20),
+           4 * (2 * st.numel() + dec.numel()), 2 * st.numel())
+
+    # -- 7c. the kernel library's entry point, counted -----------------------
+    common.reset_launches()
+    for st, dec in inputs:
+        if not torch.equal(ops.ssd_scan(st, dec), ops.ref.ssd_scan(st, dec)):
+            raise AssertionError("ops.ssd_scan != ops.ref.ssd_scan")
+    launches_ops = dict(common.LAUNCHES)
+    log(f"[launches] phase 7 (kernels/ops.py): {launches_ops}")
+    if launches_ops.get("ssd_scan") != len(inputs):
+        raise AssertionError(f"ops.ssd_scan launched {launches_ops}")
+    del inputs, st, dec
+    torch.cuda.empty_cache()
+
+    # -- 7d. LM serving, counted ----------------------------------------------
+    common.reset_launches()
+    base = get_config(LM_ARCH)
+    rng = np.random.default_rng(SEED)
+
+    def fa_launches():
+        return common.LAUNCHES["flash_attention"]
+
+    def pad(cache, n):
+        return {"layers": {k: torch.nn.functional.pad(a, (0, 0, 0, 0, 0, n))
+                           for k, a in cache["layers"].items()}}
+
+    # fp32, full width, 4 layers: the kernel path against the "flash" path
+    cfg = dataclasses.replace(base, n_layers=LM_F32_LAYERS,
+                              compute_dtype="float32")
+    S = LM_F32_SEQ
+    params = init_params(zoo.model_template(cfg), SEED, device=dev)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (2, S + 1))).to(dev)
+    batch = {"tokens": toks[:, :S]}
+    logits_k, cache_k = build_prefill_step(cfg, HParams("pallas"))(params,
+                                                                   batch)
+    logits_f, cache_f = build_prefill_step(cfg, HParams("flash"))(params,
+                                                                  batch)
+    errs = [scaled_err(logits_k, logits_f)[1]] + [
+        scaled_err(cache_k["layers"][n], cache_f["layers"][n])[1]
+        for n in "kv"]
+    with torch.no_grad():
+        full, _ = zoo.forward(cfg, params, {"tokens": toks},
+                              attn_impl="pallas")
+    tok, _ = build_serve_step(cfg, HParams())(params, pad(cache_k, 8),
+                                              toks[:, S], S)
+    last = full[:, -1].float()
+    top = last.topk(2, dim=-1).values
+    lead = (top[:, 0] - top[:, 1]) / last.abs().max()
+    rows = lead > 1e-3
+    match = bool((tok.long() == last.argmax(-1))[rows].all())
+    log(f"[lm] {cfg.name} fp32, {cfg.n_layers} layers, B=2 S={S}: kernel "
+        f"prefill against flash prefill: logits scaled err {errs[0]:.3e}, "
+        f"cache k "
+        f"{errs[1]:.3e} v {errs[2]:.3e}; decode at pos {S}: token "
+        f"{tok.tolist()} vs forward argmax {last.argmax(-1).tolist()}, "
+        f"{int(rows.sum())} of 2 rows compared (lead > 1e-3 scaled)")
+    if max(errs) > 1e-4 or not match:
+        raise AssertionError(f"{cfg.name} fp32: the kernel path disagrees")
+    del params, logits_k, logits_f, cache_k, cache_f, full, last
+    torch.cuda.empty_cache()
+
+    # bf16, full width and depth: the served path
+    cfg = base
+    S, STEPS = LM_SEQ, LM_STEPS
+    hp = HParams()
+    params = serving_params(cfg, hp, init_params(zoo.model_template(cfg),
+                                                 SEED, device=dev))
+    torch.cuda.empty_cache()
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                     (2, S))).to(dev)}
+    prefill = build_prefill_step(cfg, hp)
+    walls = []
+    for _ in range(2):                          # the first call warms up
+        before = fa_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if fa_launches() - before != cfg.n_layers:
+            raise AssertionError(f"bf16 prefill launched flash_attention "
+                                 f"{fa_launches() - before} times, want "
+                                 f"{cfg.n_layers}")
+    pre_kernels = device_ms(lambda: prefill(params, batch), 1, by_kernel=True)
+    pre_dev = sum(pre_kernels.values()) if pre_kernels else None
+    shape = (cfg.n_layers, 2, S, cfg.n_kv_heads, cfg.head_dim)
+    if not bool(torch.isfinite(logits).all()) or any(
+            tuple(cache["layers"][n].shape) != shape for n in "kv"):
+        raise AssertionError("bf16 prefill: non-finite logits or a cache "
+                             "of the wrong shape")
+    serve = build_serve_step(cfg, hp)
+    dcache = pad(cache, STEPS)
+    tok = logits.argmax(-1)
+    before = fa_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = []
+    for i in range(STEPS):
+        tok, dcache = serve(params, dcache, tok, S + i)
+        out.append(tok)
+    torch.cuda.synchronize()
+    dec_wall = time.perf_counter() - t0
+    if fa_launches() != before:
+        raise AssertionError("decode launched flash_attention")
+    toks_out = torch.stack(out, 1)
+    if not bool(((toks_out >= 0) & (toks_out < cfg.vocab_size)).all()):
+        raise AssertionError(f"decode tokens out of range: {toks_out}")
+    # one more step, rewriting the last position, under the profiler
+    step_kernels = device_ms(lambda: serve(params, dcache, tok,
+                                           S + STEPS - 1), 1, by_kernel=True)
+    step_dev = sum(step_kernels.values()) if step_kernels else None
+    logits_f, cache_f = build_prefill_step(cfg, HParams("flash"))(params,
+                                                                  batch)
+    diff = scaled_err(logits, logits_f)[1]
+    if not bool(torch.isfinite(logits_f).all()) or any(
+            tuple(cache_f["layers"][n].shape) != shape for n in "kv"):
+        raise AssertionError("bf16 flash prefill: bad logits or cache")
+    pre_ms, dec_ms = walls[-1] * 1e3, dec_wall * 1e3 / STEPS
+
+    def busy(dev_ms, wall_ms):
+        return f"{dev_ms / wall_ms:.3f}" if dev_ms else "not measured"
+    log(f"[lm] {cfg.name} bf16, {cfg.n_layers} layers, B=2 S={S}, "
+        f"{nbytes / 1e9:.2f} GB of weights: prefill {pre_ms:.1f} ms "
+        f"({2 * S / walls[-1]:.0f} "
+        f"tokens/s; first call {walls[0] * 1e3:.1f} ms), device "
+        f"{pre_dev} ms (busy {busy(pre_dev, pre_ms)}); decode {STEPS} steps "
+        f"{dec_ms:.2f} ms/step, device {step_dev} ms/step (busy "
+        f"{busy(step_dev, dec_ms)}); "
+        f"flash_attention launches {cfg.n_layers} per prefill, 0 in "
+        f"decode; kernel against flash prefill: last logits scaled diff "
+        f"{diff:.3e}; tokens {toks_out[:, :8].tolist()}")
+    for label, times in (("prefill", pre_kernels), ("decode step",
+                                                    step_kernels)):
+        if times:
+            top = sorted(times.items(), key=lambda kv: -kv[1])[:4]
+            log(f"[lm] device time of one {label} by kernel class: "
+                f"{kernel_classes(times)}; top kernels "
+                f"{[(k[:60], round(v, 3)) for k, v in top]}")
+    del params, cache, dcache, logits, logits_f, cache_f
+    torch.cuda.empty_cache()
+    launches_lm = dict(common.LAUNCHES)
+    log(f"[launches] phase 7 (LM serving): {launches_lm}")
+    log(f"[lm] phase 7 took {time.perf_counter() - t_phase:.1f} s")
+    if not launches_lm.get("flash_attention"):
+        raise AssertionError(f"LM serving launched {launches_lm}")
+    return launches_ops, launches_lm
 
 
 if __name__ == "__main__":

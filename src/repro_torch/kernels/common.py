@@ -156,6 +156,9 @@ _SIGNATURES = {
     "rt_region_bwd": ([_VP, _VP, _I, _I, _I, _I, _VP, _LL, _I, _I, _VP, _LL,
                        _VP, _VP], _I),
     "rt_region_bwd_reduce": ([_VP, _LL, _LL, _VP, _VP], _I),
+    "rt_flash_attention": ([_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I,
+                            ctypes.POINTER(_LL), _F, _I, _I, _VP], _I),
+    "rt_ssd_scan": ([_VP, _VP, _VP, _I, _LL, _I, _LL, _VP], _I),
 }
 
 

@@ -1,0 +1,320 @@
+"""The dense-LM serving slice: the port's prefill and decode against the
+reference's, on the reduced configs of the dense archs.
+
+Both packages get the same parameters (the reference's ``init_params``,
+carried across by ``zoo.params_from_jax``) and the same numpy inputs.  On
+the CPU the port's ``attn_impl="pallas"`` runs the kernel's plain version,
+so this checks the layer stack, the cache layout and the decode path end to
+end; ``chip_smoke.py`` holds the kernel itself on the card.
+
+The reference's own ``attn_impl="pallas"`` prefill cannot run inside its
+layer scan (the per-layer window reaches the Pallas kernel as a traced
+value), so the reference side is always its ``"flash"`` prefill, the same
+function through ``layers.flash_attention``.  fp32 is held at the
+reference's ``test_prefill_matches_forward`` bound (2e-4); in bf16 the two
+packages round at different points, so each is measured against a float64
+evaluation and the port may be at most twice the reference's error.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget_config
+from repro.models import zoo as jzoo
+from repro.models.template import init_params as jinit_params
+from repro_torch.configs import ARCH_IDS, ShapeConfig, get_config
+from repro_torch.launch import steps
+from repro_torch.models import zoo
+from repro_torch.models.template import (abstract_params,
+                                         count_template_params, init_params,
+                                         tree_leaves)
+
+SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "src")
+DENSE = ["qwen3-8b", "gemma3-4b", "phi3-mini-3.8b", "yi-34b",
+         "musicgen-medium"]
+S = 24          # > gemma3's reduced window of 8
+_REF = {}
+
+
+def _configs(arch, dtype):
+    return (dataclasses.replace(jget_config(arch).reduced(),
+                                compute_dtype=dtype),
+            dataclasses.replace(get_config(arch).reduced(),
+                                compute_dtype=dtype))
+
+
+def _params(arch):
+    jcfg, _ = _configs(arch, "float32")
+    jp = jinit_params(jzoo.model_template(jcfg), jax.random.PRNGKey(0))
+    return jp, zoo.params_from_jax(jax.tree.map(np.asarray, jp),
+                                   device="cpu")
+
+
+def _batch(cfg, seq=S, seed=1):
+    """(reference batch, port batch) from the same numpy draw."""
+    rng = np.random.default_rng(seed)
+    if cfg.embed_input:
+        e = rng.standard_normal((2, seq, cfg.d_model)).astype(np.float32)
+        return {"embeds": jnp.asarray(e)}, {"embeds": torch.from_numpy(e)}
+    t = rng.integers(0, cfg.vocab_size, (2, seq))
+    return ({"tokens": jnp.asarray(t, jnp.int32)},
+            {"tokens": torch.from_numpy(t)})
+
+
+def _reference(arch, dtype):
+    """The reference's flash prefill, cached per (arch, dtype)."""
+    if (arch, dtype) not in _REF:
+        jcfg, _ = _configs(arch, dtype)
+        jp, tp = _params(arch)
+        jb, tb = _batch(jcfg)
+        logits, cache = jzoo.prefill(jcfg, jp, jb)
+        _REF[arch, dtype] = (jp, tp, tb, np.asarray(logits, np.float64),
+                             {k: np.asarray(cache["layers"][k].astype(
+                                 jnp.float32), np.float64) for k in "kv"})
+    return _REF[arch, dtype]
+
+
+def _f64(t):
+    return t.double().numpy()
+
+
+@pytest.mark.parametrize("attn_impl", ["pallas", "flash"])
+@pytest.mark.parametrize("arch", DENSE)
+def test_prefill_matches_reference_f32(arch, attn_impl):
+    _, tp, tb, want, want_cache = _reference(arch, "float32")
+    _, tcfg = _configs(arch, "float32")
+    logits, cache = steps.build_prefill_step(
+        tcfg, steps.HParams(attn_impl=attn_impl))(tp, tb)
+    assert logits.dtype == torch.float32
+    np.testing.assert_allclose(_f64(logits), want, rtol=2e-4, atol=2e-4)
+    assert set(cache) == {"layers"} and set(cache["layers"]) == {"k", "v"}
+    for k in "kv":
+        assert tuple(cache["layers"][k].shape) == want_cache[k].shape == (
+            tcfg.n_layers, 2, S, tcfg.n_kv_heads, tcfg.head_dim)
+        np.testing.assert_allclose(_f64(cache["layers"][k]), want_cache[k],
+                                   rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("attn_impl", ["pallas", "flash"])
+@pytest.mark.parametrize("arch", DENSE)
+def test_prefill_bf16_against_float64(arch, attn_impl):
+    _, tp, tb, want, want_cache = _reference(arch, "bfloat16")
+    _, tcfg = _configs(arch, "bfloat16")
+    logits, cache = zoo.prefill(tcfg, tp, tb, attn_impl=attn_impl)
+    assert cache["layers"]["k"].dtype == torch.bfloat16
+    ocfg = dataclasses.replace(tcfg, compute_dtype="float64")
+    exact, exact_cache = zoo.prefill(ocfg, tp, tb, attn_impl="flash")
+    exact = exact.numpy()
+    ref_err = np.abs(want - exact).max()
+    assert 0 < np.abs(_f64(logits) - exact).max() <= 2 * ref_err
+    for k in "kv":
+        e = exact_cache["layers"][k].numpy()
+        ref_err = np.abs(want_cache[k] - e).max()
+        assert np.abs(_f64(cache["layers"][k]) - e).max() <= 2 * ref_err
+
+
+def _pad_ref(cache, n):
+    return {"layers": {k: jnp.pad(a, [(0, 0), (0, 0), (0, n), (0, 0),
+                                      (0, 0)])
+                       for k, a in cache["layers"].items()}}
+
+
+def _pad_port(cache, n):
+    return {"layers": {k: torch.nn.functional.pad(a, (0, 0, 0, 0, 0, n))
+                       for k, a in cache["layers"].items()}}
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_decode_matches_reference(arch):
+    """Prefill S, pad the cache by 8, decode two tokens: the port's greedy
+    tokens equal the reference's, and its cache takes the new entries."""
+    jcfg, tcfg = _configs(arch, "float32")
+    jp, tp = _params(arch)
+    jb, tb = _batch(jcfg, seed=3)
+    _, jcache = jzoo.prefill(jcfg, jp, jb)
+    _, tcache = steps.build_prefill_step(tcfg, steps.HParams())(tp, tb)
+    jcache, tcache = _pad_ref(jcache, 8), _pad_port(tcache, 8)
+    serve = steps.build_serve_step(tcfg, steps.HParams())
+    tok = np.random.default_rng(4).integers(0, jcfg.vocab_size, 2)
+    jt, tt = jnp.asarray(tok, jnp.int32), torch.from_numpy(tok)
+    for pos in (S, S + 1):
+        jt, jcache = jzoo.decode_step(jcfg, jp, jcache, jt, jnp.array(pos))
+        tt, out = serve(tp, tcache, tt, pos)
+        assert out is tcache and tt.dtype == torch.int32
+        np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+    for k in "kv":
+        np.testing.assert_allclose(_f64(tcache["layers"][k]),
+                                   np.asarray(jcache["layers"][k]),
+                                   rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "gemma3-4b"])
+def test_decode_consistent_with_forward(arch):
+    """Greedy token from (prefill S through the kernel path, decode S) ==
+    argmax of the kernel path's forward over S + 1, as the reference's
+    ``test_decode_consistent_with_forward``."""
+    _, tcfg = _configs(arch, "float32")
+    _, tp = _params(arch)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, tcfg.vocab_size, (2, S + 1)))
+    logits, _ = zoo.forward(tcfg, tp, {"tokens": toks}, attn_impl="pallas")
+    _, cache = zoo.prefill(tcfg, tp, {"tokens": toks[:, :S]},
+                           attn_impl="pallas")
+    got, _ = zoo.decode_step(tcfg, tp, _pad_port(cache, 8), toks[:, S], S)
+    assert torch.equal(got.long(), logits[:, -1].argmax(-1))
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_forward_matches_reference(arch):
+    jcfg, tcfg = _configs(arch, "float32")
+    jp, tp = _params(arch)
+    jb, tb = _batch(jcfg, seq=12, seed=6)
+    want, _ = jzoo.forward(jcfg, jp, jb, remat="none")
+    got, aux = zoo.forward(tcfg, tp, tb, attn_impl="pallas")
+    assert float(aux) == 0.0
+    np.testing.assert_allclose(_f64(got), np.asarray(want, np.float64),
+                               rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_param_count_matches_analytic(arch):
+    """Full size, on ``meta``: nothing is allocated."""
+    cfg = get_config(arch)
+    tmpl = zoo.model_template(cfg)
+    tp = count_template_params(tmpl)
+    assert abs(tp - cfg.count_params()) / cfg.count_params() < 0.02
+    ap = abstract_params(tmpl)
+    leaves = tree_leaves(ap)
+    assert all(t.device.type == "meta" for t in leaves)
+    assert sum(t.numel() for t in leaves) == tp
+    assert tuple(ap["layers"]["attn"]["q"].shape) == (cfg.n_layers,
+                                                      cfg.d_model, cfg.q_dim)
+    cache = zoo.init_cache(cfg, 2, 128, abstract=True)
+    assert cache["layers"]["k"].device.type == "meta"
+    assert tuple(cache["layers"]["k"].shape) == (
+        cfg.n_layers, 2, 128, cfg.n_kv_heads, cfg.head_dim)
+
+
+@pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a not in DENSE])
+def test_unported_families_raise(arch):
+    cfg = get_config(arch)
+    assert cfg.family in ("moe", "ssm", "hybrid", "vlm")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
+        zoo.model_template(cfg)
+    with pytest.raises(NotImplementedError):
+        zoo.init_cache(cfg.reduced(), 1, 8, abstract=True)
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "musicgen-medium"])
+def test_make_inputs_match_input_structs(arch, kind):
+    cfg = get_config(arch).reduced()
+    shape = ShapeConfig(f"small_{kind}", kind, 12, 3)
+    structs = zoo.input_structs(cfg, shape)
+    batch = zoo.make_inputs(cfg, shape, 0, device="cpu")
+    assert set(batch) == set(structs)
+    for name, st in structs.items():
+        assert st.device.type == "meta"
+        got = batch[name]
+        if name == "pos":
+            assert got == shape.seq_len - 1 and st.shape == ()
+            continue
+        assert tuple(got.shape) == tuple(st.shape)
+        assert got.is_floating_point() == st.is_floating_point()
+        if not got.is_floating_point():
+            assert 0 <= int(got.min()) and int(got.max()) < cfg.vocab_size
+    again = zoo.make_inputs(cfg, shape, np.random.default_rng(0),
+                            device="cpu")
+    assert all(torch.equal(torch.as_tensor(batch[k]),
+                           torch.as_tensor(again[k])) for k in batch)
+
+
+def test_entry_points_default_to_cuda():
+    """``device=None`` means CUDA: without it, the entry points raise."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = get_config("qwen3-8b").reduced()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params(zoo.model_template(cfg), 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        zoo.params_from_jax({"w": np.zeros(3, np.float32)})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        zoo.make_inputs(cfg, 2, 0, seq=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        zoo.init_cache(cfg, 2, 4)
+
+
+def test_init_params_follows_the_reference_rules():
+    cfg = get_config("qwen3-8b").reduced()
+    p = init_params(zoo.model_template(cfg), torch.Generator().manual_seed(0),
+                    device="cpu")
+    q = p["layers"]["attn"]["q"]
+    assert q.dtype == torch.float32 and tuple(q.shape) == (
+        cfg.n_layers, cfg.d_model, cfg.q_dim)
+    # normal: std scale / sqrt(fan_in); scaled: std 0.02; norms: zeros
+    assert abs(float(q.std()) * cfg.d_model ** 0.5 - 1.0) < 0.05
+    assert abs(float(p["embed"].std()) / 0.02 - 1.0) < 0.05
+    assert not p["final_norm"].any() and not p["layers"]["ln1"].any()
+    again = init_params(zoo.model_template(cfg), 0, device="cpu")
+    assert torch.equal(again["lm_head"],
+                       init_params(zoo.model_template(cfg), 0,
+                                   device="cpu")["lm_head"])
+
+
+def test_serving_params_and_hparams():
+    assert steps.HParams().attn_impl == "pallas"
+    assert steps.HParams().serve_dtype == "bfloat16"
+    cfg = get_config("gemma3-4b").reduced()
+    p = init_params(zoo.model_template(cfg), 0, device="cpu")
+    sp = steps.serving_params(cfg, steps.HParams(), p)
+    assert all(t.dtype == torch.bfloat16 for t in tree_leaves(sp))
+    assert torch.equal(sp["embed"], p["embed"].to(torch.bfloat16))
+    batch = zoo.make_inputs(cfg, 2, np.random.default_rng(0), seq=20,
+                            device="cpu")
+    logits, cache = steps.build_prefill_step(cfg, steps.HParams())(sp, batch)
+    assert logits.shape == (2, cfg.vocab_size) and torch.isfinite(
+        logits).all()
+    assert cache["layers"]["k"].dtype == torch.bfloat16
+
+
+def test_serving_runs_without_jax():
+    """Prefill and decode through ``repro_torch.launch.steps`` in a fresh
+    interpreter: neither JAX nor the reference package is imported."""
+    code = """
+import sys, torch
+from repro_torch.configs import get_config
+from repro_torch.launch import steps
+from repro_torch.models import zoo
+from repro_torch.models.template import init_params
+import repro_torch.kernels.ops
+cfg = get_config("qwen3-8b").reduced()
+hp = steps.HParams()
+params = steps.serving_params(cfg, hp, init_params(zoo.model_template(cfg),
+                                                   0, device="cpu"))
+batch = zoo.make_inputs(cfg, 2, 0, seq=16, device="cpu")
+logits, cache = steps.build_prefill_step(cfg, hp)(params, batch)
+cache = {"layers": {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, 4))
+                    for k, v in cache["layers"].items()}}
+tok = logits.argmax(-1)
+serve = steps.build_serve_step(cfg, hp)
+for pos in range(16, 20):
+    tok, cache = serve(params, cache, tok, pos)
+assert tok.shape == (2,) and cache["layers"]["k"].shape[2] == 20
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not bad, bad
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env=env, timeout=300)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
