@@ -6,6 +6,9 @@
 Phases (any failure exits non-zero; nothing is caught):
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build the CUDA kernel library from ``src/repro_torch/kernels/csrc``;
+     print each kernel's registers and spills (ptxas), the bf16 attention
+     kernel's shared memory, and the tensor-core (HGMMA, HMMA), TMA and FFMA
+     instructions in the attention kernels' SASS (cuobjdump);
   3. every kernel against its plain PyTorch version on the card, at the
      main path's shapes: fused_chain (every op, <= 1e-5 scaled),
      stream_matmul / siren_layer (<= 1e-4 scaled), region on every fused
@@ -38,8 +41,11 @@ Phases (any failure exits non-zero; nothing is caught):
   7. LM serving: flash_attention against its plain version and a float64
      evaluation (sliced over heads) at the qwen3-8b prefill shape (bf16,
      causal), a gemma3-4b local layer (bf16, window 1,024, ragged length),
-     q shorter than k (fp32) and a phi3-like MHA (fp32, D = 96): fp32 within
-     1e-5 of max|oracle|, bf16 at most twice the plain version's error;
+     musicgen-medium (bf16, D = 64) and phi3 (bf16, D = 96), so that every
+     head dim of the bf16 tensor-core kernel runs, then q shorter than k
+     (fp32) and a phi3-like MHA (fp32, D = 96) on the SIMT kernel: fp32
+     within 1e-5 of max|oracle|, bf16 at most twice the plain version's
+     error; the host time of encoding the bf16 kernel's TMA tensor maps;
      ssd_scan against its plain version (<= 1e-6 scaled) at the mamba2-2.7b
      shape and a ragged one, then through ``kernels/ops.py``; qwen3-8b at
      full width: 4 layers in fp32, the kernel prefill against the "flash"
@@ -70,8 +76,10 @@ whichever units a kernel actually uses.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -90,6 +98,9 @@ SEED = 0
 ATTN_CASES = [("qwen3-8b prefill", (2, 4096, 32, 8, 128), 4096, "bfloat16", 0),
               ("gemma3-4b local layer", (1, 3000, 8, 4, 256), 3000,
                "bfloat16", 1024),
+              ("musicgen-medium MHA", (2, 2048, 24, 24, 64), 2048,
+               "bfloat16", 0),
+              ("phi3 MHA", (1, 2048, 32, 32, 96), 2048, "bfloat16", 0),
               ("q shorter than k", (2, 100, 32, 8, 128), 1000, "float32", 0),
               ("phi3-like MHA", (1, 2048, 32, 32, 96), 2048, "float32", 0)]
 SCAN_SHAPES = [(160, 32, 64, 128), (3, 5, 7, 9)]
@@ -107,6 +118,65 @@ def bound_ms(nbytes: float, flops: float, peak_flops_per_s: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak_flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def build_report(log, common):
+    """The [build] lines: ptxas's registers, spills and warnings for every
+    kernel, the dynamic shared memory of the bf16 attention kernel, and the
+    tensor-core instructions in the attention kernels' SASS (cuobjdump), or
+    "not available" where the toolkit has no cuobjdump."""
+    cxxfilt = shutil.which("c++filt")
+
+    def demangle(names):
+        if not cxxfilt or not names:
+            return {n: n for n in names}
+        out = subprocess.run([cxxfilt], input="\n".join(names),
+                             capture_output=True, text=True).stdout
+        return dict(zip(names, out.splitlines()))
+
+    lines, names = [], []
+    for src, text in common.build_logs().items():
+        fn = None
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                fn = m.group(1)
+                names.append(fn)
+            elif fn and ("registers" in line or "spill" in line):
+                lines.append((src, fn, line.strip()))
+            elif "warning" in line:
+                lines.append((src, None, line.strip()))
+    pretty = demangle(names)
+    for src, fn, line in lines:
+        log(f"[build] {src}: {pretty.get(fn, '') + ': ' if fn else ''}"
+            f"{line}")
+    lib = common.load_library()
+    log("[build] flash_attention_tc dynamic shared memory (bytes) by head "
+        "dim: " + ", ".join(f"{d}: {lib.rt_flash_attention_tc_smem(d)}"
+                            for d in (64, 96, 128, 256)))
+    cuobjdump = Path(common._nvcc()).with_name("cuobjdump")
+    if not cuobjdump.exists():
+        log("[build] SASS tensor-core instruction counts: not available "
+            "(no cuobjdump)")
+        return
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(common.build_library())],
+                          capture_output=True, text=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = collections.Counter()
+        elif fn:
+            for op in ("HGMMA", "HMMA", "UTMALDG", "FFMA"):
+                if re.search(rf"\b{op}\b", line):
+                    counts[fn][op] += 1
+    pretty = demangle(list(counts))
+    for fn, c in counts.items():
+        if "fa_tc_kernel" in fn or "fa_fwd_kernel" in fn:
+            log(f"[build] SASS {pretty[fn]}: HGMMA {c['HGMMA']}, HMMA "
+                f"{c['HMMA']}, UTMALDG {c['UTMALDG']}, FFMA {c['FFMA']}")
 
 
 def scaled_err(got, want):
@@ -159,10 +229,7 @@ def main() -> int:
     t0 = time.perf_counter()
     common.load_library()
     log(f"[build] kernel library ready in {time.perf_counter() - t0:.1f} s")
-    for src, text in common.build_logs().items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {src}: {line.strip()}")
+    build_report(log, common)
 
     gen = torch.Generator().manual_seed(SEED)
 
@@ -285,7 +352,7 @@ def main() -> int:
     # -- 3b. stream_matmul / siren_layer -------------------------------------
     mm_errs = {"stream_matmul": [], "siren_layer": []}
     for m, k, n in [(8, 256, 256), (8, 2, 256), (8, 1, 256), (8, 256, 2),
-                    (8, 256, 1), (13, 37, 5)]:
+                    (8, 256, 1), (13, 37, 5), (20, 600, 70)]:
         a, w = rand(m, k), rand(k, n) / k ** 0.5
         b = rand(n)
         got = stream_matmul(a, w, mm_parallel=16)
@@ -313,6 +380,8 @@ def main() -> int:
            timing(lambda: siren_layer(a, w, b, w0=30.0, mm_parallel=16)),
            timing(lambda: siren_layer_plain(a, w, b, w0=30.0)),
            mm_bytes + 4 * 256, 2 * 8 * 256 * 256 + 3 * 8 * 256)
+    log("[kernel] stream_matmul / siren_layer at [8,256]@[256,256]: "
+        "32 x 1 = 32 CTAs of 8 x 8 outputs (csrc/matmul.cu's grid)")
 
     # -- 3c. region, on the operands the main path hands it ------------------
     cfg = SirenConfig()
@@ -969,13 +1038,14 @@ def attention_flops(B, Sq, Sk, H, D, *, causal, window):
 
 
 def kernel_classes(times):
-    """Device ms by class of kernel name: the port's attention kernel,
-    library GEMMs (cuBLAS names them gemm*, gemv* or nvjet*), and everything
-    else (norms, rope, casts, copies)."""
+    """Device ms by class of kernel name: the port's attention kernels
+    (fa_tc_kernel for bf16, fa_fwd_kernel for fp32), library GEMMs (cuBLAS
+    names them gemm*, gemv* or nvjet*), and everything else (norms, rope,
+    casts, copies)."""
     out = {"flash_attention": 0.0, "gemm": 0.0, "other": 0.0}
     for key, ms in times.items():
         low = key.lower()
-        if "fa_fwd_kernel" in key:
+        if "fa_tc_kernel" in key or "fa_fwd_kernel" in key:
             out["flash_attention"] += ms
         elif any(w in low for w in ("gemm", "gemv", "nvjet", "cutlass",
                                     "xmma", "sm90_")):
@@ -998,7 +1068,8 @@ def lm_phase(log, torch, dev, scaled_err, device_ms, timing, record):
     from repro_torch.configs import get_config
     from repro_torch.kernels import common, ops
     from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_plain)
+                                                     flash_attention_plain,
+                                                     tensor_map_encode_ns)
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
     from repro_torch.launch.steps import (HParams, build_prefill_step,
                                           build_serve_step, serving_params)
@@ -1068,6 +1139,9 @@ def lm_phase(log, torch, dev, scaled_err, device_ms, timing, record):
     q, k, v, window = timed
     B, Sq, H, D = q.shape
     Sk, KH = k.shape[1], k.shape[2]
+    log(f"[lm] flash_attention bf16: host time to encode the 3 TMA tensor "
+        f"maps of one launch {tensor_map_encode_ns(q, k, v) / 1e3:.3f} us "
+        f"(mean of 1,000)")
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     lib_ms = timing(lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True), 10, 20)[0]

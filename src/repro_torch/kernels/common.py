@@ -40,7 +40,8 @@ LAUNCHES: collections.Counter = collections.Counter()
 ABI = {"region_rows": 8, "region_threads": 256, "region_instr_ints": 96,
        "max_ptrs": 96, "max_chain": 32, "max_extra": 16, "n_chain_ops": 18,
        "region_red_floats": 2048, "smem_dynamic_bytes": 231424,
-       "max_lanes": 65535, "region_bwd_io_ints": 4}
+       "max_lanes": 65535, "region_bwd_io_ints": 4, "fa_bq": 64, "fa_bk": 32,
+       "fa_tc_bq": 128, "fa_tc_bk": 128, "fa_tc_bk_wide": 64}
 
 _LIB = None
 _LOCK = threading.Lock()
@@ -156,8 +157,13 @@ _SIGNATURES = {
     "rt_region_bwd": ([_VP, _VP, _I, _I, _I, _I, _VP, _LL, _I, _I, _VP, _LL,
                        _VP, _VP], _I),
     "rt_region_bwd_reduce": ([_VP, _LL, _LL, _VP, _VP], _I),
-    "rt_flash_attention": ([_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I,
+    "rt_flash_attention": ([_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
                             ctypes.POINTER(_LL), _F, _I, _I, _VP], _I),
+    "rt_flash_attention_tc": ([_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
+                               ctypes.POINTER(_LL), _F, _I, _I, _VP], _I),
+    "rt_flash_attention_tc_smem": ([_I], _I),
+    "rt_flash_attention_tc_encode_ns": ([_VP, _VP, _VP, _I, _I, _I, _I, _I,
+                                         _I, ctypes.POINTER(_LL), _I], _LL),
     "rt_ssd_scan": ([_VP, _VP, _VP, _I, _LL, _I, _LL, _VP], _I),
 }
 

@@ -17,6 +17,12 @@
 #define RT_RED_FLOATS (RT_REGION_THREADS * RT_REGION_ROWS)
 #define RT_SMEM_BYTES 232448    // shared memory one CTA may use on Hopper
 #define RT_SMEM_STATIC 1024     // region.cu's static shared arrays, at most
+// attention tiles (kernels/flash_attention.py KERNEL_TILES)
+#define RT_FA_BQ 64             // fp32 SIMT kernel: q rows of one CTA
+#define RT_FA_BK 32             //   keys of one kv tile
+#define RT_FA_TC_BQ 128         // bf16 tensor-core kernel: q rows of one CTA
+#define RT_FA_TC_BK 128         //   keys of one kv tile at D <= 128
+#define RT_FA_TC_BK_WIDE 64     //   keys of one kv tile at D = 256
 
 // Chain opcodes, in the order of kernels/fused_chain.py OPCODES.
 enum ChainOp : int {

@@ -1,91 +1,54 @@
-// flash_attention: causal / sliding-window GQA attention forward with an
-// online softmax, fp32 or bf16 in, fp32 accumulators, out in the input type.
+// flash_attention, fp32: causal / sliding-window GQA attention forward with
+// an online softmax, fp32 in, fp32 accumulators, fp32 out.  bf16 inputs go to
+// the tensor-core kernel of flash_attention_tc.cu.
 //
-// Replaces repro/kernels/flash_attention.py::flash_attention (pallas_call at
-// flash_attention.py:98, body _fa_kernel).  The TPU kernel runs a grid
-// (B*KH*G, q blocks, kv blocks) whose kv axis is sequential, carrying m, l
-// and the accumulator in VMEM scratch from one kv step to the next.  Here
-// one CTA owns one (batch, q head, 64-row q tile); a loop inside the CTA over
-// 32-key tiles takes the place of the sequential kv axis, with m, l and the
-// accumulator in fp32 registers.  The GQA fold maps q head h to kv head
-// h / G.  q, k and v are read through their [B, S, H, D] strides (no
-// transposes); each tile is staged in shared memory as fp32.
+// Replaces the fp32 path of repro/kernels/flash_attention.py::flash_attention
+// (pallas_call at flash_attention.py:98, body _fa_kernel).  The TPU kernel
+// runs a grid (B*KH*G, q blocks, kv blocks) whose kv axis is sequential,
+// carrying m, l and the accumulator in VMEM scratch from one kv step to the
+// next.  Here one CTA owns one (batch, q head, 64-row q tile); a loop inside
+// the CTA over 32-key tiles takes the place of the sequential kv axis, with
+// m, l and the accumulator in fp32 registers.  The GQA fold maps q head h to
+// kv head h / G.  q, k and v are read through their [B, S, H, D] strides (no
+// transposes).
 //
 // Masks follow the TPU kernel: keys past Sk, causal q_pos >= k_pos with
 // q_pos = (Sk - Sq) + i, window q_pos - k_pos < window; masked scores are
-// -1e30.  P is rounded to v's type before the P.V product (p.astype(v.dtype))
-// while l sums the unrounded P, and the output is acc / max(l, 1e-30).  Kv
-// tiles wholly outside the causal band or the window are skipped: such a
-// tile adds exp(-1e30 - m) = 0 after a visible one, and one before every
-// visible tile is wiped by the first visible tile's correction exp(-1e30 -
-// m) = 0, so skipping changes no result.  Rows with no visible key at all
-// (Sq > Sk) give 0 here; nothing on the model path produces them.
+// -1e30.  The output is acc / max(l, 1e-30).  Kv tiles wholly outside the
+// causal band or the window are skipped: such a tile adds exp(-1e30 - m) = 0
+// after a visible one, and one before every visible tile is wiped by the
+// first visible tile's correction exp(-1e30 - m) = 0, so skipping changes no
+// result.  Rows with no visible key at all (Sq > Sk) give 0 here; nothing on
+// the model path produces them.
 //
-// Bound on the H100: at the qwen3-8b prefill shape (B = 2, S = 4,096, 32 q
-// heads, 8 kv heads, D = 128, causal) the work is ~2.75e11 FLOP, 0.28 ms at
-// 989 TFLOP/s of bf16 tensor cores, against ~0.05 ms for the 0.17 GB of q,
-// k, v and out at 3.35 TB/s: bound by operations.  This first kernel does
-// every product with SIMT fp32 FMAs (no tensor cores, so fp32 inputs keep
-// full fp32 products and the bf16 path is the same code): a 4 x 2 score
-// tile and a 4 x D/16 output tile per thread, float4 shared-memory reads
-// of q and k with rows padded by four floats so that eight rows of a
-// quarter-warp fall on distinct banks.  wgmma, TMA and warp specialisation
-// are for the redesign.
+// Bound on the H100: fp32 products stay off the tensor cores (TF32 keeps
+// about three digits), so the bound is operations at the 67 TFLOP/s of fp32
+// FMAs.  Every product is a SIMT fp32 FMA: a 4 x 2 score tile and a 4 x D/16
+// output tile per thread, float4 shared-memory reads of q and k with rows
+// padded by four floats so that eight rows of a quarter-warp fall on
+// distinct banks.
 #include "abi.cuh"
 
-#include <cuda_bf16.h>
-
-#define FA_BQ 64         // q rows of one CTA
-#define FA_BK 32         // keys of one kv tile
+#define FA_BQ RT_FA_BQ   // q rows of one CTA
+#define FA_BK RT_FA_BK   // keys of one kv tile
 #define FA_THREADS 256   // 16 x 16: ty owns rows ty + 16 r, tx keys tx + 16 c
 #define FA_NEG_INF (-1e30f)
 
-template <class T>
-struct Elem;
-
-template <>
-struct Elem<float> {
-  static __device__ __forceinline__ float to_f(float x) { return x; }
-  static __device__ __forceinline__ float from_f(float x) { return x; }
-};
-
-template <>
-struct Elem<__nv_bfloat16> {
-  static __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-  }
-  static __device__ __forceinline__ __nv_bfloat16 from_f(float x) {
-    return __float2bfloat16_rn(x);
-  }
-};
-
 // Stage rows [r0, r0 + rows) of one head of a [B, S, H, D] tensor (row
-// stride ss elements, head base already applied) into shared memory as fp32
-// with row pitch ld; rows at or past S are zero.  16-byte global loads.
-template <class T, int D>
-__device__ __forceinline__ void stage_rows(const T* __restrict__ base,
+// stride ss elements, head base already applied) into shared memory with row
+// pitch ld; rows at or past S are zero.  16-byte global loads.
+template <int D>
+__device__ __forceinline__ void stage_rows(const float* __restrict__ base,
                                            long long ss, int r0, int rows,
                                            int S, float* __restrict__ dst,
                                            int ld) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int VPR = D / VEC;  // 16-byte vectors per row
+  constexpr int VPR = D / 4;  // 16-byte vectors per row
   for (int i = threadIdx.x; i < rows * VPR; i += FA_THREADS) {
-    const int r = i / VPR, c = (i % VPR) * VEC;
-    float* out = dst + r * ld + c;
-    if (r0 + r < S) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(
-          base + (long long)(r0 + r) * ss + c);
-      const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-      for (int j = 0; j < VEC; j += 4)
-        *reinterpret_cast<float4*>(out + j) =
-            make_float4(Elem<T>::to_f(e[j]), Elem<T>::to_f(e[j + 1]),
-                        Elem<T>::to_f(e[j + 2]), Elem<T>::to_f(e[j + 3]));
-    } else {
-#pragma unroll
-      for (int j = 0; j < VEC; j += 4)
-        *reinterpret_cast<float4*>(out + j) = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
+    const int r = i / VPR, c = (i % VPR) * 4;
+    *reinterpret_cast<float4*>(dst + r * ld + c) =
+        r0 + r < S ? *reinterpret_cast<const float4*>(
+                         base + (long long)(r0 + r) * ss + c)
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
 
@@ -106,7 +69,7 @@ struct FaArgs {
   int causal, window;
 };
 
-template <class T, int D>
+template <int D>
 __global__ void __launch_bounds__(FA_THREADS) fa_fwd_kernel(const FaArgs a) {
   constexpr int LDQ = D + 4;      // q and k tile row pitch (floats)
   constexpr int LDP = FA_BK + 4;  // P tile row pitch
@@ -123,12 +86,12 @@ __global__ void __launch_bounds__(FA_THREADS) fa_fwd_kernel(const FaArgs a) {
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int b = blockIdx.y / a.H, h = blockIdx.y % a.H, kvh = h / a.G;
   const int q0 = qt * FA_BQ;
-  const T* qb = static_cast<const T*>(a.q) + b * a.qsb + h * a.qsh;
-  const T* kb = static_cast<const T*>(a.k) + b * a.ksb + kvh * a.ksh;
-  const T* vb = static_cast<const T*>(a.v) + b * a.vsb + kvh * a.vsh;
-  T* ob = static_cast<T*>(a.o) + b * a.osb + h * a.osh;
+  const float* qb = static_cast<const float*>(a.q) + b * a.qsb + h * a.qsh;
+  const float* kb = static_cast<const float*>(a.k) + b * a.ksb + kvh * a.ksh;
+  const float* vb = static_cast<const float*>(a.v) + b * a.vsb + kvh * a.vsh;
+  float* ob = static_cast<float*>(a.o) + b * a.osb + h * a.osh;
 
-  stage_rows<T, D>(qb, a.qss, q0, FA_BQ, a.Sq, Qs, LDQ);
+  stage_rows<D>(qb, a.qss, q0, FA_BQ, a.Sq, Qs, LDQ);
 
   // the kv tiles any row of this q tile can see
   const int q_offset = a.Sk - a.Sq;
@@ -149,8 +112,8 @@ __global__ void __launch_bounds__(FA_THREADS) fa_fwd_kernel(const FaArgs a) {
 
   for (int k0 = k_begin; k0 < k_end; k0 += FA_BK) {
     __syncthreads();  // the last tile's Ks, Vs and Ps are read
-    stage_rows<T, D>(kb, a.kss, k0, FA_BK, a.Sk, Ks, LDQ);
-    stage_rows<T, D>(vb, a.vss, k0, FA_BK, a.Sk, Vs, D);
+    stage_rows<D>(kb, a.kss, k0, FA_BK, a.Sk, Ks, LDQ);
+    stage_rows<D>(vb, a.vss, k0, FA_BK, a.Sk, Vs, D);
     __syncthreads();
 
     // s = q k^T for rows ty + 16 r and keys tx, tx + 16
@@ -208,8 +171,8 @@ __global__ void __launch_bounds__(FA_THREADS) fa_fwd_kernel(const FaArgs a) {
 #pragma unroll
       for (int c = 0; c < NC; ++c) acc[r][c] *= corr;
       float* prow = Ps + (ty + 16 * r) * LDP;
-      prow[tx] = Elem<T>::to_f(Elem<T>::from_f(p0));  // p.astype(v.dtype)
-      prow[tx + 16] = Elem<T>::to_f(Elem<T>::from_f(p1));
+      prow[tx] = p0;
+      prow[tx + 16] = p1;
     }
     __syncthreads();
 
@@ -242,44 +205,33 @@ __global__ void __launch_bounds__(FA_THREADS) fa_fwd_kernel(const FaArgs a) {
     const int row = q0 + ty + 16 * r;
     if (row >= a.Sq) continue;
     const float den = fmaxf(l[r], 1e-30f);
-    T* orow = ob + (long long)row * a.oss + tx;
+    float* orow = ob + (long long)row * a.oss + tx;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
-      orow[16 * c] = Elem<T>::from_f(acc[r][c] / den);
+      orow[16 * c] = acc[r][c] / den;
   }
 }
 
-template <class T, int D>
+template <int D>
 static int fa_launch(const FaArgs& a, int B, cudaStream_t stream) {
   constexpr int smem = fa_smem_bytes<D>();
   static_assert(smem <= RT_SMEM_BYTES, "flash_attention tile too large");
   // opting in above 48 KB is per kernel; a repeat is cheap
   cudaError_t err = cudaFuncSetAttribute(
-      fa_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fa_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.Sq + FA_BQ - 1) / FA_BQ, B * a.H);
-  fa_fwd_kernel<T, D><<<grid, FA_THREADS, smem, stream>>>(a);
+  fa_fwd_kernel<D><<<grid, FA_THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <class T>
-static int fa_dispatch(const FaArgs& a, int D, int B, cudaStream_t stream) {
-  switch (D) {
-    case 64: return fa_launch<T, 64>(a, B, stream);
-    case 96: return fa_launch<T, 96>(a, B, stream);
-    case 128: return fa_launch<T, 128>(a, B, stream);
-    case 256: return fa_launch<T, 256>(a, B, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-// dtype: 0 = float32, 1 = bfloat16.  strides[12] = q, k, v, out strides of
-// (batch, seq, head) in elements; the head dim is contiguous.
+// fp32 q, k, v, out.  strides[12] = q, k, v, out strides of (batch, seq,
+// head) in elements; the head dim is contiguous.
 extern "C" int rt_flash_attention(const void* q, const void* k, const void* v,
-                                  void* o, int dtype, int B, int Sq, int Sk,
-                                  int H, int KH, int D,
-                                  const long long* strides, float scale,
-                                  int causal, int window, void* stream) {
+                                  void* o, int B, int Sq, int Sk, int H,
+                                  int KH, int D, const long long* strides,
+                                  float scale, int causal, int window,
+                                  void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || KH < 1 || H % KH != 0 ||
       (long long)B * H > 65535)
     return (int)cudaErrorInvalidValue;
@@ -288,7 +240,11 @@ extern "C" int rt_flash_attention(const void* q, const void* k, const void* v,
            strides[5], strides[6], strides[7], strides[8], strides[9],
            strides[10], strides[11], scale, causal, window};
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return fa_dispatch<float>(a, D, B, s);
-  if (dtype == 1) return fa_dispatch<__nv_bfloat16>(a, D, B, s);
-  return (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 64: return fa_launch<64>(a, B, s);
+    case 96: return fa_launch<96>(a, B, s);
+    case 128: return fa_launch<128>(a, B, s);
+    case 256: return fa_launch<256>(a, B, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

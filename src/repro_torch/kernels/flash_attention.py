@@ -1,5 +1,6 @@
 """flash_attention — causal / sliding-window GQA attention forward
-(``csrc/flash_attention.cu``).
+(``csrc/flash_attention_tc.cu`` for bf16, ``csrc/flash_attention.cu`` for
+fp32).
 
 Port of ``repro.kernels.flash_attention``: online softmax over key tiles,
 fp32 accumulators, output in q's dtype.  q: [B, Sq, H, D]; k, v:
@@ -8,8 +9,9 @@ fp32 accumulators, output in q's dtype.  q: [B, Sq, H, D]; k, v:
 
 ``flash_attention_plain`` is the port of the reference's dense oracle
 (``repro/kernels/ref.py::flash_attention``); CPU tensors take it.  On CUDA
-tensors the wrapper launches the kernel (fp32 or bf16, D in
-``HEAD_DIMS``) or raises.
+tensors the wrapper launches a kernel chosen by dtype, with D in
+``HEAD_DIMS``, or raises: bf16 runs on the tensor cores (``wgmma`` fed by
+TMA, softmax in base 2), fp32 on SIMT FMAs (TF32 would lose digits).
 """
 
 from __future__ import annotations
@@ -19,15 +21,22 @@ import math
 
 import torch
 
-from repro_torch.kernels.common import check_launch, load_library, \
+from repro_torch.kernels.common import ABI, check_launch, load_library, \
     stream_handle
 
 NEG_INF = -1e30
-# head dims the kernel is instantiated for (phi3: 96, gemma3: 256)
+LOG2E = 1.4426950408889634
+# head dims the kernels are instantiated for (musicgen: 64, phi3: 96,
+# qwen3: 128, gemma3: 256)
 HEAD_DIMS = (64, 96, 128, 256)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# tile sizes of csrc/flash_attention.cu (FA_BQ, FA_BK)
-KERNEL_BQ, KERNEL_BK = 64, 32
+# (q rows of one CTA, keys of one kv tile) by dtype and head dim: the SIMT
+# kernel's (FA_BQ, FA_BK) and the tensor-core kernel's (TC_BQ, tc_bk(D)),
+# checked against csrc/abi.cuh when the library loads
+KERNEL_TILES = {
+    torch.float32: {d: (ABI["fa_bq"], ABI["fa_bk"]) for d in HEAD_DIMS},
+    torch.bfloat16: {d: (ABI["fa_tc_bq"], ABI["fa_tc_bk"] if d <= 128
+                         else ABI["fa_tc_bk_wide"]) for d in HEAD_DIMS},
+}
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -75,8 +84,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, bq: int = 256,
                     bk: int = 256) -> torch.Tensor:
     """Attention forward, [B, Sq, H, D] out.  ``bq`` / ``bk`` are taken for
-    parity with the reference's signature; the kernel tiles by
-    ``KERNEL_BQ`` x ``KERNEL_BK``.  CPU tensors take the plain version."""
+    parity with the reference's signature; the kernels tile by
+    ``KERNEL_TILES``.  CPU tensors take the plain version."""
     del bq, bk
     _check_shapes(q, k, v)
     window = int(window)
@@ -88,7 +97,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _, Sk, KH, _ = k.shape
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in KERNEL_TILES or k.dtype != q.dtype or \
+            v.dtype != q.dtype:
         raise TypeError(f"flash_attention: q/k/v must all be float32 or "
                         f"bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
     if q.device.index != torch.cuda.current_device() or \
@@ -108,14 +118,34 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: empty q {tuple(q.shape)} or "
                          f"k {tuple(k.shape)}")
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_longlong * 12)(*(
-        s for t in (q, k, v, out) for s in t.stride()[:3]))
+    strides = _strides(q, k, v, out)
     lib = load_library()
-    rc = lib.rt_flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                out.data_ptr(), _DTYPES[q.dtype], B, Sq, Sk,
-                                H, KH, D, strides, 1.0 / math.sqrt(D),
-                                int(bool(causal)), window,
-                                stream_handle(q.device))
+    if q.dtype == torch.bfloat16:
+        launch, scale = lib.rt_flash_attention_tc, LOG2E / math.sqrt(D)
+    else:
+        launch, scale = lib.rt_flash_attention, 1.0 / math.sqrt(D)
+    rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
+                Sq, Sk, H, KH, D, strides, scale, int(bool(causal)), window,
+                stream_handle(q.device))
     check_launch(rc, "flash_attention")
     return out
+
+
+def _strides(*tensors):
+    """(batch, seq, head) strides of each [B, S, H, D] tensor, in elements."""
+    return (ctypes.c_longlong * (3 * len(tensors)))(*(
+        s for t in tensors for s in t.stride()[:3]))
+
+
+def tensor_map_encode_ns(q, k, v, iters: int = 1000) -> int:
+    """Host ns to encode the three TMA tensor maps of one bf16 launch on
+    these CUDA tensors (mean over ``iters``; nothing is launched)."""
+    B, Sq, H, D = q.shape
+    _, Sk, KH, _ = k.shape
+    ns = load_library().rt_flash_attention_tc_encode_ns(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), B, Sq, Sk, H, KH, D,
+        _strides(q, k, v), iters)
+    if ns < 0:
+        raise RuntimeError("flash_attention: cuTensorMapEncodeTiled failed")
+    return ns
 

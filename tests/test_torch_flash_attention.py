@@ -9,10 +9,13 @@ fp32 is held at the reference's own tolerance (``tests/test_kernels.py``:
 the output, at different points, so each is measured against a float64
 evaluation and the port's error may be at most twice the reference's.
 
-``_emulate_kernel`` repeats the CUDA kernel's schedule (64-row q tiles,
-32-key tiles, the tiles it skips, bf16 rounding of P) in plain torch, so
-the tiling and skipping logic of ``csrc/flash_attention.cu`` is checked here
-although the kernel runs only on the card.
+``_emulate_kernel`` repeats the CUDA kernels' schedules in plain torch, with
+the tile sizes the wrapper exports (``KERNEL_TILES``): the q and kv tiles,
+the tiles they skip, bf16 rounding of P and, for the bf16 tensor-core
+kernel, the base-2 softmax and the per-warpgroup choice of the kv tiles that
+need a mask.  So the tiling, skipping and masking logic of
+``csrc/flash_attention.cu`` and ``csrc/flash_attention_tc.cu`` is checked
+here although the kernels run only on the card.
 """
 
 import math
@@ -65,14 +68,24 @@ def _err(a, b):
 
 
 def _emulate_kernel(q, k, v, *, causal=True, window=0):
-    """csrc/flash_attention.cu's schedule in plain torch: per (b, h, q tile)
-    the kv tile range of the kernel, online softmax per 32-key tile, P
-    rounded to v's dtype, l over the unrounded P."""
+    """The CUDA kernels' schedules in plain torch: per (b, h, q tile) the kv
+    tile range of the kernel, online softmax per kv tile, P rounded to v's
+    dtype, l over the unrounded P.  fp32 (csrc/flash_attention.cu) takes
+    exp of scores scaled by 1/sqrt(D) and masks every tile.  bf16
+    (csrc/flash_attention_tc.cu) scales by log2(e)/sqrt(D), takes exp2, and
+    each 64-row consumer warpgroup masks only the kv tiles that straddle the
+    diagonal, the window edge or Sk: on every other tile the mask it skips
+    must be all true, which is asserted here."""
     B, Sq, H, D = q.shape
     _, Sk, KH, _ = k.shape
     G = H // KH
-    BQ, BK = tfa.KERNEL_BQ, tfa.KERNEL_BK
-    scale = 1.0 / math.sqrt(D)
+    BQ, BK = tfa.KERNEL_TILES[q.dtype][D]
+    tc = q.dtype == torch.bfloat16
+    if tc:
+        scale, exp = tfa.LOG2E / math.sqrt(D), torch.exp2
+    else:
+        scale, exp = 1.0 / math.sqrt(D), torch.exp
+    scale = torch.tensor(scale, dtype=torch.float32)  # the kernel's float
     out = torch.zeros_like(q)
     q_offset = Sk - Sq
     for q0 in range(0, Sq, BQ):
@@ -89,16 +102,21 @@ def _emulate_kernel(q, k, v, *, causal=True, window=0):
             kt = k[:, k0:k0 + BK].float().repeat_interleave(G, dim=2)
             vt = v[:, k0:k0 + BK].float().repeat_interleave(G, dim=2)
             kpos = k0 + torch.arange(kt.shape[1])
-            s = torch.einsum("bqhd,bkhd->bhqk", qt, kt)
+            s = torch.einsum("bqhd,bkhd->bhqk", qt, kt) * scale
             ok = (kpos < Sk)[None, :].expand(rows, -1)
             if causal:
                 ok = ok & (qpos[:, None] >= kpos[None, :])
             if window > 0:
                 ok = ok & ((qpos[:, None] - kpos[None, :]) < window)
-            s = torch.where(ok, s * scale, torch.tensor(-1e30))
+            for w0 in range(0, rows, 64) if tc else ():
+                wg_lo = qp_lo + w0
+                edge = (k0 + BK > Sk or (causal and k0 + BK - 1 > wg_lo)
+                        or (window > 0 and wg_lo + 63 - k0 >= window))
+                assert edge or bool(ok[w0:w0 + 64].all()), (q0, w0, k0)
+            s = torch.where(ok, s, torch.tensor(-1e30))
             m_new = torch.maximum(m, s.amax(-1))
-            corr = torch.exp(m - m_new)
-            p = torch.exp(s - m_new[..., None])
+            corr = exp(m - m_new)
+            p = exp(s - m_new[..., None])
             l = l * corr + p.sum(-1)
             acc = acc * corr[..., None] + torch.einsum(
                 "bhqk,bkhd->bhqd", p.to(v.dtype).float(), vt)
@@ -151,6 +169,14 @@ EMU_CASES = [
     (70, 70, 4, 4, 256, 33, "float32"),
     (200, 200, 8, 2, 128, 0, "bfloat16"),
     (150, 181, 4, 1, 64, 50, "bfloat16"),
+    # bf16 lengths that are not multiples of its 128- / 64-key tiles
+    (200, 300, 8, 2, 128, 0, "bfloat16"),
+    (181, 181, 4, 4, 96, 0, "bfloat16"),
+    (70, 250, 4, 2, 256, 0, "bfloat16"),
+    # windows that make the bf16 kernel skip whole kv tiles
+    (600, 600, 4, 2, 64, 100, "bfloat16"),
+    (300, 300, 2, 1, 256, 70, "bfloat16"),
+    (330, 400, 4, 2, 96, 129, "bfloat16"),
 ]
 
 
@@ -170,6 +196,31 @@ def test_kernel_schedule_matches_reference(case):
     else:
         exact = _oracle(tq, tk, tv, causal=True, window=window)
         assert _err(got, exact) <= 2 * _err(dense, exact)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_tiles_cover_every_head_dim(dtype):
+    """Each kernel has a (q rows, kv keys) tile for every head dim the
+    wrapper accepts; the bf16 tiles fit the tensor-core kernel (two 64-row
+    warpgroups, 16-key wgmma steps)."""
+    tiles = tfa.KERNEL_TILES[dtype]
+    assert set(tiles) == set(tfa.HEAD_DIMS)
+    for d, (bq, bk) in tiles.items():
+        assert bq > 0 and bk > 0, d
+        if dtype == torch.bfloat16:
+            assert bq == 128 and bk % 16 == 0 and bk <= 128, (d, bq, bk)
+
+
+def test_kernel_schedule_skips_whole_bf16_tiles():
+    """The skipping cases of ``EMU_CASES`` do skip: some bf16 q tile starts
+    its kv loop past key 0."""
+    for sq, sk, _, _, d, window, dtype in EMU_CASES:
+        if dtype != "bfloat16" or window == 0 or sq < 300:
+            continue
+        bq, bk = tfa.KERNEL_TILES[torch.bfloat16][d]
+        begins = [max(0, sk - sq + q0 - window + 1) // bk * bk
+                  for q0 in range(0, sq, bq)]
+        assert max(begins) > 0, (sq, sk, d, window, begins)
 
 
 @pytest.mark.parametrize("window,q_offset,blocks", [
