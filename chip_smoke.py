@@ -7,13 +7,17 @@ Phases (any failure exits non-zero; nothing is caught):
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build the CUDA kernel library from ``src/repro_torch/kernels/csrc``;
      print each kernel's registers and spills (ptxas), the bf16 attention
-     kernel's shared memory, and the tensor-core (HGMMA, HMMA), TMA and FFMA
-     instructions in the attention kernels' SASS (cuobjdump);
+     kernel's shared memory, the tensor-core (HGMMA, HMMA), TMA and FFMA
+     instructions in the attention kernels' SASS and the async copies
+     (LDGSTS, UBLKCP, UTMALDG) and local loads (LDL) in the region
+     kernels' SASS (cuobjdump);
   3. every kernel against its plain PyTorch version on the card, at the
      main path's shapes: fused_chain (every op, <= 1e-5 scaled),
      stream_matmul / siren_layer (<= 1e-4 scaled), region on every fused
      region the port plans for the full-width SIREN at orders 1-3 plus a
-     column-tiled one (<= 1e-4 scaled); ms per launch of each;
+     column-tiled one, at R = 8 and R = 512 rows (<= 1e-4 scaled); ms per
+     launch of each, the cluster width C each region launch took, and C
+     with the card's max active clusters per launch shape;
   4. the main path: ``compile_gradient`` -> ``apply_batched`` on the
      full-width SIREN (random weights from a seeded generator) at orders
      1-3, fused on a 256 x 256 grid and unfused on a 64 x 64 grid, every
@@ -21,13 +25,14 @@ Phases (any failure exits non-zero; nothing is caught):
   5. multi-INR serving at full width with K = 8 SIRENs (lane 0 is phase
      4's weights): region_call_stacked on the real regions of orders 1-2
      against its plain version (<= 1e-4 scaled) and, with torch.equal,
-     against K single-lane region launches; MultiINRArtifact's stacked path
-     (orders 1-2, broadcast and per-lane coordinates, N = 8,192 rows per
-     lane and a ragged N) and per-lane path (order 3, N = 1,024), every
-     lane held to its float64 oracle; the ServingEngine (order 2: grouping,
-     a zero-row request, a K = 1 non-base weight id, stats) and a fresh
-     engine restored from an ArtifactStore by signature alone (no tracer
-     call, outputs torch.equal);
+     against K single-lane region launches and each lane's first tile
+     against an 8-row launch (another cluster width); MultiINRArtifact's
+     stacked path (orders 1-2, broadcast and per-lane coordinates, N =
+     8,192 rows per lane and a ragged N) and per-lane path (order 3, N =
+     1,024), every lane held to its float64 oracle; the ServingEngine
+     (order 2: grouping, a zero-row request, a K = 1 non-base weight id,
+     stats) and a fresh engine restored from an ArtifactStore by
+     signature alone (no tracer call, outputs torch.equal);
   6. streamed fitting at full width (phase 4's weights): region_bwd on the
      real regions of orders 1-2 and a column-tiled one, at the fit path's
      R = 8 and at R = 1,000 (many CTAs, a ragged tile, the partial
@@ -169,7 +174,8 @@ def build_report(log, common):
             fn = m.group(1)
             counts[fn] = collections.Counter()
         elif fn:
-            for op in ("HGMMA", "HMMA", "UTMALDG", "FFMA"):
+            for op in ("HGMMA", "HMMA", "UTMALDG", "FFMA", "LDGSTS", "UBLKCP",
+                       "LDL"):
                 if re.search(rf"\b{op}\b", line):
                     counts[fn][op] += 1
     pretty = demangle(list(counts))
@@ -177,6 +183,12 @@ def build_report(log, common):
         if "fa_tc_kernel" in fn or "fa_fwd_kernel" in fn:
             log(f"[build] SASS {pretty[fn]}: HGMMA {c['HGMMA']}, HMMA "
                 f"{c['HMMA']}, UTMALDG {c['UTMALDG']}, FFMA {c['FFMA']}")
+        elif fn.startswith(("_Z13region_kernel", "_Z17region_bwd_kernel")):
+            # the weight ring's async copies (cp.async: LDGSTS; bulk or
+            # tensor copies: UBLKCP / UTMALDG) and local-memory loads
+            log(f"[build] SASS {pretty[fn]}: LDGSTS {c['LDGSTS']}, UBLKCP "
+                f"{c['UBLKCP']}, UTMALDG {c['UTMALDG']}, LDL {c['LDL']}, "
+                f"FFMA {c['FFMA']}")
 
 
 def scaled_err(got, want):
@@ -206,9 +218,11 @@ def main() -> int:
     from repro_torch.kernels import common
     from repro_torch.kernels.fused_chain import BINARY, eval_chain, fused_chain
     from repro_torch.kernels.region import (RegionKernelSpec, lower,
+                                           plan_region, plan_region_bwd,
                                            region_call, region_call_plain,
                                            region_call_stacked,
-                                           region_call_stacked_plain)
+                                           region_call_stacked_plain,
+                                           sm_count)
     from repro_torch.kernels.siren_layer import siren_layer, siren_layer_plain
     from repro_torch.kernels.stream_matmul import (stream_matmul,
                                                    stream_matmul_plain)
@@ -298,6 +312,38 @@ def main() -> int:
         return (dms if dms is not None else cms), cms
 
     kernels = {}
+
+    def region_cluster(spec, stream, rows, res):
+        """The cluster width region_call takes for these operands."""
+        return plan_region(spec, tuple(a.shape[1] for a in stream),
+                           tuple(a.shape[1] for a in rows),
+                           tuple(tuple(a.shape) for a in res),
+                           common.cdiv(stream[0].shape[0], 8),
+                           sm_count(0)).cluster
+
+    def cluster_report(spec, stream, rows, res):
+        """C and the card's max active clusters of the forward at R = 8,
+        R = 512 and the stacked K = 8, R = 8,192 launch, and of region_bwd
+        at R = 8 and R = 1,000 (the lowering's choice; nothing launched)."""
+        widths = (tuple(a.shape[1] for a in stream),
+                  tuple(a.shape[1] for a in rows),
+                  tuple(tuple(a.shape) for a in res))
+        lib = common.load_library()
+        out = []
+        for label, tiles, plan, occupancy in [
+                ("region R=8", 1, plan_region, lib.rt_region_max_clusters),
+                ("region R=512", 64, plan_region, lib.rt_region_max_clusters),
+                ("region_stacked K=8 R=8192", 8 * 1024, plan_region,
+                 lib.rt_region_max_clusters),
+                ("region_bwd R=8", 1, plan_region_bwd,
+                 lib.rt_region_bwd_max_clusters),
+                ("region_bwd R=1000", 125, plan_region_bwd,
+                 lib.rt_region_bwd_max_clusters)]:
+            prog = plan(spec, *widths, tiles, sm_count(0))
+            out.append(f"{label}: C={prog.cluster}, "
+                       f"{prog.smem_bytes} B/CTA, "
+                       f"{occupancy(prog.cluster, prog.smem_bytes)} clusters")
+        return "; ".join(out)
 
     def record(name, source, replaces, errs, t_k, t_p, nbytes, flops,
                library_ms=None, peak_flops_per_s=FP32_FLOPS_PER_S):
@@ -425,20 +471,31 @@ def main() -> int:
             raise AssertionError("the tight budget planned no tile group")
 
         def check(region, ops, order=order, conf=conf):
+            """The region at the main path's R = 8 and at R = 512 (the
+            chunk-wide launch of ROADMAP Queue 1 item 2), each against
+            its plain version, and the device time of one launch."""
             nonlocal timed_region
-            got = region_call(region.spec, *ops)
-            want = region_call_plain(region.spec, *ops)
-            torch.cuda.synchronize()
-            for a, b in zip(got, want):
-                region_errs.append(scaled_err(a, b))
+            stream, rows, res, out_info = ops
+            big = [rand(512, a.shape[1]) for a in stream]
+            times = []
+            for R, st in ((8, stream), (512, big)):
+                got = region_call(region.spec, st, rows, res, out_info)
+                want = region_call_plain(region.spec, st, rows, res,
+                                         out_info)
+                torch.cuda.synchronize()
+                for a, b in zip(got, want):
+                    region_errs.append(scaled_err(a, b))
+                C = region_cluster(region.spec, st, rows, res)
+                t = device_ms(lambda: region_call(region.spec, st, rows, res,
+                                                  out_info), 20)
+                times.append(f"R={R} C={C}: {t} ms/launch")
             region_shapes.append((order, len(region.spec.steps),
                                   len(region.spec.tile_groups)))
             kinds = [st[0] for st in region.spec.steps]
             log(f"[region] order {order} bn={conf.bn}: {len(kinds)} steps "
                 f"({kinds.count('mm')} mm, {kinds.count('chain')} chain), "
                 f"{len(region.spec.tile_groups)} tile groups: "
-                f"{device_ms(lambda: region_call(region.spec, *ops), 20)} "
-                f"ms/launch on the device")
+                f"{'; '.join(times)} on the device")
             if order == 2 and conf is fused_cfg and timed_region is None:
                 timed_region = (region.spec, ops)
 
@@ -468,6 +525,9 @@ def main() -> int:
             f"{t16} ms/launch")
     spec, ops = timed_region
     stream, rows, res, out_info = ops
+    log("[region] clusters of the order-2 region by shape (C, then "
+        "cudaOccupancyMaxActiveClusters at the launch's shared memory): "
+        + cluster_report(spec, stream, rows, res))
     elems = sum(t.numel() for t in (*stream, *rows, *res)) \
         + sum(8 * c for c, _ in out_info)
     flops = lower(spec, tuple(t.shape[1] for t in stream),
@@ -610,9 +670,10 @@ def multi_inr_phase(log, torch, dev, cfg, f, params, coords, fused_cfg,
     from repro_torch.core.pipeline import compile_gradient
     from repro_torch.inr.siren import siren_fn, siren_init
     from repro_torch.kernels import common
-    from repro_torch.kernels.region import (lower, region_call,
+    from repro_torch.kernels.region import (lower, plan_region, region_call,
                                            region_call_stacked,
-                                           region_call_stacked_plain)
+                                           region_call_stacked_plain,
+                                           sm_count)
     from repro_torch.serve import (ArtifactStore, MultiINRArtifact,
                                    ServingEngine, bind_weights)
 
@@ -653,16 +714,27 @@ def multi_inr_phase(log, torch, dev, cfg, f, params, coords, fused_cfg,
             if not all(torch.equal(a[k], b) for a, b in zip(got, lane)):
                 raise AssertionError(f"order {order}: stacked lane {k} != "
                                      f"region_call on its operands")
+            # one 8-row tile alone runs on a 16-CTA cluster, the stacked
+            # launch on one CTA per tile: the summation order must not
+            # depend on the cluster width
+            tile = region_call(region.spec, [lane_coords[k][:8]],
+                               [r[k] for r in rows], [r[k] for r in res],
+                               out_info)
+            if not all(torch.equal(a[k][:8], b) for a, b in zip(got, tile)):
+                raise AssertionError(f"order {order}: lane {k}'s first tile "
+                                     f"differs between cluster widths")
         t = device_ms(lambda: region_call_stacked(region.spec, *ops), 5)
-        prog = lower(region.spec, tuple(a.shape[2] for a in ops[0]),
-                     tuple(r.shape[2] for r in rows),
-                     tuple(tuple(r.shape[1:]) for r in res))
+        prog = plan_region(region.spec, tuple(a.shape[2] for a in ops[0]),
+                           tuple(r.shape[2] for r in rows),
+                           tuple(tuple(r.shape[1:]) for r in res),
+                           K * common.cdiv(N, 8), sm_count(0))
         log(f"[multi] kernel order {order}: K={K} R={N} "
             f"{len(region.spec.steps)} steps, {prog.flops(1)} flops/row, "
             f"{sum(r[0].numel() * 4 for r in res)} resident bytes/lane, "
-            f"{4 * (common.ABI['region_red_floats'] + prog.ws_floats)} "
-            f"bytes of shared memory/CTA: {t} ms/launch on the device; "
-            f"lanes bit-equal to {K} region_call launches; scaled err "
+            f"C={prog.cluster}, {prog.smem_bytes} bytes of shared "
+            f"memory/CTA: {t} ms/launch on the device; "
+            f"lanes bit-equal to {K} region_call launches and their first "
+            f"tiles to 8-row launches on 16-CTA clusters; scaled err "
             f"{max(s for _, s in stacked_errs[-len(got):]):.3e}")
         if order == 2:
             timed = (region.spec, ops)
@@ -820,8 +892,9 @@ def fit_phase(log, torch, dev, cfg, f, params, coords, fused_cfg, tiled_cfg,
                                  fit_many)
     from repro_torch.inr.siren import siren_fn, siren_init
     from repro_torch.kernels import common
-    from repro_torch.kernels.region import (RegionKernelSpec, lower_bwd,
-                                           region_bwd_call, region_bwd_plain)
+    from repro_torch.kernels.region import (RegionKernelSpec,
+                                           plan_region_bwd, region_bwd_call,
+                                           region_bwd_plain, sm_count)
     from repro_torch.serve import ArtifactStore, ServingEngine
 
     gen = torch.Generator().manual_seed(SEED + 6)
@@ -857,15 +930,16 @@ def fit_phase(log, torch, dev, cfg, f, params, coords, fused_cfg, tiled_cfg,
                 bwd_errs += errs
                 t = device_ms(lambda: region_bwd_call(spec, st, rows, res,
                                                       cots), 10)
-                prog = lower_bwd(spec, tuple(a.shape[1] for a in st),
-                                 tuple(a.shape[1] for a in rows),
-                                 tuple(tuple(a.shape) for a in res))
+                prog = plan_region_bwd(spec, tuple(a.shape[1] for a in st),
+                                       tuple(a.shape[1] for a in rows),
+                                       tuple(tuple(a.shape) for a in res),
+                                       common.cdiv(R, 8), sm_count(0))
                 log(f"[fit] region_bwd order {order} {label}: "
                     f"{len(spec.steps)} steps, {len(spec.tile_groups)} tile "
-                    f"groups, R={R}: {t} ms per call on the device, "
-                    f"{4 * prog.ws_floats} workspace bytes/CTA "
-                    f"({'shared' if prog.in_smem else 'global'}), scaled err "
-                    f"{max(s for _, s in errs):.3e}")
+                    f"groups, R={R}: {t} ms per call on the device, C="
+                    f"{prog.cluster}, {4 * prog.ws_floats} workspace "
+                    f"bytes/CTA ({'shared' if prog.in_smem else 'global'}), "
+                    f"scaled err {max(s for _, s in errs):.3e}")
                 if order == 2 and R == 8 and timed is None:
                     timed = (spec, (st, rows, res, cots), prog)
     worst = max(s for _, s in bwd_errs)

@@ -17,6 +17,9 @@
 #define RT_RED_FLOATS (RT_REGION_THREADS * RT_REGION_ROWS)
 #define RT_SMEM_BYTES 232448    // shared memory one CTA may use on Hopper
 #define RT_SMEM_STATIC 1024     // region.cu's static shared arrays, at most
+#define RT_WSTAGE_FLOATS 8192   // floats of one stage of the region weight ring
+#define RT_WRING 2              // stages of the region weight ring
+#define RT_MAX_CLUSTER 16       // CTAs of one region cluster (non-portable > 8)
 // attention tiles (kernels/flash_attention.py KERNEL_TILES)
 #define RT_FA_BQ 64             // fp32 SIMT kernel: q rows of one CTA
 #define RT_FA_BK 32             //   keys of one kv tile

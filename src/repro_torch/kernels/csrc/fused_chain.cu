@@ -71,7 +71,8 @@ extern "C" int rt_abi(int* vals, int n) {
                      OP_COUNT,       RT_RED_FLOATS,
                      RT_SMEM_BYTES - RT_SMEM_STATIC,    RT_MAX_LANES,
                      RT_BWD_IO_INTS, RT_FA_BQ,          RT_FA_BK,
-                     RT_FA_TC_BQ,    RT_FA_TC_BK,       RT_FA_TC_BK_WIDE};
+                     RT_FA_TC_BQ,    RT_FA_TC_BK,       RT_FA_TC_BK_WIDE,
+                     RT_WSTAGE_FLOATS, RT_WRING,        RT_MAX_CLUSTER};
   const int m = (int)(sizeof(abi) / sizeof(abi[0]));
   for (int i = 0; i < n && i < m; ++i) vals[i] = abi[i];
   return m;

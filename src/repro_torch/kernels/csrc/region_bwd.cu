@@ -5,52 +5,57 @@
 // body at region.py:347, pallas_call at :435 in _region_bwd_call :393), the
 // backward that region_grad_fn (:451) gives the fit path's region call.  The
 // TPU kernel replays the step program under jax.vjp per row tile and carries
-// the parameter cotangents across its sequential grid in VMEM.  Here CTAs run
-// in parallel and in no order, so nothing carries over: each CTA owns
-// RT_REGION_ROWS rows (as rt_region does) and
-//   1. replays the forward step program (region_steps.cuh, the same
-//      chain_step / mm_step as the forward kernel), keeping EVERY value in
-//      its own workspace slot (no liveness packing: the reverse walk reads
-//      them all) and, for each sin epilogue, the argument h of sin(w0 h);
+// the parameter cotangents across its sequential grid in VMEM.  Here tiles
+// run in parallel and in no order, so nothing carries over: each
+// RT_REGION_ROWS-row tile runs on a thread-block cluster of C CTAs (as in
+// rt_region, region_steps.cuh), and each CTA owns a column block of every
+// value, of its cotangent and of every mm output.  The cluster
+//   1. replays the forward step program (the same chain_step / mm_step as
+//      the forward kernel, weights through the same cp.async ring), keeping
+//      EVERY value in its own slot (no liveness packing: the reverse walk
+//      reads them all) and, for each sin epilogue, the argument h of
+//      sin(w0 h), in the owner's shared memory;
 //   2. walks a backward table in reverse step order, adding into
 //      zero-initialised cotangent slots, one per value (stream inputs and
-//      bcast rows included);
-//   3. writes its rows' stream cotangents, and its partial sums of the
-//      bcast-row and resident cotangents to its own slice of a partial
-//      buffer.  A second launch (rt_region_bwd_reduce) adds the partials in
-//      CTA order; with one CTA (the fit path's 8-row block) the partial is
-//      the result and the wrapper skips it.  No atomics anywhere, so the
-//      result is the same bit for bit from run to run.
+//      bcast rows included), split over the CTAs like the values;
+//   3. writes its rows' stream cotangents, and the sums over its rows of
+//      the bcast-row and resident cotangents to the cluster's own slice of
+//      a partial buffer.  A second launch (rt_region_bwd_reduce) adds the
+//      partials in tile order; with one tile (the fit path's 8-row block)
+//      the partial is the result and the wrapper skips it.  No atomics
+//      anywhere, so the result is the same bit for bit from run to run.
 // Rules per step (kernels/region.py::lower_bwd writes the tables):
-//   mm:    dpre = dout * cos(w0 pre) * w0 when the epilogue applies sin;
-//          db += sum_rows dpre; dW[k0:, n0:] += x^T dpre; dx += dpre W^T.
-//          dpre is written over dout in place, so an accumulating tile of a
-//          column-tiled reducer (flag 2) hands it on unchanged to the
-//          tiles before it.
-//   chain: one warp per row recomputes the chain's intermediates per
-//          element, then pulls back through each opcode (chain_op_bwd,
-//          with JAX's rules at the edges: max/min, relu included, split
-//          ties evenly; abs passes g where x >= 0, so 1 at 0, as
-//          jnp.abs's rule does).  Operands read with
-//          column stride 0 (one column broadcast) sum their cotangent over
-//          the columns through a warp reduction; bcast rows (row stride 0)
-//          collect a per-row cotangent that step 3 sums over rows.
+//   mm:    on the CTA's own output columns: dpre = dout * cos(w0 pre) * w0
+//          when the epilogue applies sin (written over dout in place, so an
+//          accumulating tile of a column-tiled reducer, flag 2, hands it on
+//          unchanged to the tiles before it); db += sum_rows dpre.  After a
+//          cluster barrier each CTA gathers x and dpre whole through
+//          distributed shared memory: dW[k0:, own columns] += x^T dpre (a
+//          read-modify-write of the cluster's partial), and on its own
+//          columns of x's cotangent dx += dpre W^T, with W's rows of those
+//          columns staged through the ring (phase 1 chunks).  dx sums over n
+//          in an order fixed by the shape, as the forward sums over k.
+//   chain: each CTA recomputes the chain's intermediates per element of its
+//          own output columns, then pulls back through each opcode
+//          (chain_op_bwd, with JAX's rules at the edges: max/min, relu
+//          included, split ties evenly; abs passes g where x >= 0, so 1 at
+//          0, as jnp.abs's rule does) and adds into the operands' cotangent
+//          columns, wherever they live.  A chain with an operand read with
+//          column stride 0 (one column broadcast) sums that operand's
+//          cotangent over all columns: it runs whole on rank 0, one warp
+//          per row with a warp reduction, so the order does not depend on C.
+//          bcast rows (row stride 0) collect a per-row cotangent that step 3
+//          sums over rows.
 //   concat: a chain of no ops into a column range, so the cotangent splits
 //          by column range.
 //
 // What bounds it on the H100: the true bound of one 8-row launch is ~1 us
 // (each weight read once and its cotangent written once at 3.35 TB/s; the
-// flops at 67 TFLOP/s take less).  The launch is far from it because one
-// CTA of 8 warps runs the whole region on one SM, so it waits on L2
-// latency: an mm step reads W again for dx and read-modify-writes the CTA's
-// K x N partial of dW, and the values and cotangents (~0.7 MB per CTA at
-// full-width order 2) live in an L2-warm global workspace.  The design
-// keeps loads in flight instead: dW holds a column's 8 dpre values in
-// registers and keeps BW_RMW read-modify-writes outstanding; dx reads a
-// W row coalesced with the next row's loads issued early, x and dpre are
-// staged in shared memory, and the 8 rows' dx sums are written by 8 lanes
-// at once.  Tensor cores, weight tiles staged in shared memory and more
-// rows per CTA are the next steps (ROADMAP Queue 2, PERF.md).
+// flops at 67 TFLOP/s take less).  At R = 8 a launch is latency-bound: 2 x
+// 47 dependent steps at order 2.  The cluster spreads each step over C
+// SMs; values and cotangents (0.73 MB per tile at full-width order 2) fit
+// in the cluster's shared memory at C = 16 (45.6 KB per CTA), and the
+// weights of every step reach shared memory through the ring ahead of use.
 #include "region_steps.cuh"
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -97,315 +102,375 @@ __device__ __forceinline__ float chain_op_bwd(int op, float h, float y,
   }
 }
 
+
 // Backward tables (RT_INSTR_INTS ints per step, beside the forward table).
 // A cotangent view is 5 ints like a value view (always the workspace):
-// space, slot offset, row stride, column offset, column stride.
+// space, slot offset, row stride (the slot's block width), column offset,
+// column stride.
 //   chain: [0..4] out, [5..9] x, [10+5e..] extra e
 //   mm:    [0..4] out, [5..9] x, [10] pre slot or -1, [11] W's offset in
 //          the partial buffer, [12] the bias's or -1
-__device__ void chain_bwd(const int* I, const int* B, const int* prog,
-                          const float* fc, const LaneTable& P, float* ws,
-                          long long row0, int rows) {
-  const int C = I[1], n_ops = I[2], n_extra = I[5];
-  const int* ops = prog + I[3];
-  const float* vals = fc + I[4];
-  const int r = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (r >= rows) return;  // whole warps: one warp per row
-  const int* xv = I + 11;
-  const float* xb = view_base(xv, P, ws, 0, row0) + r * xv[2];
-  const int xcs = xv[4];
-  const float* eb[RT_MAX_EXTRA];
-  float* geb[RT_MAX_EXTRA];
-  int ecs[RT_MAX_EXTRA];
-  for (int e = 0; e < n_extra; ++e) {
-    const int* v = I + 16 + 5 * e;
-    const int* cv = B + 10 + 5 * e;
-    eb[e] = view_base(v, P, ws, 0, row0) + r * v[2];
-    ecs[e] = v[4];
-    geb[e] = ws + cv[1] + cv[3] + r * cv[2];
+
+// The chain's intermediates at one element and the pullback of g through
+// them: returns x's cotangent, writes the extras' to de.
+__device__ __forceinline__ float chain_pullback(const int* ops,
+                                                const float* vals, int n_ops,
+                                                int n_extra, float h,
+                                                const float* ev, float g,
+                                                float* de) {
+  float hs[RT_MAX_CHAIN + 1];
+  int e = 0;
+  for (int i = 0; i < n_ops; ++i) {
+    hs[i] = h;
+    const bool bin = ops[i] >= OP_MUL;
+    const float xe = bin ? ev[e] : 0.f;
+    h = eval_chain(h, 1, ops + i, vals + i, [&](int) { return xe; });
+    if (bin) ++e;
   }
-  const float* go = ws + B[1] + B[3] + r * B[2];
-  float* gx = ws + B[6] + B[8] + r * B[7];
+  hs[n_ops] = h;
+  for (int i = n_ops - 1; i >= 0; --i) {
+    const bool bin = ops[i] >= OP_MUL;
+    if (bin) --e;
+    float d = 0.f;
+    g = chain_op_bwd(ops[i], hs[i], hs[i + 1], vals[i], bin ? ev[e] : 0.f, g,
+                     &d);
+    if (bin) de[e] = d;
+  }
+  return g;
+}
+
+// A chain with a broadcast-column operand, whole on one CTA: one warp per
+// row, lanes over columns; a broadcast operand's cotangent sums the lanes'
+// partials (columns lane, lane + 32, ...) through a warp reduction.
+__device__ void chain_bwd_whole(const int* I, const int* B, const int* ops,
+                                const float* vals, const LaneTable& P,
+                                const Cta& c) {
+  const int C = I[1], n_ops = I[2], n_extra = I[5];
+  const int r = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (r >= c.rows) return;  // whole warps: one warp per row
+  const int xcs = I[15];
   float sx = 0.f, se[RT_MAX_EXTRA];
   for (int e = 0; e < n_extra; ++e) se[e] = 0.f;
-  for (int c = lane; c < C; c += 32) {
-    float hs[RT_MAX_CHAIN + 1], ev[RT_MAX_EXTRA], de[RT_MAX_EXTRA];
-    for (int e = 0; e < n_extra; ++e) ev[e] = eb[e][c * ecs[e]];
-    float h = xb[c * xcs];
-    int e = 0;
-    for (int i = 0; i < n_ops; ++i) {
-      hs[i] = h;
-      const bool bin = ops[i] >= OP_MUL;
-      const float xe = bin ? ev[e] : 0.f;
-      h = eval_chain(h, 1, ops + i, vals + i, [&](int) { return xe; });
-      if (bin) ++e;
-    }
-    hs[n_ops] = h;
-    float g = go[c];
-    for (int i = n_ops - 1; i >= 0; --i) {
-      const bool bin = ops[i] >= OP_MUL;
-      if (bin) --e;
-      float d = 0.f;
-      g = chain_op_bwd(ops[i], hs[i], hs[i + 1], vals[i], bin ? ev[e] : 0.f,
-                       g, &d);
-      if (bin) de[e] = d;
-    }
-    if (xcs) gx[c] += g; else sx += g;
+  for (int col = lane; col < C; col += 32) {
+    float ev[RT_MAX_EXTRA], de[RT_MAX_EXTRA];
+    for (int e = 0; e < n_extra; ++e) ev[e] = *at(c, P, I + 16 + 5 * e, r, col);
+    const float g = chain_pullback(ops, vals, n_ops, n_extra,
+                                   *at(c, P, I + 11, r, col), ev,
+                                   *at(c, P, B, r, col), de);
+    if (xcs) *at(c, P, B + 5, r, col) += g; else sx += g;
     for (int k = 0; k < n_extra; ++k) {
-      if (ecs[k]) geb[k][c] += de[k]; else se[k] += de[k];
+      if (I[20 + 5 * k]) *at(c, P, B + 10 + 5 * k, r, col) += de[k];
+      else se[k] += de[k];
     }
   }
   if (!xcs) {
     sx = warp_sum(sx);
-    if (lane == 0) gx[0] += sx;
+    if (lane == 0) *at(c, P, B + 5, r, 0) += sx;
   }
   for (int e = 0; e < n_extra; ++e) {
-    if (ecs[e]) continue;
+    if (I[20 + 5 * e]) continue;
     const float s = warp_sum(se[e]);
-    if (lane == 0) geb[e][0] += s;
+    if (lane == 0) *at(c, P, B + 10 + 5 * e, r, 0) += s;
   }
 }
 
-// x columns (and dpre columns) one pass of mm_bwd stages, 8 rows each
-#define BW_CHUNK (RT_RED_FLOATS / RT_REGION_ROWS)
+__device__ void chain_bwd(const int* I, const int* B, const int* prog,
+                          const float* fc, const LaneTable& P, const Cta& c) {
+  const int C = I[1], n_ops = I[2], n_extra = I[5];
+  const int* ops = prog + I[3];
+  const float* vals = fc + I[4];
+  bool whole = I[15] == 0;
+  for (int e = 0; e < n_extra; ++e) whole |= I[20 + 5 * e] == 0;
+  if (whole) {
+    if (c.rank == 0) chain_bwd_whole(I, B, ops, vals, P, c);
+    return;
+  }
+  int lo, hi;
+  owned(c, B, C, lo, hi);
+  const int w = hi - lo;
+  for (int i = threadIdx.x; i < c.rows * w; i += blockDim.x) {
+    const int r = i / w, col = lo + i - r * w;
+    float ev[RT_MAX_EXTRA], de[RT_MAX_EXTRA];
+    for (int e = 0; e < n_extra; ++e) ev[e] = *at(c, P, I + 16 + 5 * e, r, col);
+    const float g = chain_pullback(ops, vals, n_ops, n_extra,
+                                   *at(c, P, I + 11, r, col), ev,
+                                   *at(c, P, B, r, col), de);
+    *at(c, P, B + 5, r, col) += g;
+    for (int k = 0; k < n_extra; ++k) *at(c, P, B + 10 + 5 * k, r, col) += de[k];
+  }
+}
+
 #define BW_RMW 8  // dW read-modify-writes a thread keeps in flight
 
+// dx on the block [kb, kb + nk) of the CTA's own columns of x's cotangent:
+// dx[r, k] += sum_n dpre[r, n] W[k0 + k, n0 + n], ks = split_of(K) partial
+// sums over n = q, q + ks, ... added in order.  w holds row kb (row stride
+// ldr: N + 1 in the stage, W's own from L2 when kGlobal), dpre is in S.ds.
+template <int RPT, bool kGlobal>
+__device__ __forceinline__ void dx_block(const int* B, const LaneTable& P,
+                                         const Cta& c, const Smem& S,
+                                         const float* w, int ldr, int N, int K,
+                                         int kb, int nk) {
+  const int ks = split_of(K);
+  const int items = (RT_REGION_ROWS / RPT) * ks * nk;
+  const int t = threadIdx.x;
+  const bool active = t < items;
+  const int j = active ? t % nk : 0;
+  const int rest = active ? t / nk : 0;
+  const int q = rest % ks, rg = rest / ks;
+  float acc[RPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) acc[i] = 0.f;
+  if (active && ks == 1 && (N & 3) == 0) {
+    // one fma chain in n: dpre as float4
+    const float* wr = w + (long long)j * ldr;
+    const float* d0 = S.ds + rg * RPT * N;
+#pragma unroll 4
+    for (int n = 0; n < N; n += 4) {
+      const float w0 = wld<kGlobal>(wr + n), w1 = wld<kGlobal>(wr + n + 1),
+                  w2 = wld<kGlobal>(wr + n + 2), w3 = wld<kGlobal>(wr + n + 3);
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const float4 d4 = *reinterpret_cast<const float4*>(d0 + i * N + n);
+        acc[i] = fmaf(d4.x, w0, acc[i]);
+        acc[i] = fmaf(d4.y, w1, acc[i]);
+        acc[i] = fmaf(d4.z, w2, acc[i]);
+        acc[i] = fmaf(d4.w, w3, acc[i]);
+      }
+    }
+  } else if (active) {
+    const float* wr = w + (long long)j * ldr;
+    const float* d0 = S.ds + rg * RPT * N;
+#pragma unroll 4
+    for (int n = q; n < N; n += ks) {
+      const float wv = wld<kGlobal>(wr + n);
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) acc[i] = fmaf(d0[i * N + n], wv, acc[i]);
+    }
+  }
+  reduce_partials<RPT>(S.red, ks, nk, active, q, rg, j, acc);
+  if (!active || q != 0) return;
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int r = rg * RPT + i;
+    if (r >= c.rows) break;
+    *at(c, P, B + 5, r, kb + j) += acc[i];
+  }
+}
+
 __device__ void mm_bwd(const int* I, const int* B, const float* fc,
-                       const LaneTable& P, float* ws, float* xs, float* ds,
-                       float* part, long long row0, int rows) {
+                       const LaneTable& P, const Cta& c, const Smem& S,
+                       WRing& ring, float* part) {
   const int N = I[1], K = I[2];
-  const float* W = tensor(P, I[3], 0);
   const int ldw = I[4], k0 = I[5], n0 = I[6], flags = I[8];
   const float w0 = fc[I[9]];
-  const int* xv = I + 15;
-  const float* xb = view_base(xv, P, ws, 0, row0);
-  const int xld = xv[2];
-  float* g = ws + B[1] + B[3];  // dout, then dpre in place
-  const int gld = B[2];
-  float* gx = ws + B[6] + B[8];
-  const int gxld = B[7];
   const int t = threadIdx.x;
+  int lo, hi;
+  owned(c, B, N, lo, hi);
+  const int ncw = hi - lo;
   if ((flags & 4) && (flags & 1)) {
-    const float* pre = ws + B[10];
-    for (int i = t; i < rows * N; i += blockDim.x) {
-      const int r = i / N, n = i - r * N;
-      float* gp = g + r * gld + n;
-      *gp = (*gp * cosf(w0 * pre[r * N + n])) * w0;
+    // the pre slot has the out slot's layout: [rows, cw], first column
+    // rank * cw
+    const float* pre = c.ws + B[10];
+    const int base = c.rank * B[2] - B[3];
+    for (int i = t; i < c.rows * ncw; i += blockDim.x) {
+      const int r = i / ncw, n = lo + i - r * ncw;
+      float* gp = at(c, P, B, r, n);
+      *gp = (*gp * cosf(w0 * pre[r * B[2] + n - base])) * w0;
     }
     __syncthreads();
   }
   if ((flags & 4) && B[12] >= 0) {
     float* db = part + B[12] + n0;
-    for (int n = t; n < N; n += blockDim.x) {
+    for (int n = lo + t; n < hi; n += blockDim.x) {
       float s = 0.f;
-      for (int r = 0; r < rows; ++r) s += g[r * gld + n];
+      for (int r = 0; r < c.rows; ++r) s += *at(c, P, B, r, n);
       db[n] += s;
     }
   }
-  // dW[k, n] += sum_r x[r, k] dpre[r, n]: a thread owns a column n (pw
-  // threads across columns, ksplit more across k), holds its 8 dpre values
-  // in registers and walks k with BW_RMW read-modify-writes in flight; x
-  // goes through shared memory BW_CHUNK columns at a time (rows past the
-  // tile are zeros, so every sum runs over 8 rows in order).
-  int pw = 1;
-  while (pw < N && pw < RT_REGION_THREADS) pw <<= 1;
-  const int ksplit = RT_REGION_THREADS / pw;
-  const int cn = t % pw, kp = t / pw;
-  float* dW = part + B[11] + (long long)k0 * ldw + n0;
-  for (int kc = 0; kc < K; kc += BW_CHUNK) {
-    const int kn = K - kc < BW_CHUNK ? K - kc : BW_CHUNK;
-    __syncthreads();  // the last readers of xs are done
-    for (int i = t; i < RT_REGION_ROWS * BW_CHUNK; i += blockDim.x) {
-      const int r = i / BW_CHUNK, kk = i - r * BW_CHUNK;
-      xs[i] = r < rows && kk < kn ? xb[r * xld + kc + kk] : 0.f;
-    }
-    __syncthreads();
-    for (int n = cn; n < N; n += pw) {
-      float gr[RT_REGION_ROWS];
+  cluster_barrier(c);  // every CTA's dpre is in place
+  gather(c, P, I + 15, K, S.xs);
+  gather(c, P, B, N, S.ds);
+  __syncthreads();
+  // dW[k, n] += sum_r x[r, k] dpre[r, n] on the own columns n, every k; a
+  // thread keeps BW_RMW read-modify-writes in flight (rows past the tile
+  // are zeros, so every sum runs over 8 rows in order)
+  if (ncw > 0) {
+    float* dW = part + B[11] + (long long)k0 * ldw + n0;
+    const int total = K * ncw;
+    for (int i0 = t; i0 < total; i0 += BW_RMW * blockDim.x) {
+      float old[BW_RMW], s[BW_RMW];
+      float* dst[BW_RMW];
 #pragma unroll
-      for (int r = 0; r < RT_REGION_ROWS; ++r)
-        gr[r] = r < rows ? g[r * gld + n] : 0.f;
-      float* col = dW + (long long)kc * ldw + n;
-      int kk = kp;
-      for (; kk + (BW_RMW - 1) * ksplit < kn; kk += BW_RMW * ksplit) {
-        float old[BW_RMW], s[BW_RMW];
-#pragma unroll
-        for (int u = 0; u < BW_RMW; ++u)
-          old[u] = col[(long long)(kk + u * ksplit) * ldw];
-#pragma unroll
-        for (int u = 0; u < BW_RMW; ++u) s[u] = 0.f;
-        if (ksplit == 1) {  // consecutive k: x read as float4
+      for (int u = 0; u < BW_RMW; ++u) {
+        const int i = i0 + u * blockDim.x;
+        const int k = i / ncw, n = lo + i - (i / ncw) * ncw;
+        dst[u] = i < total ? dW + (long long)k * ldw + n : nullptr;
+        old[u] = dst[u] ? *dst[u] : 0.f;
+        s[u] = 0.f;
+        if (dst[u]) {
 #pragma unroll
           for (int r = 0; r < RT_REGION_ROWS; ++r)
-#pragma unroll
-            for (int q = 0; q < BW_RMW; q += 4) {
-              const float4 x4 = *reinterpret_cast<const float4*>(
-                  xs + r * BW_CHUNK + kk + q);
-              s[q] = fmaf(x4.x, gr[r], s[q]);
-              s[q + 1] = fmaf(x4.y, gr[r], s[q + 1]);
-              s[q + 2] = fmaf(x4.z, gr[r], s[q + 2]);
-              s[q + 3] = fmaf(x4.w, gr[r], s[q + 3]);
-            }
-        } else {
-#pragma unroll
-          for (int u = 0; u < BW_RMW; ++u)
-#pragma unroll
-            for (int r = 0; r < RT_REGION_ROWS; ++r)
-              s[u] = fmaf(xs[r * BW_CHUNK + kk + u * ksplit], gr[r], s[u]);
+            s[u] = fmaf(S.xs[r * K + k], S.ds[r * N + n], s[u]);
         }
-#pragma unroll
-        for (int u = 0; u < BW_RMW; ++u)
-          col[(long long)(kk + u * ksplit) * ldw] = old[u] + s[u];
       }
-      for (; kk < kn; kk += ksplit) {
-        float s = 0.f;
 #pragma unroll
-        for (int r = 0; r < RT_REGION_ROWS; ++r)
-          s = fmaf(xs[r * BW_CHUNK + kk], gr[r], s);
-        col[(long long)kk * ldw] += s;
-      }
+      for (int u = 0; u < BW_RMW; ++u)
+        if (dst[u]) *dst[u] = old[u] + s[u];
     }
   }
-  // dx[r, k] += sum_n dpre[r, n] W[k, n]: a warp owns a row k of W, read
-  // coalesced with all BW_CHUNK / 32 loads in flight (the next row's are
-  // issued before this row's FMAs); dpre goes through shared memory (zeros
-  // past the tile); the lanes' sums meet in a butterfly, which leaves every
-  // lane the same sums
-  const int warp = t / 32, lane = t % 32, n_warps = blockDim.x / 32;
-  for (int nc = 0; nc < N; nc += BW_CHUNK) {
-    const int nn = N - nc < BW_CHUNK ? N - nc : BW_CHUNK;
-    __syncthreads();  // the last readers of ds are done
-    for (int i = t; i < RT_REGION_ROWS * BW_CHUNK; i += blockDim.x) {
-      const int r = i / BW_CHUNK, j = i - r * BW_CHUNK;
-      ds[i] = r < rows && j < nn ? g[r * gld + nc + j] : 0.f;
+  // dx on the own columns of x's cotangent, W's rows through the ring
+  int klo, khi;
+  owned(c, B + 5, K, klo, khi);
+  const int nk = khi - klo;
+  if (nk <= 0) {
+    if (ring.on) {
+      ring.wait();
+      ring.release(c, P);
     }
-    __syncthreads();
-    float wv[BW_CHUNK / 32];
-    auto load_row = [&](int k) {
-      const float* wr = W + (long long)(k0 + k) * ldw + n0 + nc;
-#pragma unroll
-      for (int p = 0; p < BW_CHUNK / 32; ++p) {
-        const int n = p * 32 + lane;
-        wv[p] = k < K && n < nn ? __ldg(wr + n) : 0.f;
+    return;
+  }
+  const int ks = split_of(K);
+  int kr = ring.on ? RT_WSTAGE_FLOATS / (N + 1) : nk;
+  if (kr > RT_REGION_THREADS / ks) kr = RT_REGION_THREADS / ks;
+  const float* Wg = tensor(P, I[3], 0) + (long long)k0 * ldw + n0;
+  for (int kb = klo; kb < khi; kb += kr) {
+    const int n_k = khi - kb < kr ? khi - kb : kr;
+    if (ring.on) {
+      const float* w = ring.wait();
+      switch (rows_per_thread(ks, n_k)) {
+        case 1: dx_block<1, false>(B, P, c, S, w, N + 1, N, K, kb, n_k); break;
+        case 2: dx_block<2, false>(B, P, c, S, w, N + 1, N, K, kb, n_k); break;
+        case 4: dx_block<4, false>(B, P, c, S, w, N + 1, N, K, kb, n_k); break;
+        default: dx_block<8, false>(B, P, c, S, w, N + 1, N, K, kb, n_k); break;
       }
-    };
-    load_row(warp);
-    // lane j keeps the sums of the warp's j-th row of W and writes them
-    // when the warp has done 32 rows (or all of its rows): the read-
-    // modify-writes of dx leave the loop over k
-    float keep[RT_REGION_ROWS];
-    int keep_k = -1, j = 0;
-    for (int k = warp; k < K; k += n_warps, ++j) {
-      float cur[BW_CHUNK / 32];
-#pragma unroll
-      for (int p = 0; p < BW_CHUNK / 32; ++p) cur[p] = wv[p];
-      load_row(k + n_warps);
-      float acc[RT_REGION_ROWS];
-#pragma unroll
-      for (int r = 0; r < RT_REGION_ROWS; ++r) acc[r] = 0.f;
-#pragma unroll
-      for (int p = 0; p < BW_CHUNK / 32; ++p)
-#pragma unroll
-        for (int r = 0; r < RT_REGION_ROWS; ++r)
-          acc[r] = fmaf(ds[r * BW_CHUNK + p * 32 + lane], cur[p], acc[r]);
-      const bool mine = lane == (j & 31);
-#pragma unroll
-      for (int r = 0; r < RT_REGION_ROWS; ++r) {
-        float v = acc[r];
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          v += __shfl_xor_sync(0xffffffffu, v, off);
-        if (mine) keep[r] = v;
+      ring.release(c, P);
+    } else {  // a one-CTA cluster reads W's rows from L2
+      const float* w = Wg + (long long)kb * ldw;
+      switch (rows_per_thread(ks, n_k)) {
+        case 1: dx_block<1, true>(B, P, c, S, w, ldw, N, K, kb, n_k); break;
+        case 2: dx_block<2, true>(B, P, c, S, w, ldw, N, K, kb, n_k); break;
+        case 4: dx_block<4, true>(B, P, c, S, w, ldw, N, K, kb, n_k); break;
+        default: dx_block<8, true>(B, P, c, S, w, ldw, N, K, kb, n_k); break;
       }
-      if (mine) keep_k = k;
-      if ((j & 31) == 31 || k + n_warps >= K) {
-        if (keep_k >= 0) {
-          float old[RT_REGION_ROWS];
-#pragma unroll
-          for (int r = 0; r < RT_REGION_ROWS; ++r)
-            old[r] = r < rows ? gx[r * gxld + keep_k] : 0.f;
-#pragma unroll
-          for (int r = 0; r < RT_REGION_ROWS; ++r)
-            if (r < rows) gx[r * gxld + keep_k] = old[r] + keep[r];
-        }
-        keep_k = -1;
-      }
+      __syncthreads();  // red is free for the next block
     }
   }
 }
 
-// grid (row tiles): CTA b owns rows [8 b, 8 b + 8) and the partial slice
-// gpart[b * part_floats, (b + 1) * part_floats).  io entries
-// (RT_BWD_IO_INTS ints): [kind, a, C, slot] with kind 0 = seed the slot
+// grid (tiles x C): cluster b owns rows [8 b, 8 b + 8) and the partial
+// slice gpart[b * part_floats, (b + 1) * part_floats).  io entries
+// (RT_BWD_IO_INTS ints): [kind, a, width, slot] with kind 0 = seed the slot
 // from output cotangent tensor a, 1 = write the slot to stream cotangent
-// tensor a, 2 = sum the slot's rows into the partial at offset a.
+// tensor a, 2 = sum the slot's rows into the partial at offset a; each CTA
+// on its own column block of the slot.
 __global__ void __launch_bounds__(RT_REGION_THREADS)
-    region_bwd_kernel(const int* __restrict__ prog,
-                      const float* __restrict__ fc, int n_instr, int io_off,
+    region_bwd_kernel(const int* __restrict__ gprog,
+                      const float* __restrict__ gfc, int n_instr, int io_off,
                       int n_io, LaneTable P, long long R, int ws_floats,
-                      int cot_off, float* gws, long long part_floats,
-                      float* gpart) {
-  extern __shared__ float smem[];
-  float* red = smem;                  // x staging (forward and dW)
-  float* ds = smem + RT_RED_FLOATS;   // dpre staging (dx)
-  float* ws = gws ? gws + (long long)blockIdx.x * ws_floats
-                  : smem + 2 * RT_RED_FLOATS;
-  float* part = gpart + (long long)blockIdx.x * part_floats;
-  const long long row0 = (long long)blockIdx.x * RT_REGION_ROWS;
-  const long long left = R - row0;
-  const int rows = left < RT_REGION_ROWS ? (int)left : RT_REGION_ROWS;
+                      int cot_off, int xs_floats, int ds_floats,
+                      int table_ints, int fc_floats, float* gws,
+                      long long part_floats, float* gpart) {
+  extern __shared__ __align__(16) float smem[];
+  Cta c;
+  c.rank = (int)cg::this_cluster().block_rank();
+  c.csize = (int)cg::this_cluster().num_blocks();
+  c.lane = 0;
+  const long long tile = blockIdx.x / c.csize;
+  c.row0 = tile * RT_REGION_ROWS;
+  const long long left = R - c.row0;
+  c.rows = left < RT_REGION_ROWS ? (int)left : RT_REGION_ROWS;
+  c.ws_floats = ws_floats;
+  Smem S;
+  S.red = smem;
+  S.xs = smem + RT_RED_FLOATS;
+  S.ds = S.xs + xs_floats;
+  WRing ring;
+  ring.on = c.csize > 1;
+  ring.stage = S.ds + ds_floats;
+  float* lws = ring.stage + (ring.on ? RT_WRING * RT_WSTAGE_FLOATS : 0);
+  if (gws) {
+    c.gws = gws + tile * c.csize * ws_floats;
+    c.ws = c.gws + (long long)c.rank * ws_floats;
+  } else {
+    c.gws = nullptr;
+    c.ws = lws;
+  }
+  const int* prog = gprog;
+  const float* fc = gfc;
+  stage_tables(prog, fc, table_ints, fc_floats,
+               reinterpret_cast<int*>(lws + (gws ? 0 : ws_floats)),
+               2LL * n_instr * RT_INSTR_INTS * sizeof(int));
   const int* bwd = prog + (long long)n_instr * RT_INSTR_INTS;
+  ring.prog = prog;
+  ring.bwd = bwd;
+  ring.n_instr = n_instr;
+  float* part = gpart + tile * part_floats;
   const int* io = prog + io_off;
   const int t = threadIdx.x;
-  for (long long i = t; i < part_floats; i += blockDim.x) part[i] = 0.f;
+  ring.start(c, P);
+  for (long long i = (long long)c.rank * blockDim.x + t; i < part_floats;
+       i += (long long)c.csize * blockDim.x)
+    part[i] = 0.f;
   // the cotangent slots start at cot_off; value slots are written first
-  for (int i = cot_off + t; i < ws_floats; i += blockDim.x) ws[i] = 0.f;
+  for (int i = cot_off + t; i < ws_floats; i += blockDim.x) c.ws[i] = 0.f;
   __syncthreads();
   for (int j = 0; j < n_io; ++j) {
     const int* e = io + RT_BWD_IO_INTS * j;
     if (e[0] != 0) continue;
-    const float* src = tensor(P, e[1], 0) + row0 * e[2];
-    float* dst = ws + e[3];
-    for (int i = t; i < rows * e[2]; i += blockDim.x) dst[i] += src[i];
+    const int W = e[2], cw = cdiv_i(W, c.csize), lo = c.rank * cw;
+    const int w = W - lo < cw ? W - lo : cw;
+    if (w <= 0) continue;
+    const float* src = tensor(P, e[1], 0) + c.row0 * W + lo;
+    float* dst = c.ws + e[3];
+    for (int i = t; i < c.rows * w; i += blockDim.x) {
+      const int r = i / w, u = i - r * w;
+      dst[r * cw + u] += src[(long long)r * W + u];
+    }
   }
-  __syncthreads();
+  cluster_barrier(c);  // partials zeroed, every CTA running
   for (int s = 0; s < n_instr; ++s) {
     const int* I = prog + (long long)s * RT_INSTR_INTS;
     const int* B = bwd + (long long)s * RT_INSTR_INTS;
     if (I[0] == 0)
-      chain_step(I, prog, fc, P, ws, 0, row0, rows);
+      chain_step(I, prog, fc, P, c);
     else
-      mm_step<true>(I, fc, P, ws, red, 0, row0, rows,
-                    B[10] >= 0 ? ws + B[10] : nullptr);
-    __syncthreads();
+      mm_step<true>(I, fc, P, c, S, ring, B[10] >= 0 ? c.ws + B[10] : nullptr);
+    cluster_barrier(c);
   }
   for (int s = n_instr - 1; s >= 0; --s) {
     const int* I = prog + (long long)s * RT_INSTR_INTS;
     const int* B = bwd + (long long)s * RT_INSTR_INTS;
     if (I[0] == 0)
-      chain_bwd(I, B, prog, fc, P, ws, row0, rows);
+      chain_bwd(I, B, prog, fc, P, c);
     else
-      mm_bwd(I, B, fc, P, ws, red, ds, part, row0, rows);
-    __syncthreads();
+      mm_bwd(I, B, fc, P, c, S, ring, part);
+    cluster_barrier(c);
   }
   for (int j = 0; j < n_io; ++j) {
     const int* e = io + RT_BWD_IO_INTS * j;
-    const int C = e[2];
-    const float* src = ws + e[3];
+    const int W = e[2], cw = cdiv_i(W, c.csize), lo = c.rank * cw;
+    const int w = W - lo < cw ? W - lo : cw;
+    if (e[0] == 0 || w <= 0) continue;
+    const float* src = c.ws + e[3];
     if (e[0] == 1) {
-      float* dst = const_cast<float*>(tensor(P, e[1], 0)) + row0 * C;
-      for (int i = t; i < rows * C; i += blockDim.x) dst[i] = src[i];
-    } else if (e[0] == 2) {
-      for (int c = t; c < C; c += blockDim.x) {
+      float* dst = const_cast<float*>(tensor(P, e[1], 0)) + c.row0 * W + lo;
+      for (int i = t; i < c.rows * w; i += blockDim.x) {
+        const int r = i / w, u = i - r * w;
+        dst[(long long)r * W + u] = src[r * cw + u];
+      }
+    } else {
+      for (int u = t; u < w; u += blockDim.x) {
         float s = 0.f;
-        for (int r = 0; r < rows; ++r) s += src[r * C + c];
-        part[e[1] + c] = s;
+        for (int r = 0; r < c.rows; ++r) s += src[r * cw + u];
+        part[e[1] + lo + u] = s;
       }
     }
   }
+  ring.drain();
 }
 
-// out[i] = sum over CTAs b, in order, of part[b * P + i]
+// out[i] = sum over tiles b, in order, of part[b * P + i]
 __global__ void region_bwd_reduce_kernel(const float* __restrict__ part,
                                          long long G, long long P,
                                          float* __restrict__ out) {
@@ -416,13 +481,19 @@ __global__ void region_bwd_reduce_kernel(const float* __restrict__ part,
   out[i] = s;
 }
 
+static bool g_bwd_opted[64] = {false};
+
 extern "C" int rt_region_bwd(const int* prog, const float* fc, int n_instr,
                              int io_off, int n_io, int n_ptrs,
                              const long long* ptrs, long long R, int ws_floats,
-                             int cot_off, float* gws, long long part_floats,
-                             float* gpart, void* stream) {
+                             int cot_off, int xs_floats, int ds_floats,
+                             int table_ints, int fc_floats, int C, float* gws,
+                             long long part_floats, float* gpart,
+                             void* stream) {
   if (n_ptrs < 0 || n_ptrs > RT_MAX_PTRS || ws_floats < 0 || n_io < 0 ||
-      part_floats < 0 || cot_off < 0 || cot_off > ws_floats)
+      part_floats < 0 || cot_off < 0 || cot_off > ws_floats ||
+      xs_floats < 0 || (xs_floats & 3) || ds_floats < 0 || (ds_floats & 3) ||
+      C < 1 || C > RT_MAX_CLUSTER || table_ints < 0 || fc_floats < 0)
     return (int)cudaErrorInvalidValue;
   LaneTable P;
   for (int i = 0; i < RT_MAX_PTRS; ++i) {
@@ -430,32 +501,34 @@ extern "C" int rt_region_bwd(const int* prog, const float* fc, int n_instr,
     P.stride[i] = 0;
   }
   if (R <= 0) return 0;
-  const long long grid = (R + RT_REGION_ROWS - 1) / RT_REGION_ROWS;
-  const size_t smem = sizeof(float) * (2 * (size_t)RT_RED_FLOATS +
-                                       (gws ? 0 : (size_t)ws_floats));
-  if (smem > 48 * 1024 - RT_SMEM_STATIC) {
-    // above 48 KB with the static arrays a kernel must opt in, once per
-    // device
-    static bool opted[64] = {false};
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e != cudaSuccess) return (int)e;
-    if (dev >= 64 || !opted[dev]) {
-      cudaFuncAttributes attr;
-      e = cudaFuncGetAttributes(&attr, region_bwd_kernel);
-      if (e != cudaSuccess) return (int)e;
-      e = cudaFuncSetAttribute(
-          region_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          RT_SMEM_BYTES - (int)attr.sharedSizeBytes);
-      if (e != cudaSuccess) return (int)e;
-      if (dev < 64) opted[dev] = true;
-    }
-  }
-  region_bwd_kernel<<<(unsigned)grid, RT_REGION_THREADS, smem,
-                      (cudaStream_t)stream>>>(prog, fc, n_instr, io_off, n_io,
-                                              P, R, ws_floats, cot_off,
-                                              gws, part_floats, gpart);
+  const long long tiles = (R + RT_REGION_ROWS - 1) / RT_REGION_ROWS;
+  const size_t smem = region_smem(xs_floats, ds_floats, ws_floats,
+                                  gws == nullptr, C, table_ints, fc_floats);
+  cudaError_t e = region_attributes(region_bwd_kernel, g_bwd_opted);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cluster_config(&cfg, &attr, dim3((unsigned)(tiles * C)), C, smem, stream);
+  e = cudaLaunchKernelEx(&cfg, region_bwd_kernel, prog, fc, n_instr, io_off,
+                         n_io, P, R, ws_floats, cot_off, xs_floats, ds_floats,
+                         table_ints, fc_floats, gws, part_floats, gpart);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// cudaOccupancyMaxActiveClusters of the backward kernel (see
+// rt_region_max_clusters).
+extern "C" int rt_region_bwd_max_clusters(int C, long long smem) {
+  if (C < 1 || C > RT_MAX_CLUSTER || smem < 0)
+    return -(int)cudaErrorInvalidValue;
+  cudaError_t e = region_attributes(region_bwd_kernel, g_bwd_opted);
+  if (e != cudaSuccess) return -(int)e;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cluster_config(&cfg, &attr, dim3((unsigned)C), C, (size_t)smem, nullptr);
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, region_bwd_kernel, &cfg);
+  return e == cudaSuccess ? n : -(int)e;
 }
 
 extern "C" int rt_region_bwd_reduce(const float* part, long long G,

@@ -20,10 +20,14 @@ K weight lanes in one launch: every operand is a ``[K, ...]`` stack.
 
 The plain version (``region_call_plain``: ``_eval_steps`` / ``_eval_group``
 / ``_eval_mm``) follows the reference line by line.  The CUDA kernel is one
-compiled-once interpreter: ``lower`` turns a spec, once per spec and operand
-widths, into an int32 instruction table (tile groups unrolled into
-per-tile instructions) and a float table that stay on the device, with every
-intermediate given a liveness-packed slot of a per-CTA workspace.
+compiled-once interpreter: ``lower`` turns a spec, once per spec, operand
+widths and cluster width C, into an int32 instruction table (tile groups
+unrolled into per-tile instructions) and a float table that stay on the
+device, with every intermediate given a liveness-packed slot of a per-CTA
+workspace.  Each 8-row tile runs on a cluster of C CTAs, each owning a
+column block of every value (``block_cols``); ``launch_cluster`` picks C
+from the launch's shape (``plan_region``), and every mm sums in an order
+fixed by its shape (``split_of``), so C never changes the bits.
 
 ``region_bwd_call`` (port of ``_region_bwd_call``) is the region's vjp for
 the fit path, on ``csrc/region_bwd.cu``: ``lower_bwd`` adds a backward
@@ -222,22 +226,68 @@ _FLAG_SIN, _FLAG_ACC, _FLAG_EPI = 1, 2, 4
 _SMEM_BYTES = ABI["smem_dynamic_bytes"]
 _RED_FLOATS = ABI["region_red_floats"]
 _IO = ABI["region_bwd_io_ints"]
+# the weight ring (csrc/region_steps.cuh): stages of this many floats each
+_RING_FLOATS = ABI["region_wring"] * ABI["region_wstage_floats"]
+CLUSTER_WIDTHS = (16, 8, 4, 2, 1)   # CTAs per row tile a launch may take
+
+
+def block_cols(width: int, cluster: int) -> int:
+    """Columns of a ``width``-wide value each CTA of a ``cluster``-wide
+    cluster owns (CTA q owns ``[q cw, (q + 1) cw)``)."""
+    return -(-width // cluster)
+
+
+def split_of(cols: int) -> int:
+    """The partial sums of an mm output element with ``cols`` output
+    columns (``csrc/region_steps.cuh::split_of``): its K sum runs as
+    ``ks`` fma chains over k = q, q + ks, ..., added in order q = 0..ks-1.
+    A function of the shape alone, never of the cluster or the rows."""
+    pw = 1
+    while pw < cols and pw < ABI["region_threads"]:
+        pw <<= 1
+    return min(32, ABI["region_threads"] // pw)
+
+
+def _round4(n: int) -> int:
+    return max(4, -(-n // 4) * 4)
 
 
 @dataclass(frozen=True, eq=False)
 class RegionProgram:
-    """A spec lowered for ``csrc/region.cu``: instructions (int32, ``_INSTR``
-    ints each, then the chains' opcodes), float constants, the per-CTA
-    workspace size and the width of each output."""
+    """A spec lowered for ``csrc/region.cu`` on clusters of ``cluster``
+    CTAs: instructions (int32, ``_INSTR`` ints each, then the chains'
+    opcodes), float constants, the per-CTA workspace size (each value's
+    column block), the gathered-x buffer and the width of each output."""
     prog: np.ndarray
     consts: np.ndarray
     n_instr: int
     ws_floats: int
     out_cols: tuple[int, ...]
+    cluster: int = 1
+    xs_floats: int = 4
+
+    @property
+    def staging_bytes(self) -> int:
+        """Shared memory besides the workspace: partial sums, x, the ring
+        (a one-CTA cluster has none: it reads W from L2)."""
+        return 4 * (_RED_FLOATS + self.xs_floats
+                    + (_RING_FLOATS if self.cluster > 1 else 0))
 
     @property
     def in_smem(self) -> bool:
-        return 4 * (_RED_FLOATS + self.ws_floats) <= _SMEM_BYTES
+        return self.staging_bytes + 4 * self.ws_floats <= _SMEM_BYTES
+
+    @functools.cached_property
+    def table_ints(self) -> int:
+        """Ints of the program a launch copies into shared memory: all of
+        it on a cluster launch with room to spare (every step decodes its
+        instruction there instead of waiting on L2), else none."""
+        return _staged_ints(self)
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of one CTA of a launch."""
+        return _smem_bytes(self)
 
     def flops(self, rows: int) -> int:
         """Operations one launch does on ``rows`` rows: 2 K N per row for an
@@ -423,13 +473,21 @@ def _flops(table: np.ndarray, rows: int) -> int:
     return total
 
 
+def _mm_widths(ab: _Abstract):
+    """The widest K and N of the program's mm instructions."""
+    mms = [ins for ins in ab.instrs if ins[0] == MM]
+    return (max((ins[4][3] for ins in mms), default=1),
+            max((ins[2] for ins in mms), default=1))
+
+
 @functools.lru_cache(maxsize=512)
 def lower(spec: RegionKernelSpec, stream_cols: tuple, row_cols: tuple,
-          res_shapes: tuple) -> RegionProgram:
+          res_shapes: tuple, cluster: int = 1) -> RegionProgram:
     """Lower ``spec`` for operands of the given widths (stream inputs, rows)
-    and shapes (residents): tile groups unroll into per-tile instructions,
-    concat steps into column copies, and every intermediate gets a
-    workspace slot that is reused once the value is dead."""
+    and shapes (residents), on clusters of ``cluster`` CTAs: tile groups
+    unroll into per-tile instructions, concat steps into column copies, and
+    every intermediate gets a workspace slot of its column block
+    (``block_cols``) that is reused once the value is dead."""
     ab = _abstract(spec, stream_cols, row_cols, res_shapes)
     instrs, width, glob = ab.instrs, ab.width, ab.glob
     nbase = len(stream_cols) + len(row_cols) + len(res_shapes)
@@ -450,7 +508,7 @@ def lower(spec: RegionKernelSpec, stream_cols: tuple, row_cols: tuple,
     for idx, ins in enumerate(instrs):
         out = ins[1][0]
         if in_ws(out) and out not in slots:
-            size = _ROWS * width[out]
+            size = _ROWS * block_cols(width[out], cluster)
             off = 0
             for o, s, _ in sorted(live, key=lambda t: t[0]):
                 if o - off >= size:
@@ -466,7 +524,7 @@ def lower(spec: RegionKernelSpec, stream_cols: tuple, row_cols: tuple,
             return (0, *glob[key])
         if key in out_ptr:
             return (0, out_ptr[key], width[key])
-        return (1, slots[key], width[key])
+        return (1, slots[key], block_cols(width[key], cluster))
 
     table, op_ints, consts = _encode(ab, _viewer(width, locate),
                                      len(instrs) * _INSTR)
@@ -474,18 +532,21 @@ def lower(spec: RegionKernelSpec, stream_cols: tuple, row_cols: tuple,
     return RegionProgram(prog=prog,
                          consts=np.asarray(consts or [0.0], np.float32),
                          n_instr=len(instrs), ws_floats=ws_floats,
-                         out_cols=tuple(width[o] for o in spec.outputs))
+                         out_cols=tuple(width[o] for o in spec.outputs),
+                         cluster=cluster,
+                         xs_floats=_round4(_ROWS * _mm_widths(ab)[0]))
 
 
 @dataclass(frozen=True, eq=False)
 class RegionBwdProgram:
-    """A spec lowered for ``csrc/region_bwd.cu``: the forward table (every
-    value in its own workspace slot), the backward table beside it, the
-    chains' opcodes, then ``n_io`` io entries at ``io_off``; float
-    constants; the per-CTA workspace (values and sin arguments, then the
-    cotangent slots from ``cot_off``); and the layout of the flat parameter
-    cotangent: ``part_offsets`` per bcast row then per resident, of
-    ``part_floats`` floats in all."""
+    """A spec lowered for ``csrc/region_bwd.cu`` on clusters of ``cluster``
+    CTAs: the forward table (every value in its own workspace slot), the
+    backward table beside it, the chains' opcodes, then ``n_io`` io entries
+    at ``io_off``; float constants; the per-CTA workspace (values and sin
+    arguments, then the cotangent slots from ``cot_off``, each a column
+    block); the gathered x and dpre buffers; and the layout of the flat
+    parameter cotangent: ``part_offsets`` per bcast row then per resident,
+    of ``part_floats`` floats in all."""
     prog: np.ndarray
     consts: np.ndarray
     n_instr: int
@@ -496,12 +557,30 @@ class RegionBwdProgram:
     out_cols: tuple[int, ...]
     part_offsets: tuple[int, ...]
     part_floats: int
+    cluster: int = 1
+    xs_floats: int = 4
+    ds_floats: int = 4
+
+    @property
+    def staging_bytes(self) -> int:
+        """Shared memory besides the workspace: partial sums, x, dpre and
+        the ring (none on a one-CTA cluster)."""
+        return 4 * (_RED_FLOATS + self.xs_floats + self.ds_floats
+                    + (_RING_FLOATS if self.cluster > 1 else 0))
 
     @property
     def in_smem(self) -> bool:
-        """Whether the workspace fits in shared memory beside the two
-        staging buffers (x and dpre) of the mm steps."""
-        return 4 * (2 * _RED_FLOATS + self.ws_floats) <= _SMEM_BYTES
+        """Whether the workspace fits in shared memory beside the
+        staging buffers."""
+        return self.staging_bytes + 4 * self.ws_floats <= _SMEM_BYTES
+
+    @functools.cached_property
+    def table_ints(self) -> int:
+        return _staged_ints(self)
+
+    @property
+    def smem_bytes(self) -> int:
+        return _smem_bytes(self)
 
     def flops(self, rows: int) -> int:
         """Operations one launch does on ``rows`` rows: the forward's
@@ -512,9 +591,31 @@ class RegionBwdProgram:
         return 3 * _flops(table, rows)
 
 
+def _table_bytes(prog) -> int:
+    return 4 * (_round4(prog.prog.size) + prog.consts.size)
+
+
+def _staged_ints(prog) -> int:
+    """``prog.prog.size`` when a launch of ``prog`` copies its tables (and
+    constants) into shared memory, else 0: only cluster launches, whose
+    steps wait on each other, and only beside a workspace in shared
+    memory with room left."""
+    room = _SMEM_BYTES - prog.staging_bytes - 4 * prog.ws_floats
+    if prog.cluster > 1 and prog.in_smem and _table_bytes(prog) <= room:
+        return int(prog.prog.size)
+    return 0
+
+
+def _smem_bytes(prog) -> int:
+    """Dynamic shared memory of one CTA of a launch of ``prog``."""
+    return (prog.staging_bytes
+            + (4 * prog.ws_floats if prog.in_smem else 0)
+            + (_table_bytes(prog) if prog.table_ints else 0))
+
+
 @functools.lru_cache(maxsize=512)
 def lower_bwd(spec: RegionKernelSpec, stream_cols: tuple, row_cols: tuple,
-              res_shapes: tuple) -> RegionBwdProgram:
+              res_shapes: tuple, cluster: int = 1) -> RegionBwdProgram:
     """Lower ``spec``'s backward for operands of the given widths and
     shapes.  The forward table is ``lower``'s with every value (outputs
     too) in its own workspace slot, since the reverse walk reads them all;
@@ -522,8 +623,13 @@ def lower_bwd(spec: RegionKernelSpec, stream_cols: tuple, row_cols: tuple,
     table gives each instruction the cotangent views of its output and
     operands (one slot per value, kernel operands included) and, for an mm,
     where its weight's and bias's cotangents start in the flat parameter
-    cotangent."""
+    cotangent.  Every slot holds its value's column block on clusters of
+    ``cluster`` CTAs."""
     ab = _abstract(spec, stream_cols, row_cols, res_shapes)
+    max_k, max_n = _mm_widths(ab)
+    if max_n + 1 > ABI["region_wstage_floats"]:
+        raise ValueError(f"region_bwd: mm width {max_n} exceeds the weight "
+                         f"ring's stage")
     instrs, width, glob = ab.instrs, ab.width, ab.glob
     n = len(instrs)
     ns, nb, nr = len(stream_cols), len(row_cols), len(res_shapes)
@@ -533,8 +639,9 @@ def lower_bwd(spec: RegionKernelSpec, stream_cols: tuple, row_cols: tuple,
 
     def alloc(cols):
         nonlocal ws_floats
-        ws_floats += _ROWS * cols
-        return ws_floats - _ROWS * cols
+        size = _ROWS * block_cols(cols, cluster)
+        ws_floats += size
+        return ws_floats - size
 
     slots: dict = {}
     for ins in instrs:
@@ -559,10 +666,11 @@ def lower_bwd(spec: RegionKernelSpec, stream_cols: tuple, row_cols: tuple,
     def locate(key):
         if key in glob:
             return (0, *glob[key])
-        return (1, slots[key], width[key])
+        return (1, slots[key], block_cols(width[key], cluster))
 
     table, op_ints, consts = _encode(ab, _viewer(width, locate), 2 * n * _INSTR)
-    cview = _viewer(width, lambda key: (1, cot[key], width[key]))
+    cview = _viewer(width, lambda key: (1, cot[key],
+                                        block_cols(width[key], cluster)))
     btable = np.zeros((n, _INSTR), np.int32)
     for idx, ins in enumerate(instrs):
         if ins[0] == CHAIN:
@@ -594,7 +702,57 @@ def lower_bwd(spec: RegionKernelSpec, stream_cols: tuple, row_cols: tuple,
         prog=prog, consts=np.asarray(consts or [0.0], np.float32),
         n_instr=n, io_off=io_off, n_io=len(io) // _IO, ws_floats=ws_floats,
         cot_off=cot_off, out_cols=tuple(width[o] for o in spec.outputs),
-        part_offsets=tuple(offsets), part_floats=part)
+        part_offsets=tuple(offsets), part_floats=part, cluster=cluster,
+        xs_floats=_round4(_ROWS * max_k), ds_floats=_round4(_ROWS * max_n))
+
+
+def launch_cluster(n_tiles: int, fits, sms: int) -> int:
+    """The cluster width C of a launch over ``n_tiles`` row tiles, chosen by
+    shape: the widest C of ``CLUSTER_WIDTHS`` whose ``n_tiles * C`` CTAs
+    the card's ``sms`` SMs hold in one wave and whose workspace ``fits(C)``
+    in shared memory (one tile: C = 16); else, while the tiles alone fit
+    one wave, the widest C that does, its workspace in global memory; else
+    (many tiles fill the card on their own) the narrowest C that fits,
+    or the widest."""
+    for C in CLUSTER_WIDTHS:
+        if n_tiles * C <= sms and fits(C):
+            return C
+    for C in CLUSTER_WIDTHS:
+        if n_tiles * C <= sms:
+            return C
+    for C in reversed(CLUSTER_WIDTHS):
+        if fits(C):
+            return C
+    return CLUSTER_WIDTHS[0]
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_region(spec: RegionKernelSpec, stream_cols: tuple, row_cols: tuple,
+                res_shapes: tuple, n_tiles: int, sms: int) -> RegionProgram:
+    """``lower`` at the cluster width ``launch_cluster`` picks for
+    ``n_tiles`` row tiles (all lanes) on a card of ``sms`` SMs."""
+    def at(C):
+        return lower(spec, stream_cols, row_cols, res_shapes, C)
+    return at(launch_cluster(n_tiles, lambda C: at(C).in_smem, sms))
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_region_bwd(spec: RegionKernelSpec, stream_cols: tuple,
+                    row_cols: tuple, res_shapes: tuple, n_tiles: int,
+                    sms: int) -> RegionBwdProgram:
+    """``lower_bwd`` at the cluster width ``launch_cluster`` picks."""
+    def at(C):
+        return lower_bwd(spec, stream_cols, row_cols, res_shapes, C)
+    return at(launch_cluster(n_tiles, lambda C: at(C).in_smem, sms))
+
+
+def _staged_consts(prog) -> int:
+    return int(prog.consts.size) if prog.table_ints else 0
+
+
+@functools.lru_cache(maxsize=16)
+def sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.lru_cache(maxsize=512)
@@ -643,10 +801,12 @@ def _operand_names(name, R, stream, rows, residents) -> dict:
 
 
 def _lowered(name, spec: RegionKernelSpec, stream_cols, row_cols,
-             res_shapes, out_info) -> RegionProgram:
-    """The spec's program for one lane's operand widths; ``out_info`` must
-    name its float32 outputs."""
-    prog = lower(spec, stream_cols, row_cols, res_shapes)
+             res_shapes, out_info, n_tiles, dev) -> RegionProgram:
+    """The spec's program for one lane's operand widths at the cluster
+    width of ``n_tiles`` row tiles; ``out_info`` must name its float32
+    outputs."""
+    prog = plan_region(spec, stream_cols, row_cols, res_shapes, n_tiles,
+                       sm_count(dev.index))
     if tuple(c for c, _ in out_info) != prog.out_cols:
         raise ValueError(f"{name}: out_info {out_info} vs computed widths "
                          f"{prog.out_cols}")
@@ -681,9 +841,11 @@ def region_call(spec: RegionKernelSpec, stream, rows, residents, out_info):
     R = stream[0].shape[0]
     check_cuda_f32("region", dev,
                    **_operand_names("region", R, stream, rows, residents))
+    n_tiles = cdiv(R, _ROWS)
     prog = _lowered("region", spec, tuple(a.shape[1] for a in stream),
                     tuple(a.shape[1] for a in rows),
-                    tuple(tuple(a.shape) for a in residents), out_info)
+                    tuple(tuple(a.shape) for a in residents), out_info,
+                    n_tiles, dev)
     outs = tuple(torch.empty((R, c), device=dev, dtype=torch.float32)
                  for c in prog.out_cols)
     ptrs = _pointers("region", (*stream, *rows, *residents, *outs))
@@ -692,12 +854,13 @@ def region_call(spec: RegionKernelSpec, stream, rows, residents, out_info):
     prog_d, consts_d = _device_program(prog, dev)
     gws = None
     if not prog.in_smem:
-        gws = torch.empty(cdiv(R, _ROWS) * prog.ws_floats, device=dev,
-                          dtype=torch.float32)
+        gws = torch.empty(n_tiles * prog.cluster * prog.ws_floats,
+                          device=dev, dtype=torch.float32)
     lib = load_library()
     rc = lib.rt_region(prog_d.data_ptr(), consts_d.data_ptr(), prog.n_instr,
                        len(ptrs), (ctypes.c_longlong * len(ptrs))(*ptrs),
-                       None, 1, R, prog.ws_floats,
+                       None, 1, R, prog.ws_floats, prog.xs_floats,
+                       prog.table_ints, _staged_consts(prog), prog.cluster,
                        gws.data_ptr() if gws is not None else None,
                        stream_handle(dev))
     check_launch(rc, "region")
@@ -767,9 +930,11 @@ def region_call_stacked(spec: RegionKernelSpec, stream, rows, residents,
     if dev.type != "cuda":
         raise ValueError(f"region_stacked: unsupported device {dev}")
     check_cuda_f32("region_stacked", dev, **named)
+    n_tiles = cdiv(R, _ROWS)
     prog = _lowered("region_stacked", spec, tuple(a.shape[2] for a in stream),
                     tuple(a.shape[2] for a in rows),
-                    tuple(tuple(a.shape[1:]) for a in residents), out_info)
+                    tuple(tuple(a.shape[1:]) for a in residents), out_info,
+                    K * n_tiles, dev)
     outs = tuple(torch.empty((K, R, c), device=dev, dtype=torch.float32)
                  for c in prog.out_cols)
     tensors = (*stream, *rows, *residents, *outs)
@@ -780,13 +945,14 @@ def region_call_stacked(spec: RegionKernelSpec, stream, rows, residents,
     prog_d, consts_d = _device_program(prog, dev)
     gws = None
     if not prog.in_smem:
-        gws = torch.empty(K * cdiv(R, _ROWS) * prog.ws_floats, device=dev,
-                          dtype=torch.float32)
+        gws = torch.empty(K * n_tiles * prog.cluster * prog.ws_floats,
+                          device=dev, dtype=torch.float32)
     lib = load_library()
     rc = lib.rt_region(
         prog_d.data_ptr(), consts_d.data_ptr(), prog.n_instr, len(ptrs),
         (ctypes.c_longlong * len(ptrs))(*ptrs),
         (ctypes.c_longlong * len(strides))(*strides), K, R, prog.ws_floats,
+        prog.xs_floats, prog.table_ints, _staged_consts(prog), prog.cluster,
         gws.data_ptr() if gws is not None else None, stream_handle(dev))
     check_launch(rc, "region_stacked")
     return outs
@@ -839,9 +1005,11 @@ def region_bwd_call(spec: RegionKernelSpec, stream, rows, residents, cots):
     named = _operand_names("region_bwd", R, stream, rows, residents)
     named.update((f"cot{k}", a) for k, a in enumerate(cots))
     check_cuda_f32("region_bwd", dev, **named)
-    prog = lower_bwd(spec, tuple(a.shape[1] for a in stream),
-                     tuple(a.shape[1] for a in rows),
-                     tuple(tuple(a.shape) for a in residents))
+    n_tiles = cdiv(R, _ROWS)
+    prog = plan_region_bwd(spec, tuple(a.shape[1] for a in stream),
+                           tuple(a.shape[1] for a in rows),
+                           tuple(tuple(a.shape) for a in residents),
+                           max(n_tiles, 1), sm_count(dev.index))
     want = tuple((R, c) for c in prog.out_cols)
     if tuple(tuple(c.shape) for c in cots) != want:
         raise ValueError(f"region_bwd: cotangents "
@@ -849,13 +1017,12 @@ def region_bwd_call(spec: RegionKernelSpec, stream, rows, residents, cots):
     d_stream = tuple(torch.empty_like(a) for a in stream)
     flat = torch.empty(prog.part_floats, device=dev, dtype=torch.float32)
     if R:
-        n_tiles = cdiv(R, _ROWS)
         part = flat if n_tiles == 1 else torch.empty(
             n_tiles * prog.part_floats, device=dev, dtype=torch.float32)
         gws = None
         if not prog.in_smem:
-            gws = torch.empty(n_tiles * prog.ws_floats, device=dev,
-                              dtype=torch.float32)
+            gws = torch.empty(n_tiles * prog.cluster * prog.ws_floats,
+                              device=dev, dtype=torch.float32)
         ptrs = _pointers("region_bwd",
                          (*stream, *rows, *residents, *cots, *d_stream))
         prog_d, consts_d = _device_program(prog, dev)
@@ -863,9 +1030,10 @@ def region_bwd_call(spec: RegionKernelSpec, stream, rows, residents, cots):
         rc = lib.rt_region_bwd(
             prog_d.data_ptr(), consts_d.data_ptr(), prog.n_instr, prog.io_off,
             prog.n_io, len(ptrs), (ctypes.c_longlong * len(ptrs))(*ptrs), R,
-            prog.ws_floats, prog.cot_off,
-            gws.data_ptr() if gws is not None else None, prog.part_floats,
-            part.data_ptr(), stream_handle(dev))
+            prog.ws_floats, prog.cot_off, prog.xs_floats, prog.ds_floats,
+            prog.table_ints, _staged_consts(prog), prog.cluster,
+            gws.data_ptr() if gws is not None else None,
+            prog.part_floats, part.data_ptr(), stream_handle(dev))
         check_launch(rc, "region_bwd")
         if n_tiles > 1:
             rc = lib.rt_region_bwd_reduce(part.data_ptr(), n_tiles,
