@@ -10,9 +10,11 @@ Phases (any failure exits non-zero; nothing is caught):
      kernel's shared memory, the tensor-core (HGMMA, HMMA), TMA and FFMA
      instructions in the attention kernels' SASS and the async copies
      (LDGSTS, UBLKCP, UTMALDG) and local loads (LDL) in the region
-     kernels' SASS (cuobjdump);
+     kernels' SASS (cuobjdump), the row-cluster kernel's multicast bulk
+     copies among them;
   3. every kernel against its plain PyTorch version on the card, at the
-     main path's shapes: fused_chain (every op, <= 1e-5 scaled),
+     main path's shapes: fused_chain (every op, <= 1e-5 scaled; beside it
+     an empty kernel on its grid, the floor under a launch),
      stream_matmul / siren_layer (<= 1e-4 scaled), region on every fused
      region the port plans for the full-width SIREN at orders 1-3 plus a
      column-tiled one, at R = 8 and R = 512 rows (<= 1e-4 scaled); ms per
@@ -26,7 +28,11 @@ Phases (any failure exits non-zero; nothing is caught):
      4's weights): region_call_stacked on the real regions of orders 1-2
      against its plain version (<= 1e-4 scaled) and, with torch.equal,
      against K single-lane region launches and each lane's first tile
-     against an 8-row launch (another cluster width); MultiINRArtifact's
+     against an 8-row launch (another design), with the launch's row-
+     cluster design and the weight bytes it reads from L2; a ragged
+     stacked launch (R = 8,189 per lane) against its plain version and,
+     lane by lane, region_call; one region_call of 65,536 rows against its
+     plain version; MultiINRArtifact's
      stacked path (orders 1-2, broadcast and per-lane coordinates, N =
      8,192 rows per lane and a ragged N) and per-lane path (order 3, N =
      1,024), every lane held to its float64 oracle; the ServingEngine
@@ -183,9 +189,11 @@ def build_report(log, common):
         if "fa_tc_kernel" in fn or "fa_fwd_kernel" in fn:
             log(f"[build] SASS {pretty[fn]}: HGMMA {c['HGMMA']}, HMMA "
                 f"{c['HMMA']}, UTMALDG {c['UTMALDG']}, FFMA {c['FFMA']}")
-        elif fn.startswith(("_Z13region_kernel", "_Z17region_bwd_kernel")):
+        elif fn.startswith(("_Z13region_kernel", "_Z17region_bwd_kernel",
+                            "_Z18region_rows_kernel")):
             # the weight ring's async copies (cp.async: LDGSTS; bulk or
-            # tensor copies: UBLKCP / UTMALDG) and local-memory loads
+            # tensor copies, the row clusters' multicast: UBLKCP / UTMALDG)
+            # and local-memory loads
             log(f"[build] SASS {pretty[fn]}: LDGSTS {c['LDGSTS']}, UBLKCP "
                 f"{c['UBLKCP']}, UTMALDG {c['UTMALDG']}, LDL {c['LDL']}, "
                 f"FFMA {c['FFMA']}")
@@ -216,7 +224,8 @@ def main() -> int:
     from repro_torch.core.pipeline import compile_gradient
     from repro_torch.inr.siren import siren_fn, siren_init
     from repro_torch.kernels import common
-    from repro_torch.kernels.fused_chain import BINARY, eval_chain, fused_chain
+    from repro_torch.kernels.fused_chain import (BINARY, eval_chain,
+                                                 fused_chain, launch_floor)
     from repro_torch.kernels.region import (RegionKernelSpec, lower,
                                            plan_region, plan_region_bwd,
                                            region_call, region_call_plain,
@@ -318,8 +327,7 @@ def main() -> int:
         return plan_region(spec, tuple(a.shape[1] for a in stream),
                            tuple(a.shape[1] for a in rows),
                            tuple(tuple(a.shape) for a in res),
-                           common.cdiv(stream[0].shape[0], 8),
-                           sm_count(0)).cluster
+                           stream[0].shape[0], 1, sm_count(0)).cluster
 
     def cluster_report(spec, stream, rows, res):
         """C and the card's max active clusters of the forward at R = 8,
@@ -330,19 +338,19 @@ def main() -> int:
                   tuple(tuple(a.shape) for a in res))
         lib = common.load_library()
         out = []
-        for label, tiles, plan, occupancy in [
-                ("region R=8", 1, plan_region, lib.rt_region_max_clusters),
-                ("region R=512", 64, plan_region, lib.rt_region_max_clusters),
-                ("region_stacked K=8 R=8192", 8 * 1024, plan_region,
-                 lib.rt_region_max_clusters),
-                ("region_bwd R=8", 1, plan_region_bwd,
-                 lib.rt_region_bwd_max_clusters),
-                ("region_bwd R=1000", 125, plan_region_bwd,
-                 lib.rt_region_bwd_max_clusters)]:
-            prog = plan(spec, *widths, tiles, sm_count(0))
-            out.append(f"{label}: C={prog.cluster}, "
-                       f"{prog.smem_bytes} B/CTA, "
-                       f"{occupancy(prog.cluster, prog.smem_bytes)} clusters")
+        for label, R, lanes in [("region R=8", 8, 1),
+                                ("region R=512", 512, 1),
+                                ("region_stacked K=8 R=8192", 8192, 8)]:
+            prog = plan_region(spec, *widths, R, lanes, sm_count(0))
+            occ = lib.rt_region_max_clusters(prog.cluster, prog.rows,
+                                             prog.row_cluster,
+                                             prog.smem_bytes)
+            out.append(f"{label}: {prog.describe()}, {occ} clusters")
+        for label, tiles in [("region_bwd R=8", 1), ("region_bwd R=1000", 125)]:
+            prog = plan_region_bwd(spec, *widths, tiles, sm_count(0))
+            occ = lib.rt_region_bwd_max_clusters(prog.cluster, prog.smem_bytes)
+            out.append(f"{label}: C={prog.cluster}, {prog.smem_bytes} B/CTA, "
+                       f"{occ} clusters")
         return "; ".join(out)
 
     def record(name, source, replaces, errs, t_k, t_p, nbytes, flops,
@@ -394,6 +402,12 @@ def main() -> int:
            timing(lambda: fused_chain(x, chain, [e1])),
            timing(lambda: eval_chain(x, chain, [e1])),
            4 * 8 * 256 * 3, 3 * 8 * 256)
+    # the floor under any launch at this grid: an empty kernel, 8 CTAs of 256
+    floor = timing(lambda: launch_floor(x))
+    kernels["fused_chain"]["launch_floor_ms"] = floor[0]
+    log(f"[kernel] launch floor: an empty kernel on fused_chain's grid for "
+        f"[8,256] (8 CTAs of 256 threads): {floor[0]:.5f} ms/launch on the "
+        f"device ({floor[1]:.5f} ms/call)")
 
     # -- 3b. stream_matmul / siren_layer -------------------------------------
     mm_errs = {"stream_matmul": [], "siren_layer": []}
@@ -671,6 +685,7 @@ def multi_inr_phase(log, torch, dev, cfg, f, params, coords, fused_cfg,
     from repro_torch.inr.siren import siren_fn, siren_init
     from repro_torch.kernels import common
     from repro_torch.kernels.region import (lower, plan_region, region_call,
+                                           region_call_plain,
                                            region_call_stacked,
                                            region_call_stacked_plain,
                                            sm_count)
@@ -724,20 +739,63 @@ def multi_inr_phase(log, torch, dev, cfg, f, params, coords, fused_cfg,
                 raise AssertionError(f"order {order}: lane {k}'s first tile "
                                      f"differs between cluster widths")
         t = device_ms(lambda: region_call_stacked(region.spec, *ops), 5)
-        prog = plan_region(region.spec, tuple(a.shape[2] for a in ops[0]),
-                           tuple(r.shape[2] for r in rows),
-                           tuple(tuple(r.shape[1:]) for r in res),
-                           K * common.cdiv(N, 8), sm_count(0))
+        widths = (tuple(a.shape[2] for a in ops[0]),
+                  tuple(r.shape[2] for r in rows),
+                  tuple(tuple(r.shape[1:]) for r in res))
+        prog = plan_region(region.spec, *widths, N, K, sm_count(0))
+        one = lower(region.spec, *widths)      # 8-row tiles, one CTA each
+        occ = common.load_library().rt_region_max_clusters(
+            prog.cluster, prog.rows, prog.row_cluster, prog.smem_bytes)
+        nbytes = 4 * (sum(a.numel() for a in (*ops[0], *rows, *res))
+                      + sum(K * N * c for c, _ in out_info))
+        bound, by = bound_ms(nbytes, K * prog.flops(N), FP32_FLOPS_PER_S)
         log(f"[multi] kernel order {order}: K={K} R={N} "
             f"{len(region.spec.steps)} steps, {prog.flops(1)} flops/row, "
             f"{sum(r[0].numel() * 4 for r in res)} resident bytes/lane, "
-            f"C={prog.cluster}, {prog.smem_bytes} bytes of shared "
-            f"memory/CTA: {t} ms/launch on the device; "
+            f"{prog.describe()}, {occ} clusters at once "
+            f"(cudaOccupancyMaxActiveClusters), weights read from L2 "
+            f"{prog.l2_weight_bytes(N, K) / 1e9:.3f} GB/launch (8-row "
+            f"one-CTA tiles: {one.l2_weight_bytes(N, K) / 1e9:.3f} GB): "
+            f"{t} ms/launch on the device, bound {bound:.6f} ms by {by}; "
             f"lanes bit-equal to {K} region_call launches and their first "
             f"tiles to 8-row launches on 16-CTA clusters; scaled err "
             f"{max(s for _, s in stacked_errs[-len(got):]):.3e}")
         if order == 2:
             timed = (region.spec, ops)
+    # a ragged stacked launch: the last tile of every lane 13 rows, the last
+    # cluster's second CTA short
+    spec, (_, rows, res, out_info) = timed
+    rag = lane_coords[:, :N - 3].contiguous()
+    got = region_call_stacked(spec, [rag], rows, res, out_info)
+    want = region_call_stacked_plain(spec, [rag], rows, res, out_info)
+    torch.cuda.synchronize()
+    rag_errs = [scaled_err(a, b) for a, b in zip(got, want)]
+    stacked_errs += rag_errs
+    for k in range(K):
+        lane = region_call(spec, [rag[k]], [r[k] for r in rows],
+                           [r[k] for r in res], out_info)
+        if not all(torch.equal(a[k], b) for a, b in zip(got, lane)):
+            raise AssertionError(f"ragged stacked lane {k} != region_call")
+    log(f"[multi] kernel order 2 ragged: K={K} R={N - 3}: scaled err "
+        f"{max(e for _, e in rag_errs):.3e} against the plain version, "
+        f"lanes bit-equal to {K} region_call launches")
+    # one lane of 65,536 rows through region_call: the many-tile shape of
+    # chunk-wide launches (ROADMAP Queue 1 item 2)
+    big = coords[:65536].contiguous()
+    lane0 = ([r[0] for r in rows], [r[0] for r in res])
+    got = region_call(spec, [big], *lane0, out_info)
+    want = region_call_plain(spec, [big], *lane0, out_info)
+    torch.cuda.synchronize()
+    big_errs = [scaled_err(a, b) for a, b in zip(got, want)]
+    worst = max(e for _, e in big_errs)
+    if worst > 1e-4:
+        raise AssertionError(f"region R=65536 disagrees: {worst:.3e}")
+    t = device_ms(lambda: region_call(spec, [big], *lane0, out_info), 5)
+    prog = plan_region(spec, (2,), tuple(r.shape[2] for r in rows),
+                       tuple(tuple(r.shape[1:]) for r in res), 65536, 1,
+                       sm_count(0))
+    log(f"[multi] region_call K=1 R=65536 order 2: {prog.describe()}: "
+        f"{t} ms/launch on the device, scaled err {worst:.3e}")
     worst = max(s for _, s in stacked_errs)
     if worst > 1e-4:
         raise AssertionError(f"region_stacked disagrees: scaled err "

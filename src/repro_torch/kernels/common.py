@@ -43,7 +43,10 @@ ABI = {"region_rows": 8, "region_threads": 256, "region_instr_ints": 96,
        "max_lanes": 65535, "region_bwd_io_ints": 4, "fa_bq": 64, "fa_bk": 32,
        "fa_tc_bq": 128, "fa_tc_bk": 128, "fa_tc_bk_wide": 64,
        "region_wstage_floats": 8192, "region_wring": 2,
-       "region_max_cluster": 16}
+       "region_max_cluster": 16, "max_row_cluster": 8,
+       "max_stages": 4, "row_groups": 4, "col_tile": 4, "chunk_ints": 5,
+       "design_ints": 8, "rows_consumers": 256, "sm_smem_bytes": 233472,
+       "smem_static": 1024}
 
 _LIB = None
 _LOCK = threading.Lock()
@@ -154,10 +157,11 @@ _SIGNATURES = {
     "rt_error_string": ([_I], ctypes.c_char_p),
     "rt_fused_chain": ([_VP, _VP, _LL, _I, _I, _VP, _VP, _I, _VP, _VP, _VP,
                         _VP], _I),
+    "rt_launch_floor": ([_LL, _VP], _I),
     "rt_matmul": ([_VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _I, _VP], _I),
     "rt_region": ([_VP, _VP, _I, _I, _VP, _VP, _I, _LL, _I, _I, _I, _I, _I,
-                   _VP, _VP], _I),
-    "rt_region_max_clusters": ([_I, _LL], _I),
+                   _VP, _VP, _VP], _I),
+    "rt_region_max_clusters": ([_I, _I, _I, _LL], _I),
     "rt_region_bwd": ([_VP, _VP, _I, _I, _I, _I, _VP, _LL, _I, _I, _I, _I,
                        _I, _I, _I, _VP, _LL, _VP, _VP], _I),
     "rt_region_bwd_max_clusters": ([_I, _LL], _I),

@@ -49,6 +49,7 @@
 //   any size).
 // - Output acc / max(l, 1e-30) in bf16, stored row-masked from registers.
 #include "abi.cuh"
+#include "mbarrier.cuh"
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -82,54 +83,6 @@ struct TcTile {
 };
 
 // ---- PTX helpers ----------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ uint32_t mbar_try_wait(uint32_t addr,
-                                                  uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(addr), "r"(parity)
-      : "memory");
-  return done;
-}
-
-// wait until the phase of parity `parity` has completed.  A phase that has
-// not completed after ~2^35 cycles (~17 s) is a schedule bug: trap, so that
-// the launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  if (mbar_try_wait(addr, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(addr, parity))
-    if (clock64() - t0 > (1ll << 35)) __trap();
-}
 
 // TMA: one box of a 4-d tensor map into shared memory, completing on bar
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,

@@ -28,6 +28,7 @@
 #include <cooperative_groups.h>
 
 #include "abi.cuh"
+#include "mbarrier.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -117,7 +118,8 @@ __device__ __forceinline__ void owned(const Cta& c, const int* v, int cols,
 //   mm:    [0]=1 [1]=N [2]=K [3]=W pointer [4]=W row stride [5]=W first row
 //          [6]=W first column [7]=bias pointer or -1 [8]=flags
 //          (1 sin, 2 accumulate into out, 4 epilogue) [9]=w0 offset (fc)
-//          [10..14]=out view [15..19]=x view
+//          [10..14]=out view [15..19]=x view [20]=1 when a row-cluster
+//          launch streams W through its ring (region.cu)
 // A backward table (region_bwd.cu) sits beside the forward one; an mm's
 // backward entry holds the cotangent view of its x at [5..9].
 
@@ -136,10 +138,6 @@ __device__ __forceinline__ void owned(const Cta& c, const int* v, int cols,
 // A step with no columns on this CTA still takes one (empty) chunk, so
 // every CTA walks its own sequence in program order.
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
@@ -172,7 +170,7 @@ __device__ __forceinline__ int fwd_block_rows(int bw) {
 }
 
 struct WRing {
-  bool on;  // off in a one-CTA cluster: every step reads W from L2 directly
+  bool on;  // off: every step reads W from L2 (a row cluster's narrow mm)
   float* stage;
   const int* prog;
   const int* bwd;  // the backward table (phase 1 chunks), or null
@@ -352,6 +350,9 @@ __device__ __forceinline__ Flat flat_view(const Cta& c, const LaneTable& P,
   return f;
 }
 
+// NV: elements of a thread in flight at once on the common path (the row
+// clusters' CTAs hold every column of their rows: many elements a thread)
+template <int NV = 1>
 __device__ __forceinline__ void chain_step(const int* I, const int* prog,
                                            const float* fc, const LaneTable& P,
                                            const Cta& c) {
@@ -375,7 +376,7 @@ __device__ __forceinline__ void chain_step(const int* I, const int* prog,
   if (w <= 0) return;
   bool flat = true;
   for (int e = 0; e < n_extra + 2; ++e) flat &= s_op[e].base != nullptr;
-  if (flat && n_extra <= 2) {
+  if (NV == 1 && flat && n_extra <= 2) {
     // the common case: every operand in one place, at most two extras
     const Flat o = s_op[0], x = s_op[1], e0 = s_op[2], e1 = s_op[3];
     for (int i = t; i < c.rows * w; i += blockDim.x) {
@@ -385,6 +386,55 @@ __device__ __forceinline__ void chain_step(const int* I, const int* prog,
       const float b = n_extra > 1 ? e1.base[r * e1.rs + col * e1.cs] : 0.f;
       const_cast<float*>(o.base)[r * o.rs + col] = eval_chain(
           h, n_ops, s_ops, s_vals, [&](int e) { return e ? b : a; });
+    }
+    return;
+  }
+  constexpr int kFlat = 4;  // extras the NV-wide path takes
+  if (NV > 1 && flat && n_extra <= kFlat) {
+    // every operand in one place, NV elements a thread at once
+    const Flat o = s_op[0], x = s_op[1];
+    Flat ev[kFlat];
+#pragma unroll
+    for (int e = 0; e < kFlat; ++e) ev[e] = s_op[2 + e];
+    const int n = c.rows * w;
+    // element i0 + v * blockDim.x is (r[v], col[v]); each round moves them
+    // on by NV * blockDim.x elements (dr rows and dc columns, with carry)
+    int r[NV], col[NV];
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      r[v] = (t + v * (int)blockDim.x) / w;
+      col[v] = t + v * (int)blockDim.x - r[v] * w;
+    }
+    const int step = NV * blockDim.x, dr = step / w, dc = step - dr * w;
+    for (int i0 = t; i0 < n; i0 += step) {
+      float h[NV], ex[kFlat][NV];
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        const bool in = i0 + v * (int)blockDim.x < n;
+        const int rv = in ? r[v] : r[0], cv = lo + (in ? col[v] : col[0]);
+        h[v] = x.base[rv * x.rs + cv * x.cs];
+#pragma unroll
+        for (int e = 0; e < kFlat; ++e)
+          ex[e][v] =
+              n_extra > e ? ev[e].base[rv * ev[e].rs + cv * ev[e].cs] : 0.f;
+      }
+      eval_chain_n<NV>(h, n_ops, s_ops, s_vals, [&](int e, int v) {
+        float a = ex[0][v];
+#pragma unroll
+        for (int q = 1; q < kFlat; ++q) a = e == q ? ex[q][v] : a;
+        return a;
+      });
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        if (i0 + v * (int)blockDim.x < n)
+          const_cast<float*>(o.base)[r[v] * o.rs + lo + col[v]] = h[v];
+        r[v] += dr;
+        col[v] += dc;
+        if (col[v] >= w) {
+          col[v] -= w;
+          ++r[v];
+        }
+      }
     }
     return;
   }
@@ -495,8 +545,9 @@ __device__ __forceinline__ int rows_per_thread(int ks, int bw) {
   return rpt;
 }
 
-// A weight element: from the ring's stage, or (kGlobal, a one-CTA
-// cluster) from L2 through the read-only path.
+// A weight element: from the ring's stage, or (kGlobal: region_bwd's
+// one-CTA launch, a row cluster's narrow mm) from L2 through the read-only
+// path.
 template <bool kGlobal>
 __device__ __forceinline__ float wld(const float* p) {
   return kGlobal ? __ldg(p) : *p;
@@ -505,13 +556,14 @@ __device__ __forceinline__ float wld(const float* p) {
 // acc[i] (row rg * RPT + i, column col, partial kp) += x[row, k] w[k, col]
 // for k in [kb, ke), k = kp (mod ks), in increasing k.  w holds row kb of
 // the block (row stride bw: the stage's block width, or W's row stride).
-template <int RPT, bool kGlobal>
+// kVec: a single chain (ks == 1) reads x four k at a time.
+template <int RPT, bool kGlobal, bool kVec = true>
 __device__ __forceinline__ void mm_accumulate(const float* xs, int K,
                                               const float* w, int bw, int kb,
                                               int ke, int ks, int kp, int rg,
                                               int col, float* acc) {
   const float* x0 = xs + rg * RPT * K;
-  if (ks == 1 && (K & 3) == 0) {
+  if (kVec && ks == 1 && (K & 3) == 0) {
     // one fma chain in k: x as float4 (chunks start at multiples of 4);
     // from L2, four rounds of loads in flight
 #pragma unroll 4
@@ -566,14 +618,19 @@ __device__ __forceinline__ void reduce_partials(float* red, int ks, int bw,
 }
 
 // One column block [c0, c0 + bw) of an mm step's output on this CTA: walk
-// its chunks of the ring, reduce, apply the epilogue and store.
-template <int RPT, bool kSavePre>
+// its chunks of the ring, reduce, apply the epilogue and store.  Rows r0 ..
+// r0 + RT_REGION_ROWS - 1 of the tile, whose x starts at row r0 of S.xs
+// (row stride ldx, or K when ldx is 0).
+template <int RPT, bool kSavePre, bool kVec = true>
 __device__ __forceinline__ void mm_block(const int* I, const float* fc,
                                          const LaneTable& P, const Cta& c,
                                          const Smem& S, WRing& ring, int c0,
                                          int bw, int nchunks, int kr,
-                                         float* pre, int pre_ld, int pre_c0) {
+                                         float* pre, int pre_ld, int pre_c0,
+                                         int r0 = 0, int ldx = 0) {
   const int N = I[1], K = I[2], n0 = I[6], flags = I[8];
+  const int ld = ldx ? ldx : K;
+  const float* xs = S.xs + r0 * ld;
   const int ks = split_of(N);
   const int items = (RT_REGION_ROWS / RPT) * ks * bw;
   const int t = threadIdx.x;
@@ -588,13 +645,15 @@ __device__ __forceinline__ void mm_block(const int* I, const float* fc,
     const float* w = tensor(P, I[3], c.lane) + (long long)I[5] * I[4] + n0 + c0;
     __syncthreads();  // x is gathered
     if (active)
-      mm_accumulate<RPT, true>(S.xs, K, w, I[4], 0, K, ks, kp, rg, col, acc);
+      mm_accumulate<RPT, true, kVec>(xs, ld, w, I[4], 0, K, ks, kp, rg, col,
+                                     acc);
   }
   for (int j = 0; ring.on && j < nchunks; ++j) {
     const float* w = ring.wait();
     const int kb = j * kr, ke = K < kb + kr ? K : kb + kr;
     if (active)
-      mm_accumulate<RPT, false>(S.xs, K, w, bw, kb, ke, ks, kp, rg, col, acc);
+      mm_accumulate<RPT, false, kVec>(xs, ld, w, bw, kb, ke, ks, kp, rg, col,
+                                      acc);
     ring.release(c, P);
   }
   reduce_partials<RPT>(S.red, ks, bw, active, kp, rg, col, acc);
@@ -604,7 +663,7 @@ __device__ __forceinline__ void mm_block(const int* I, const float* fc,
   const int n = c0 + col;
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
-    const int r = rg * RPT + i;
+    const int r = r0 + rg * RPT + i;
     if (r >= c.rows) break;
     float* o = at(c, P, I + 10, r, n);
     float h = acc[i];
@@ -675,9 +734,10 @@ __device__ __forceinline__ void mm_step(const int* I, const float* fc,
 // host side, shared by rt_region and rt_region_bwd
 // ---------------------------------------------------------------------------
 
-// Dynamic shared memory of a launch: the partial sums, x, the ring (none
-// on one-CTA clusters), the workspace when it is in shared memory, and the
-// step program with its constants when the launch stages them.
+// Dynamic shared memory of a column-cluster or region_bwd launch: the
+// partial sums, x, the ring (none on region_bwd's one-CTA launch), the
+// workspace when it is in shared memory, and the step program with its
+// constants when the launch stages them.
 static size_t region_smem(int xs_floats, int extra_floats, int ws_floats,
                           bool in_smem, int C, int table_ints, int fc_floats) {
   return sizeof(float) *
@@ -709,10 +769,11 @@ static cudaError_t region_attributes(Kernel kernel, bool* opted) {
 }
 
 static void cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
-                           dim3 grid, int C, size_t smem, void* stream) {
+                           dim3 grid, int C, size_t smem, void* stream,
+                           int threads = RT_REGION_THREADS) {
   *cfg = cudaLaunchConfig_t{};
   cfg->gridDim = grid;
-  cfg->blockDim = dim3(RT_REGION_THREADS);
+  cfg->blockDim = dim3(threads);
   cfg->dynamicSmemBytes = smem;
   cfg->stream = (cudaStream_t)stream;
   attr->id = cudaLaunchAttributeClusterDimension;

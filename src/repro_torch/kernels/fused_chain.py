@@ -129,6 +129,15 @@ def fused_chain(x: torch.Tensor, chain, extras=()):
     return out
 
 
+def launch_floor(x: torch.Tensor) -> None:
+    """Launch an empty kernel on the grid ``fused_chain`` takes for ``x``
+    (CUDA): the floor under one of its launches.  Not counted."""
+    check_cuda_f32("launch_floor", x.device, x=x)
+    rc = load_library().rt_launch_floor(x.numel(), stream_handle(x.device))
+    if rc:
+        raise RuntimeError(f"launch_floor: CUDA error {rc}")
+
+
 # ---------------------------------------------------------------------------
 # chain-spec builder: SegmentPlan StreamChain nodes -> a fused_chain call
 # (copied from the reference as it is)

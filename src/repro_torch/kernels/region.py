@@ -24,10 +24,14 @@ compiled-once interpreter: ``lower`` turns a spec, once per spec, operand
 widths and cluster width C, into an int32 instruction table (tile groups
 unrolled into per-tile instructions) and a float table that stay on the
 device, with every intermediate given a liveness-packed slot of a per-CTA
-workspace.  Each 8-row tile runs on a cluster of C CTAs, each owning a
-column block of every value (``block_cols``); ``launch_cluster`` picks C
-from the launch's shape (``plan_region``), and every mm sums in an order
-fixed by its shape (``split_of``), so C never changes the bits.
+workspace.  ``plan_region`` picks one of two designs by the launch's
+shape (``launch_cluster``): when few tiles leave most SMs idle, each 8-row
+tile runs on a cluster of C CTAs, each owning a column block of every value
+(``block_cols``); when the tiles fill the card on their own (the stacked
+launch), each CTA owns every column of ``rows`` rows and a cluster of
+``row_cluster`` CTAs shares each weight chunk of its ring (``rows_design``).
+Every mm sums in an order fixed by its shape (``split_of``), so neither the
+design nor its widths change the bits.
 
 ``region_bwd_call`` (port of ``_region_bwd_call``) is the region's vjp for
 the fit path, on ``csrc/region_bwd.cu``: ``lower_bwd`` adds a backward
@@ -229,6 +233,23 @@ _IO = ABI["region_bwd_io_ints"]
 # the weight ring (csrc/region_steps.cuh): stages of this many floats each
 _RING_FLOATS = ABI["region_wring"] * ABI["region_wstage_floats"]
 CLUSTER_WIDTHS = (16, 8, 4, 2, 1)   # CTAs per row tile a launch may take
+# the row-cluster design (csrc/region.cu): rows per CTA it is built for, the
+# row cluster the planner takes, the smallest and largest ring stage it
+# plans (16 and 32 rows of a 256-column block) and the stages a ring may
+# have
+TILE_ROWS = (8, 16, 32)
+TWO_PER_SM_ROWS = (8, 16)   # tiles built to run two CTAs per SM
+ROW_CLUSTER = 2
+STAGE_FLOATS = 4096
+MAX_STAGE_FLOATS = 8192
+MAX_STAGES = ABI["max_stages"]
+# columns of one mm column block of the row-cluster design
+_ROWS_BLOCK = ABI["rows_consumers"] // ABI["row_groups"] * ABI["col_tile"]
+_CHUNK = ABI["chunk_ints"]
+# dynamic shared memory of a CTA that shares its SM with another
+# (csrc/region.cu::rows_two_per_sm: the runtime reserves 1 KB per CTA)
+_TWO_PER_SM_BYTES = ABI["sm_smem_bytes"] // 2 - 1024 - ABI["smem_static"]
+_RING = 20   # an mm instruction's flag: its weights go through the ring
 
 
 def block_cols(width: int, cluster: int) -> int:
@@ -252,12 +273,34 @@ def _round4(n: int) -> int:
     return max(4, -(-n // 4) * 4)
 
 
+def rows_ldx(K: int) -> int:
+    """x's row stride in the row-cluster design's x buffer for an mm of
+    depth K (``csrc/region.cu::rows_ldx``): K + 4 rounded so that the rows a
+    warp reads at once start in different banks; K itself when K is not a
+    multiple of 4."""
+    return K if K % 4 else -(-K // 8) * 8 + 4
+
+
+def ring_step(N: int, ldw: int, n0: int) -> bool:
+    """Whether the row-cluster design streams an mm's weights through its
+    ring: one fma chain per output and rows of whole 16-byte granules
+    (``launch_program`` checks that the tensors are 16-byte aligned)."""
+    return split_of(N) == 1 and (N | ldw | n0) % 4 == 0
+
+
 @dataclass(frozen=True, eq=False)
 class RegionProgram:
-    """A spec lowered for ``csrc/region.cu`` on clusters of ``cluster``
-    CTAs: instructions (int32, ``_INSTR`` ints each, then the chains'
-    opcodes), float constants, the per-CTA workspace size (each value's
-    column block), the gathered-x buffer and the width of each output."""
+    """A spec lowered for ``csrc/region.cu``: instructions (int32,
+    ``_INSTR`` ints each, then the chains' opcodes), float constants, the
+    per-CTA workspace size, the gathered-x buffer and the width of each
+    output.  ``cluster`` > 1: column clusters of that many CTAs per 8-row
+    tile, each value's column block in a slot.  ``cluster`` == 1: row
+    clusters of ``row_cluster`` CTAs of ``rows`` rows each, every value
+    whole (slot rows padded to ``rows_ldx(width)``, so an mm reads x in
+    place; the x buffer holds only the x that cannot be), a weight ring of
+    ``stages`` stages of ``stage_floats`` floats whose chunks the table
+    after the opcodes lists (``chunks``), and ``red_floats`` floats of
+    partial sums for the narrow mm steps."""
     prog: np.ndarray
     consts: np.ndarray
     n_instr: int
@@ -265,13 +308,21 @@ class RegionProgram:
     out_cols: tuple[int, ...]
     cluster: int = 1
     xs_floats: int = 4
+    rows: int = 8
+    row_cluster: int = 1
+    stages: int = 2
+    stage_floats: int = STAGE_FLOATS
+    red_floats: int = 4
+    chunk_off: int = 0
+    n_chunks: int = 0
 
     @property
     def staging_bytes(self) -> int:
-        """Shared memory besides the workspace: partial sums, x, the ring
-        (a one-CTA cluster has none: it reads W from L2)."""
-        return 4 * (_RED_FLOATS + self.xs_floats
-                    + (_RING_FLOATS if self.cluster > 1 else 0))
+        """Shared memory besides the workspace: partial sums, x, the ring."""
+        if self.cluster > 1:
+            return 4 * (_RED_FLOATS + self.xs_floats + _RING_FLOATS)
+        return 4 * (self.red_floats + self.xs_floats
+                    + self.stages * self.stage_floats)
 
     @property
     def in_smem(self) -> bool:
@@ -292,8 +343,66 @@ class RegionProgram:
     def flops(self, rows: int) -> int:
         """Operations one launch does on ``rows`` rows: 2 K N per row for an
         mm, one per element for each chain op."""
-        table = self.prog[:self.n_instr * _INSTR].reshape(self.n_instr, _INSTR)
-        return _flops(table, rows)
+        return _flops(self.table, rows)
+
+    @property
+    def table(self) -> np.ndarray:
+        """The instruction table, one row of ``_INSTR`` ints each."""
+        return self.prog[:self.n_instr * _INSTR].reshape(self.n_instr, _INSTR)
+
+    @property
+    def chunks(self) -> np.ndarray:
+        """The row-cluster ring's chunks in the order rank 0 issues them:
+        pointer-table index, element offset from the lane's tensor, rows,
+        columns, W's row stride."""
+        return self.prog[self.chunk_off:self.chunk_off
+                         + self.n_chunks * _CHUNK].reshape(-1, _CHUNK)
+
+    @property
+    def design(self) -> tuple[int, ...]:
+        """The row-cluster launch's layout as ``rt_region`` takes it
+        (``csrc/region.cu::RowsLayout``)."""
+        return (self.rows, self.row_cluster, self.red_floats, self.xs_floats,
+                self.stages, self.stage_floats, self.chunk_off, self.n_chunks)
+
+    def ctas(self, R: int) -> int:
+        """CTAs per lane of a launch over ``R`` rows."""
+        if self.cluster > 1:
+            return cdiv(R, _ROWS) * self.cluster
+        return cdiv(cdiv(R, self.rows), self.row_cluster) * self.row_cluster
+
+    def l2_weight_bytes(self, R: int, lanes: int = 1) -> int:
+        """Weight bytes one launch over ``lanes`` x ``R`` rows reads from L2
+        (16-byte aligned weights): every mm's W slice once per 8-row tile
+        (column clusters: each CTA its columns), in the row-cluster design
+        a ring step's once per cluster and a narrow one's once per 8 rows."""
+        tiles = cdiv(R, _ROWS)
+        clusters = cdiv(R, self.rows * self.row_cluster)
+        total = 0
+        for ins in self.table:
+            if ins[0] == 1:
+                total += 4 * int(ins[1]) * int(ins[2]) * (
+                    clusters if ins[_RING] else tiles)
+        return lanes * total
+
+    @property
+    def per_sm(self) -> int:
+        """CTAs of a row-cluster launch one SM holds (its instantiation's
+        register cap follows)."""
+        return 2 if (self.rows in TWO_PER_SM_ROWS
+                     and self.smem_bytes <= _TWO_PER_SM_BYTES) else 1
+
+    def describe(self) -> str:
+        """The launch design, as the chip run prints it."""
+        if self.cluster > 1:
+            return (f"column clusters of C={self.cluster} CTAs per 8-row "
+                    f"tile, {self.smem_bytes} B/CTA")
+        return (f"row clusters: {self.rows} rows/CTA, Cr={self.row_cluster}, "
+                f"register tile {self.rows // ABI['row_groups']} rows x "
+                f"{ABI['col_tile']} columns, {self.stages} ring stages of "
+                f"{4 * self.stage_floats} B, {self.smem_bytes} B/CTA, "
+                f"{self.per_sm} CTA(s)/SM"
+                + ("" if self.in_smem else ", workspace in global memory"))
 
 
 @dataclass(frozen=True)
@@ -482,12 +591,22 @@ def _mm_widths(ab: _Abstract):
 
 @functools.lru_cache(maxsize=512)
 def lower(spec: RegionKernelSpec, stream_cols: tuple, row_cols: tuple,
-          res_shapes: tuple, cluster: int = 1) -> RegionProgram:
+          res_shapes: tuple, cluster: int = 1, rows: int = _ROWS,
+          row_cluster: int = 1, stages: int = 2,
+          stage_floats: int = STAGE_FLOATS) -> RegionProgram:
     """Lower ``spec`` for operands of the given widths (stream inputs, rows)
-    and shapes (residents), on clusters of ``cluster`` CTAs: tile groups
-    unroll into per-tile instructions, concat steps into column copies, and
-    every intermediate gets a workspace slot of its column block
-    (``block_cols``) that is reused once the value is dead."""
+    and shapes (residents), on column clusters of ``cluster`` CTAs per
+    8-row tile or (``cluster`` == 1) on row clusters of ``row_cluster`` CTAs
+    of ``rows`` rows with a ring of ``stages`` x ``stage_floats``: tile
+    groups unroll into per-tile instructions, concat steps into column
+    copies, and every intermediate gets a workspace slot of its column
+    block (``block_cols``) that is reused once the value is dead."""
+    if cluster > 1 and rows != _ROWS:
+        raise ValueError(f"region: column clusters take {_ROWS}-row tiles")
+    if rows not in TILE_ROWS:
+        raise ValueError(f"region: {rows} rows per CTA (one of {TILE_ROWS})")
+    if not 1 <= stages <= MAX_STAGES:
+        raise ValueError(f"region: {stages} ring stages (1..{MAX_STAGES})")
     ab = _abstract(spec, stream_cols, row_cols, res_shapes)
     instrs, width, glob = ab.instrs, ab.width, ab.glob
     nbase = len(stream_cols) + len(row_cols) + len(res_shapes)
@@ -502,13 +621,18 @@ def lower(spec: RegionKernelSpec, stream_cols: tuple, row_cols: tuple,
     for idx, ins in enumerate(instrs):
         for k in [ins[1][0]] + _reads(ins):
             last_use[k] = idx
+    def slot_ld(w):
+        """A value's row stride in its slot: its column block on column
+        clusters, all of it (rows_ldx: x read in place) on row clusters."""
+        return block_cols(w, cluster) if cluster > 1 else rows_ldx(w)
+
     slots: dict = {}
     live: list[tuple[int, int, object]] = []   # (offset, size, value)
     ws_floats = 0
     for idx, ins in enumerate(instrs):
         out = ins[1][0]
         if in_ws(out) and out not in slots:
-            size = _ROWS * block_cols(width[out], cluster)
+            size = rows * slot_ld(width[out])
             off = 0
             for o, s, _ in sorted(live, key=lambda t: t[0]):
                 if o - off >= size:
@@ -524,17 +648,61 @@ def lower(spec: RegionKernelSpec, stream_cols: tuple, row_cols: tuple,
             return (0, *glob[key])
         if key in out_ptr:
             return (0, out_ptr[key], width[key])
-        return (1, slots[key], block_cols(width[key], cluster))
+        return (1, slots[key], slot_ld(width[key]))
 
     table, op_ints, consts = _encode(ab, _viewer(width, locate),
                                      len(instrs) * _INSTR)
-    prog = np.concatenate([table.ravel(), np.asarray(op_ints, np.int32)])
+    chunks = _ring_chunks(table, stage_floats) if cluster == 1 else []
+    prog = np.concatenate([table.ravel(), np.asarray(op_ints, np.int32),
+                           np.asarray(chunks, np.int32).ravel()])
+    max_k = _mm_widths(ab)[0]
+    if cluster == 1:   # x buffer for the mm steps that cannot read x in place
+        max_k = max([int(ins[2]) for ins in table
+                     if ins[0] == 1 and not _in_place(ins[15:20], ins[2])],
+                    default=1)
+    # partial sums of the narrow mm steps (split_of(N) > 1), 8 rows at a time
+    red = max([split_of(ins[2]) * _ROWS * min(ins[2], ABI["region_threads"])
+               for ins in instrs
+               if ins[0] == MM and split_of(ins[2]) > 1], default=0)
     return RegionProgram(prog=prog,
                          consts=np.asarray(consts or [0.0], np.float32),
                          n_instr=len(instrs), ws_floats=ws_floats,
                          out_cols=tuple(width[o] for o in spec.outputs),
                          cluster=cluster,
-                         xs_floats=_round4(_ROWS * _mm_widths(ab)[0]))
+                         xs_floats=(_round4(_ROWS * max_k) if cluster > 1
+                                    else _round4(rows * rows_ldx(max_k))),
+                         rows=rows, row_cluster=row_cluster, stages=stages,
+                         stage_floats=stage_floats, red_floats=_round4(red),
+                         chunk_off=table.size + len(op_ints),
+                         n_chunks=len(chunks))
+
+
+def _in_place(v, K) -> bool:
+    """Whether a row-cluster mm reads its x [rows, K] where it lies (a
+    workspace slot, 16-byte aligned rows), as ``csrc/region.cu::
+    rows_mm_step`` decides; else it copies x into the x buffer."""
+    return v[0] == 1 and v[4] == 1 and (int(v[2]) | int(v[3]) | int(K)) % 4 == 0
+
+
+def _ring_chunks(table: np.ndarray, stage_floats: int) -> list:
+    """Flag the mm instructions whose weights the row-cluster design streams
+    through its ring (``table[:, _RING]``) and list their chunks in program
+    order: per column block of at most ``_ROWS_BLOCK`` columns, rows [k, k +
+    kr) of W[k0:k0+K, n0:n0+N] with kr = ``stage_floats`` / the first
+    block's width, rounded down to a multiple of 4 (``MRing::chunk_rows``)."""
+    chunks = []
+    for ins in table:
+        N, K, w, ldw, k0, n0 = (int(a) for a in ins[1:7])
+        if ins[0] != 1 or not ring_step(N, ldw, n0):
+            continue
+        ins[_RING] = 1
+        kr = (stage_floats // min(N, _ROWS_BLOCK)) & ~3
+        for c0 in range(0, N, _ROWS_BLOCK):
+            cols = min(_ROWS_BLOCK, N - c0)
+            for k in range(0, K, kr):
+                chunks.append((w, (k0 + k) * ldw + n0 + c0, min(kr, K - k),
+                               cols, ldw))
+    return chunks
 
 
 @dataclass(frozen=True, eq=False)
@@ -707,13 +875,13 @@ def lower_bwd(spec: RegionKernelSpec, stream_cols: tuple, row_cols: tuple,
 
 
 def launch_cluster(n_tiles: int, fits, sms: int) -> int:
-    """The cluster width C of a launch over ``n_tiles`` row tiles, chosen by
-    shape: the widest C of ``CLUSTER_WIDTHS`` whose ``n_tiles * C`` CTAs
+    """The cluster width C of a launch over ``n_tiles`` 8-row tiles, chosen
+    by shape: the widest C of ``CLUSTER_WIDTHS`` whose ``n_tiles * C`` CTAs
     the card's ``sms`` SMs hold in one wave and whose workspace ``fits(C)``
     in shared memory (one tile: C = 16); else, while the tiles alone fit
     one wave, the widest C that does, its workspace in global memory; else
     (many tiles fill the card on their own) the narrowest C that fits,
-    or the widest."""
+    or the widest.  C = 1 means the row-cluster design (``rows_design``)."""
     for C in CLUSTER_WIDTHS:
         if n_tiles * C <= sms and fits(C):
             return C
@@ -726,14 +894,51 @@ def launch_cluster(n_tiles: int, fits, sms: int) -> int:
     return CLUSTER_WIDTHS[0]
 
 
+def rows_design(spec: RegionKernelSpec, stream_cols: tuple, row_cols: tuple,
+                res_shapes: tuple, R: int) -> RegionProgram:
+    """The row-cluster program for ``R`` rows per lane: two CTAs per SM
+    where the workspace of 16 (else 8) rows leaves each of them room for two
+    ring stages of at least ``STAGE_FLOATS``; else one CTA per SM with the
+    most rows (``TILE_ROWS``) that do.  The two stages are as large as fit,
+    up to ``MAX_STAGE_FLOATS`` (larger chunks pay the ring's per-chunk wait
+    and release fewer times); clusters of ``ROW_CLUSTER`` CTAs (fewer when a
+    lane has fewer tiles); 8 rows with the workspace in global memory when
+    nothing fits."""
+    def at(rows, stage_floats):
+        return lower(spec, stream_cols, row_cols, res_shapes, 1, rows,
+                     max(1, min(ROW_CLUSTER, cdiv(R, rows))), 2,
+                     stage_floats)
+
+    def fitted(rows, budget):
+        prog = at(rows, STAGE_FLOATS)
+        room = budget - 4 * prog.ws_floats - prog.staging_bytes \
+            + 8 * STAGE_FLOATS
+        stage = min(MAX_STAGE_FLOATS, room // 8 // 1024 * 1024)
+        return at(rows, stage) if stage >= STAGE_FLOATS else None
+
+    for rows, budget in [*((r, _TWO_PER_SM_BYTES)
+                           for r in sorted(TWO_PER_SM_ROWS, reverse=True)),
+                         *((r, _SMEM_BYTES)
+                           for r in sorted(TILE_ROWS, reverse=True))]:
+        prog = fitted(rows, budget)
+        if prog is not None:
+            return prog
+    return at(_ROWS, STAGE_FLOATS)
+
+
 @functools.lru_cache(maxsize=1024)
 def plan_region(spec: RegionKernelSpec, stream_cols: tuple, row_cols: tuple,
-                res_shapes: tuple, n_tiles: int, sms: int) -> RegionProgram:
-    """``lower`` at the cluster width ``launch_cluster`` picks for
-    ``n_tiles`` row tiles (all lanes) on a card of ``sms`` SMs."""
+                res_shapes: tuple, R: int, lanes: int,
+                sms: int) -> RegionProgram:
+    """The program of a launch over ``lanes`` x ``R`` rows on a card of
+    ``sms`` SMs: column clusters of the width ``launch_cluster`` picks, or
+    the row-cluster design when the tiles fill the card on their own."""
     def at(C):
+        if C == 1:
+            return rows_design(spec, stream_cols, row_cols, res_shapes, R)
         return lower(spec, stream_cols, row_cols, res_shapes, C)
-    return at(launch_cluster(n_tiles, lambda C: at(C).in_smem, sms))
+    return at(launch_cluster(lanes * cdiv(R, _ROWS),
+                             lambda C: at(C).in_smem, sms))
 
 
 @functools.lru_cache(maxsize=1024)
@@ -801,11 +1006,11 @@ def _operand_names(name, R, stream, rows, residents) -> dict:
 
 
 def _lowered(name, spec: RegionKernelSpec, stream_cols, row_cols,
-             res_shapes, out_info, n_tiles, dev) -> RegionProgram:
-    """The spec's program for one lane's operand widths at the cluster
-    width of ``n_tiles`` row tiles; ``out_info`` must name its float32
+             res_shapes, out_info, R, lanes, dev) -> RegionProgram:
+    """The spec's program for one lane's operand widths, planned for a
+    launch over ``lanes`` x ``R`` rows; ``out_info`` must name its float32
     outputs."""
-    prog = plan_region(spec, stream_cols, row_cols, res_shapes, n_tiles,
+    prog = plan_region(spec, stream_cols, row_cols, res_shapes, R, lanes,
                        sm_count(dev.index))
     if tuple(c for c, _ in out_info) != prog.out_cols:
         raise ValueError(f"{name}: out_info {out_info} vs computed widths "
@@ -820,6 +1025,37 @@ def _pointers(name, tensors) -> list[int]:
         raise ValueError(f"{name}: {len(tensors)} tensors exceed the "
                          f"kernel's {ABI['max_ptrs']}")
     return [a.data_ptr() for a in tensors]
+
+
+def launch_program(name, prog: RegionProgram, tensors, strides, lanes: int,
+                   R: int, dev) -> None:
+    """Launch ``prog`` over ``lanes`` x ``R`` rows with the pointer table
+    ``tensors`` (stream inputs, rows, residents, outputs), lane k of tensor
+    i at ``k * strides[i]`` elements (``strides`` None for one lane), and
+    count it under ``name``."""
+    ptrs = _pointers(name, tensors)
+    if R == 0:
+        return
+    for i in {int(i) for i in prog.chunks[:, 0]}:
+        # bulk copies move 16-byte granules between 16-byte aligned addresses
+        if ptrs[i] % 16 or (strides and strides[i] % 4):
+            raise ValueError(f"{name}: weight operand {i} is not 16-byte "
+                             f"aligned in every lane")
+    prog_d, consts_d = _device_program(prog, dev)
+    gws = None
+    if not prog.in_smem:
+        gws = torch.empty(lanes * prog.ctas(R) * prog.ws_floats, device=dev,
+                          dtype=torch.float32)
+    lib = load_library()
+    rc = lib.rt_region(
+        prog_d.data_ptr(), consts_d.data_ptr(), prog.n_instr, len(ptrs),
+        (ctypes.c_longlong * len(ptrs))(*ptrs),
+        (ctypes.c_longlong * len(strides))(*strides) if strides else None,
+        lanes, R, prog.ws_floats, prog.xs_floats, prog.table_ints,
+        _staged_consts(prog), prog.cluster,
+        (ctypes.c_int * len(prog.design))(*prog.design),
+        gws.data_ptr() if gws is not None else None, stream_handle(dev))
+    check_launch(rc, name)
 
 
 def region_call(spec: RegionKernelSpec, stream, rows, residents, out_info):
@@ -841,29 +1077,14 @@ def region_call(spec: RegionKernelSpec, stream, rows, residents, out_info):
     R = stream[0].shape[0]
     check_cuda_f32("region", dev,
                    **_operand_names("region", R, stream, rows, residents))
-    n_tiles = cdiv(R, _ROWS)
     prog = _lowered("region", spec, tuple(a.shape[1] for a in stream),
                     tuple(a.shape[1] for a in rows),
                     tuple(tuple(a.shape) for a in residents), out_info,
-                    n_tiles, dev)
+                    R, 1, dev)
     outs = tuple(torch.empty((R, c), device=dev, dtype=torch.float32)
                  for c in prog.out_cols)
-    ptrs = _pointers("region", (*stream, *rows, *residents, *outs))
-    if R == 0:
-        return outs
-    prog_d, consts_d = _device_program(prog, dev)
-    gws = None
-    if not prog.in_smem:
-        gws = torch.empty(n_tiles * prog.cluster * prog.ws_floats,
-                          device=dev, dtype=torch.float32)
-    lib = load_library()
-    rc = lib.rt_region(prog_d.data_ptr(), consts_d.data_ptr(), prog.n_instr,
-                       len(ptrs), (ctypes.c_longlong * len(ptrs))(*ptrs),
-                       None, 1, R, prog.ws_floats, prog.xs_floats,
-                       prog.table_ints, _staged_consts(prog), prog.cluster,
-                       gws.data_ptr() if gws is not None else None,
-                       stream_handle(dev))
-    check_launch(rc, "region")
+    launch_program("region", prog, (*stream, *rows, *residents, *outs),
+                   None, 1, R, dev)
     return outs
 
 
@@ -899,7 +1120,12 @@ def region_call_stacked(spec: RegionKernelSpec, stream, rows, residents,
 
     Lane k of the result is ``region_call`` on lane k's operands (on the
     card bit for bit: every CTA runs the single-lane kernel's arithmetic).
-    CPU tensors take the plain version; CUDA tensors the kernel."""
+    CPU tensors take the plain version; CUDA tensors the kernel.  Once the
+    tiles fill the card (the fleets' K = 8 x 8,192 rows), the launch takes
+    the row-cluster design (``rows_design``): each CTA runs every column of
+    8-32 rows, and a cluster of CTAs on adjacent row tiles of one lane
+    shares each weight chunk, copied once from L2 into all their shared
+    memories (``csrc/region.cu``)."""
     _check_arity("region_stacked", spec, stream, rows, residents)
     if stream[0].dim() != 3:
         raise ValueError(f"region_stacked: stream input 0 must be [K, R, C], "
@@ -930,31 +1156,15 @@ def region_call_stacked(spec: RegionKernelSpec, stream, rows, residents,
     if dev.type != "cuda":
         raise ValueError(f"region_stacked: unsupported device {dev}")
     check_cuda_f32("region_stacked", dev, **named)
-    n_tiles = cdiv(R, _ROWS)
     prog = _lowered("region_stacked", spec, tuple(a.shape[2] for a in stream),
                     tuple(a.shape[2] for a in rows),
                     tuple(tuple(a.shape[1:]) for a in residents), out_info,
-                    K * n_tiles, dev)
+                    R, K, dev)
     outs = tuple(torch.empty((K, R, c), device=dev, dtype=torch.float32)
                  for c in prog.out_cols)
     tensors = (*stream, *rows, *residents, *outs)
-    ptrs = _pointers("region_stacked", tensors)
-    if R == 0:
-        return outs
-    strides = lane_strides(a.shape for a in tensors)
-    prog_d, consts_d = _device_program(prog, dev)
-    gws = None
-    if not prog.in_smem:
-        gws = torch.empty(K * n_tiles * prog.cluster * prog.ws_floats,
-                          device=dev, dtype=torch.float32)
-    lib = load_library()
-    rc = lib.rt_region(
-        prog_d.data_ptr(), consts_d.data_ptr(), prog.n_instr, len(ptrs),
-        (ctypes.c_longlong * len(ptrs))(*ptrs),
-        (ctypes.c_longlong * len(strides))(*strides), K, R, prog.ws_floats,
-        prog.xs_floats, prog.table_ints, _staged_consts(prog), prog.cluster,
-        gws.data_ptr() if gws is not None else None, stream_handle(dev))
-    check_launch(rc, "region_stacked")
+    launch_program("region_stacked", prog, tensors,
+                   lane_strides(a.shape for a in tensors), K, R, dev)
     return outs
 
 
