@@ -43,9 +43,9 @@ ABI = {"region_rows": 8, "region_threads": 256, "region_instr_ints": 96,
        "max_lanes": 65535, "region_bwd_io_ints": 4, "fa_bq": 64, "fa_bk": 32,
        "fa_tc_bq": 128, "fa_tc_bk": 128, "fa_tc_bk_wide": 64,
        "region_wstage_floats": 8192, "region_wring": 2,
-       "region_max_cluster": 16, "max_row_cluster": 8,
-       "max_stages": 4, "row_groups": 4, "col_tile": 4, "chunk_ints": 5,
-       "design_ints": 8, "rows_consumers": 256, "sm_smem_bytes": 233472,
+       "region_max_cluster": 16, "row_cluster": 2,
+       "rows_stages": 2, "row_groups": 4, "col_tile": 4, "chunk_ints": 5,
+       "design_ints": 7, "rows_consumers": 256, "sm_smem_bytes": 233472,
        "smem_static": 1024}
 
 _LIB = None

@@ -22,17 +22,17 @@
 #define RT_WRING 2              // stages of the region weight ring
 #define RT_MAX_CLUSTER 16       // CTAs of one region cluster (non-portable > 8)
 // the row-cluster launch (region.cu): tiles of 8, 16 or 32 rows per CTA,
-// clusters of up to RT_MAX_ROW_CLUSTER row tiles sharing each weight chunk
-// through a ring of up to RT_MAX_STAGES stages; RT_ROWS_CONSUMERS threads
-// compute, an mm thread holding rows r, r + RT_ROW_GROUPS, ... of
-// RT_COL_TILE adjacent columns
-#define RT_MAX_ROW_CLUSTER 8
-#define RT_MAX_STAGES 4
+// clusters of RT_ROW_CLUSTER row tiles (one where a lane has one tile)
+// sharing each weight chunk through a ring of RT_ROWS_STAGES stages;
+// RT_ROWS_CONSUMERS threads compute, an mm thread holding rows r,
+// r + RT_ROW_GROUPS, ... of RT_COL_TILE adjacent columns
+#define RT_ROW_CLUSTER 2
+#define RT_ROWS_STAGES 2
 #define RT_ROWS_CONSUMERS 256
 #define RT_ROW_GROUPS 4
 #define RT_COL_TILE 4
 #define RT_CHUNK_INTS 5        // ints per chunk of the row-cluster ring's table
-#define RT_DESIGN_INTS 8       // ints of a row-cluster launch's layout
+#define RT_DESIGN_INTS 7       // ints of a row-cluster launch's layout
 // attention tiles (kernels/flash_attention.py KERNEL_TILES)
 #define RT_FA_BQ 64             // fp32 SIMT kernel: q rows of one CTA
 #define RT_FA_BK 32             //   keys of one kv tile

@@ -86,7 +86,7 @@ extern "C" int rt_abi(int* vals, int n) {
                      RT_BWD_IO_INTS, RT_FA_BQ,          RT_FA_BK,
                      RT_FA_TC_BQ,    RT_FA_TC_BK,       RT_FA_TC_BK_WIDE,
                      RT_WSTAGE_FLOATS, RT_WRING,        RT_MAX_CLUSTER,
-                     RT_MAX_ROW_CLUSTER, RT_MAX_STAGES,
+                     RT_ROW_CLUSTER,   RT_ROWS_STAGES,
                      RT_ROW_GROUPS,    RT_COL_TILE,       RT_CHUNK_INTS,
                      RT_DESIGN_INTS,   RT_ROWS_CONSUMERS, RT_SM_SMEM_BYTES,
                      RT_SMEM_STATIC};

@@ -25,11 +25,12 @@
 //
 // - Row clusters (region_rows_kernel), when the tiles fill the card on their
 //   own (the stacked K = 8, R = 8,192 launch: 65,536 rows).  One CTA owns
-//   every column of RB = 8, 16 or 32 rows; a cluster of Cr CTAs takes Cr
-//   adjacent row tiles of one lane.  Per RB-row tile an mm step
-//   [RB, 256] @ [256, 256] does 2 RB 65,536 flops against 256 KB of weights,
-//   and a launch at order 2 does 1.04e11 flops: 1.56 ms at 67 TFLOP/s, so it
-//   is bound by operations once the weights stop costing more than that.
+//   every column of RB = 8, 16 or 32 rows; a cluster of Cr = 2 CTAs (1
+//   where a lane has one tile) takes Cr adjacent row tiles of one lane.  Per
+//   RB-row tile an mm step [RB, 256] @ [256, 256] does 2 RB 65,536 flops
+//   against 256 KB of weights, and a launch at order 2 does 1.04e11 flops:
+//   1.56 ms at 67 TFLOP/s, so it is bound by operations once the weights
+//   stop costing more than that.
 //   Read from L2 by every 8-row tile, the weights alone would move 26 GB
 //   per launch, and a thread holding 8 rows x 1 column needs 12 shared-
 //   memory wavefronts per 32 FMAs.  So:
@@ -39,7 +40,7 @@
 //     each CTA runs its RB rows against it: L2 traffic falls by Cr x RB /
 //     8.  A stage completes on a full barrier per CTA (the bytes it
 //     expects); the producer refills it once every consumer warp of the
-//     cluster arrived on rank 0's empty barrier, S chunks ahead, across
+//     cluster arrived on rank 0's empty barrier, 2 chunks ahead, across
 //     chain steps.  The producer warp joins every step's barriers and does
 //     no arithmetic, so the consumers never wait on another CTA's progress
 //     except through the stage they need;
@@ -140,11 +141,11 @@ __device__ __forceinline__ int rows_ldx(int K) {
 }
 
 // A row-cluster launch: rows per CTA, CTAs per cluster, the shared-memory
-// layout (floats: partial sums, x, the ring's stages, then the workspace
-// when it is in shared memory) and where the chunk table starts in the
-// program (ints) and how many chunks it lists.
+// layout (floats: partial sums, x, the ring's RT_ROWS_STAGES stages, then
+// the workspace when it is in shared memory) and where the chunk table
+// starts in the program (ints) and how many chunks it lists.
 struct RowsLayout {
-  int rows, row_cluster, red_floats, xs_floats, stages, stage_floats;
+  int rows, row_cluster, red_floats, xs_floats, stage_floats;
   int chunk_off, n_chunks;
 };
 
@@ -152,7 +153,7 @@ struct RowsLayout {
 // order (RT_CHUNK_INTS ints each: pointer-table index, element offset from
 // the lane's tensor, rows, columns, W's row stride): rows [k, k + kr) of one
 // <= RT_ROWS_BLOCK-column block of an mm's W slice, stored [kr][columns] in
-// stage j % S of every CTA (S <= RT_MAX_STAGES).  A CTA runs RT_ROWS_CONSUMERS
+// stage j % S of every CTA (S = RT_ROWS_STAGES).  A CTA runs RT_ROWS_CONSUMERS
 // consumer threads and one producer warp, which takes part in every step's
 // barriers but in a ring step only issues copies: on rank 0, its lane 0
 // waits until every consumer warp of the cluster has released chunk j - S
@@ -162,10 +163,11 @@ struct RowsLayout {
 // for a chunk's bytes and releases it on its own, so warps drift apart by
 // up to S chunks instead of meeting at a CTA barrier.
 struct MRing {
+  static constexpr int S = RT_ROWS_STAGES;
   float* stage;
   uint64_t* full;   // S barriers: rank 0's arming arrival + the bytes
   uint64_t* empty;  // S barriers on rank 0: one arrival per consumer warp
-  int S, stage_floats, rank, csize;
+  int stage_floats, rank, csize;
   const int* chunks;
   int n_chunks;
   long long lane;
@@ -247,18 +249,6 @@ template <int RB>
 __device__ __forceinline__ void gather_rows(const Cta& c, const LaneTable& P,
                                             const int* v, int K, int ldx,
                                             float* xs) {
-  if (v[0] && v[4] == 1 && ((v[2] | v[3] | K) & 3) == 0) {
-    const int K4 = K >> 2, n4 = RB * K4;
-    const float* base = c.ws + v[1] + v[3];
-    for (int i = threadIdx.x; i < n4; i += blockDim.x) {
-      const int r = i / K4, k = 4 * (i - r * K4);
-      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (r < c.rows)
-        val = *reinterpret_cast<const float4*>(base + r * v[2] + k);
-      *reinterpret_cast<float4*>(xs + r * ldx + k) = val;
-    }
-    return;
-  }
   for (int i = threadIdx.x; i < RB * K; i += blockDim.x) {
     const int r = i / K, k = i - r * K;
     xs[r * ldx + k] = r < c.rows ? *at(c, P, v, r, k) : 0.f;
@@ -434,8 +424,8 @@ __global__ void __launch_bounds__(RT_ROWS_THREADS, kMinBlocks)
                        const float* __restrict__ fc, int n_instr, LaneTable P,
                        long long R, int ws_floats, RowsLayout L, float* gws) {
   extern __shared__ __align__(16) float smem[];
-  __shared__ __align__(8) uint64_t s_full[RT_MAX_STAGES];
-  __shared__ __align__(8) uint64_t s_empty[RT_MAX_STAGES];
+  __shared__ __align__(8) uint64_t s_full[MRing::S];
+  __shared__ __align__(8) uint64_t s_empty[MRing::S];
   cg::cluster_group cluster = cg::this_cluster();
   Cta c;
   c.rank = 0;  // column ownership: one CTA owns every column
@@ -453,7 +443,6 @@ __global__ void __launch_bounds__(RT_ROWS_THREADS, kMinBlocks)
   ring.stage = S.xs + L.xs_floats;
   ring.full = s_full;
   ring.empty = s_empty;
-  ring.S = L.stages;
   ring.stage_floats = L.stage_floats;
   ring.rank = (int)cluster.block_rank();
   ring.csize = (int)cluster.num_blocks();
@@ -466,11 +455,11 @@ __global__ void __launch_bounds__(RT_ROWS_THREADS, kMinBlocks)
     c.ws = gws + ((long long)c.lane * gridDim.x + blockIdx.x) * ws_floats;
     c.gws = c.ws;
   } else {
-    c.ws = ring.stage + (long long)L.stages * L.stage_floats;
+    c.ws = ring.stage + (long long)MRing::S * L.stage_floats;
     c.gws = nullptr;
   }
   if (threadIdx.x == 0) {
-    for (int s = 0; s < L.stages; ++s) {
+    for (int s = 0; s < MRing::S; ++s) {
       mbar_init(&s_full[s], 1);
       mbar_init(&s_empty[s], ring.csize * (RT_ROWS_CONSUMERS / 32));
     }
@@ -532,16 +521,15 @@ static RowsEntry rows_entry(int rows, size_t smem, int* slot) {
 
 static size_t rows_smem(const RowsLayout& L, int ws_floats, bool in_smem) {
   return sizeof(float) * ((size_t)L.red_floats + L.xs_floats +
-                          (size_t)L.stages * L.stage_floats +
+                          (size_t)RT_ROWS_STAGES * L.stage_floats +
                           (in_smem ? (size_t)ws_floats : 0));
 }
 
 // RT_DESIGN_INTS ints in RowsLayout's order, checked
 static bool rows_layout(const int* d, int table_ints, RowsLayout* L) {
   if (!d) return false;
-  *L = RowsLayout{d[0], d[1], d[2], d[3], d[4], d[5], d[6], d[7]};
-  return L->row_cluster >= 1 && L->row_cluster <= RT_MAX_ROW_CLUSTER &&
-         L->stages >= 1 && L->stages <= RT_MAX_STAGES &&
+  *L = RowsLayout{d[0], d[1], d[2], d[3], d[4], d[5], d[6]};
+  return L->row_cluster >= 1 && L->row_cluster <= RT_ROW_CLUSTER &&
          L->stage_floats >= 4 * RT_ROWS_BLOCK && !(L->stage_floats & 3) &&
          L->red_floats >= 0 && !(L->red_floats & 3) && L->chunk_off >= 0 &&
          L->n_chunks >= 0 && table_ints == 0;
@@ -610,7 +598,7 @@ extern "C" int rt_region(const int* prog, const float* fc, int n_instr,
 extern "C" int rt_region_max_clusters(int C, int rows, int row_cluster,
                                       long long smem) {
   if (C < 1 || C > RT_MAX_CLUSTER || smem < 0 || row_cluster < 1 ||
-      row_cluster > RT_MAX_ROW_CLUSTER)
+      row_cluster > RT_ROW_CLUSTER)
     return -(int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;

@@ -233,16 +233,16 @@ _IO = ABI["region_bwd_io_ints"]
 # the weight ring (csrc/region_steps.cuh): stages of this many floats each
 _RING_FLOATS = ABI["region_wring"] * ABI["region_wstage_floats"]
 CLUSTER_WIDTHS = (16, 8, 4, 2, 1)   # CTAs per row tile a launch may take
-# the row-cluster design (csrc/region.cu): rows per CTA it is built for, the
-# row cluster the planner takes, the smallest and largest ring stage it
-# plans (16 and 32 rows of a 256-column block) and the stages a ring may
-# have
+# the row-cluster design (csrc/region.cu): rows per CTA it is built for, its
+# row cluster (one CTA where a lane has one tile), the stages of its ring
+# and the smallest and largest stage the planner takes (16 and 32 rows of a
+# 256-column block)
 TILE_ROWS = (8, 16, 32)
 TWO_PER_SM_ROWS = (8, 16)   # tiles built to run two CTAs per SM
-ROW_CLUSTER = 2
+ROW_CLUSTER = ABI["row_cluster"]
+RING_STAGES = ABI["rows_stages"]
 STAGE_FLOATS = 4096
 MAX_STAGE_FLOATS = 8192
-MAX_STAGES = ABI["max_stages"]
 # columns of one mm column block of the row-cluster design
 _ROWS_BLOCK = ABI["rows_consumers"] // ABI["row_groups"] * ABI["col_tile"]
 _CHUNK = ABI["chunk_ints"]
@@ -298,7 +298,7 @@ class RegionProgram:
     clusters of ``row_cluster`` CTAs of ``rows`` rows each, every value
     whole (slot rows padded to ``rows_ldx(width)``, so an mm reads x in
     place; the x buffer holds only the x that cannot be), a weight ring of
-    ``stages`` stages of ``stage_floats`` floats whose chunks the table
+    ``RING_STAGES`` stages of ``stage_floats`` floats whose chunks the table
     after the opcodes lists (``chunks``), and ``red_floats`` floats of
     partial sums for the narrow mm steps."""
     prog: np.ndarray
@@ -310,7 +310,6 @@ class RegionProgram:
     xs_floats: int = 4
     rows: int = 8
     row_cluster: int = 1
-    stages: int = 2
     stage_floats: int = STAGE_FLOATS
     red_floats: int = 4
     chunk_off: int = 0
@@ -322,7 +321,7 @@ class RegionProgram:
         if self.cluster > 1:
             return 4 * (_RED_FLOATS + self.xs_floats + _RING_FLOATS)
         return 4 * (self.red_floats + self.xs_floats
-                    + self.stages * self.stage_floats)
+                    + RING_STAGES * self.stage_floats)
 
     @property
     def in_smem(self) -> bool:
@@ -363,7 +362,7 @@ class RegionProgram:
         """The row-cluster launch's layout as ``rt_region`` takes it
         (``csrc/region.cu::RowsLayout``)."""
         return (self.rows, self.row_cluster, self.red_floats, self.xs_floats,
-                self.stages, self.stage_floats, self.chunk_off, self.n_chunks)
+                self.stage_floats, self.chunk_off, self.n_chunks)
 
     def ctas(self, R: int) -> int:
         """CTAs per lane of a launch over ``R`` rows."""
@@ -399,7 +398,7 @@ class RegionProgram:
                     f"tile, {self.smem_bytes} B/CTA")
         return (f"row clusters: {self.rows} rows/CTA, Cr={self.row_cluster}, "
                 f"register tile {self.rows // ABI['row_groups']} rows x "
-                f"{ABI['col_tile']} columns, {self.stages} ring stages of "
+                f"{ABI['col_tile']} columns, {RING_STAGES} ring stages of "
                 f"{4 * self.stage_floats} B, {self.smem_bytes} B/CTA, "
                 f"{self.per_sm} CTA(s)/SM"
                 + ("" if self.in_smem else ", workspace in global memory"))
@@ -592,12 +591,12 @@ def _mm_widths(ab: _Abstract):
 @functools.lru_cache(maxsize=512)
 def lower(spec: RegionKernelSpec, stream_cols: tuple, row_cols: tuple,
           res_shapes: tuple, cluster: int = 1, rows: int = _ROWS,
-          row_cluster: int = 1, stages: int = 2,
+          row_cluster: int = 1,
           stage_floats: int = STAGE_FLOATS) -> RegionProgram:
     """Lower ``spec`` for operands of the given widths (stream inputs, rows)
     and shapes (residents), on column clusters of ``cluster`` CTAs per
     8-row tile or (``cluster`` == 1) on row clusters of ``row_cluster`` CTAs
-    of ``rows`` rows with a ring of ``stages`` x ``stage_floats``: tile
+    of ``rows`` rows with a ring of ``RING_STAGES`` x ``stage_floats``: tile
     groups unroll into per-tile instructions, concat steps into column
     copies, and every intermediate gets a workspace slot of its column
     block (``block_cols``) that is reused once the value is dead."""
@@ -605,8 +604,9 @@ def lower(spec: RegionKernelSpec, stream_cols: tuple, row_cols: tuple,
         raise ValueError(f"region: column clusters take {_ROWS}-row tiles")
     if rows not in TILE_ROWS:
         raise ValueError(f"region: {rows} rows per CTA (one of {TILE_ROWS})")
-    if not 1 <= stages <= MAX_STAGES:
-        raise ValueError(f"region: {stages} ring stages (1..{MAX_STAGES})")
+    if not 1 <= row_cluster <= ROW_CLUSTER:
+        raise ValueError(f"region: {row_cluster} CTAs per row cluster "
+                         f"(1..{ROW_CLUSTER})")
     ab = _abstract(spec, stream_cols, row_cols, res_shapes)
     instrs, width, glob = ab.instrs, ab.width, ab.glob
     nbase = len(stream_cols) + len(row_cols) + len(res_shapes)
@@ -671,7 +671,7 @@ def lower(spec: RegionKernelSpec, stream_cols: tuple, row_cols: tuple,
                          cluster=cluster,
                          xs_floats=(_round4(_ROWS * max_k) if cluster > 1
                                     else _round4(rows * rows_ldx(max_k))),
-                         rows=rows, row_cluster=row_cluster, stages=stages,
+                         rows=rows, row_cluster=row_cluster,
                          stage_floats=stage_floats, red_floats=_round4(red),
                          chunk_off=table.size + len(op_ints),
                          n_chunks=len(chunks))
@@ -897,23 +897,23 @@ def launch_cluster(n_tiles: int, fits, sms: int) -> int:
 def rows_design(spec: RegionKernelSpec, stream_cols: tuple, row_cols: tuple,
                 res_shapes: tuple, R: int) -> RegionProgram:
     """The row-cluster program for ``R`` rows per lane: two CTAs per SM
-    where the workspace of 16 (else 8) rows leaves each of them room for two
-    ring stages of at least ``STAGE_FLOATS``; else one CTA per SM with the
-    most rows (``TILE_ROWS``) that do.  The two stages are as large as fit,
+    where the workspace of 16 (else 8) rows leaves each of them room for the
+    ring's stages of at least ``STAGE_FLOATS``; else one CTA per SM with the
+    most rows (``TILE_ROWS``) that do.  The stages are as large as fit,
     up to ``MAX_STAGE_FLOATS`` (larger chunks pay the ring's per-chunk wait
     and release fewer times); clusters of ``ROW_CLUSTER`` CTAs (fewer when a
     lane has fewer tiles); 8 rows with the workspace in global memory when
     nothing fits."""
     def at(rows, stage_floats):
         return lower(spec, stream_cols, row_cols, res_shapes, 1, rows,
-                     max(1, min(ROW_CLUSTER, cdiv(R, rows))), 2,
-                     stage_floats)
+                     max(1, min(ROW_CLUSTER, cdiv(R, rows))), stage_floats)
 
     def fitted(rows, budget):
         prog = at(rows, STAGE_FLOATS)
+        ring = 4 * RING_STAGES   # bytes of the ring per float of a stage
         room = budget - 4 * prog.ws_floats - prog.staging_bytes \
-            + 8 * STAGE_FLOATS
-        stage = min(MAX_STAGE_FLOATS, room // 8 // 1024 * 1024)
+            + ring * STAGE_FLOATS
+        stage = min(MAX_STAGE_FLOATS, room // ring // 1024 * 1024)
         return at(rows, stage) if stage >= STAGE_FLOATS else None
 
     for rows, budget in [*((r, _TWO_PER_SM_BYTES)

@@ -6,7 +6,7 @@ every column of ``rows`` rows, and a cluster of ``row_cluster`` CTAs on
 adjacent row tiles of one lane shares a ring of weight chunks: rank 0 copies
 each chunk once into the same stage of every CTA.  ``_emulate_rows`` below
 runs a program lowered for that design (``lower(..., 1, rows, row_cluster,
-stages, stage_floats)``) that way: one NaN-started workspace, x buffer,
+stage_floats)``, a ring of ``RING_STAGES`` stages) that way: one NaN-started workspace, x buffer,
 partial-sum buffer and ring per CTA, CTAs past the lane's last row walking
 every step and chunk with no rows; each mm step whose weights go through the
 ring reads them only from its stage, chunk by chunk in the order the
@@ -40,9 +40,9 @@ from test_torch_region_cluster import (_close, _emulate_cluster, _fma,
 ROWS = common.ABI["region_rows"]
 BLOCK = tregion._ROWS_BLOCK
 NAMES = {i: name for name, i in tfc.OPCODES.items()}
-# (rows per CTA, CTAs per cluster, ring stages, floats per stage)
-DESIGNS = [(8, 1, 2, 1024), (16, 2, 3, 2048), (32, 4, 4, 4096),
-           (16, 3, 1, 1024)]
+STAGES = tregion.RING_STAGES
+# (rows per CTA, CTAs per cluster, floats per stage)
+DESIGNS = [(8, 1, 1024), (16, 2, 2048), (32, 2, 4096), (8, 2, 1024)]
 
 
 class _RowCta:
@@ -54,8 +54,7 @@ class _RowCta:
         self.ws = np.full(max(prog.ws_floats, 1), np.nan, np.float32)
         self.xs = np.full(prog.xs_floats, np.nan, np.float32)
         self.red = np.full(prog.red_floats, np.nan, np.float32)
-        self.stage = np.full(prog.stages * prog.stage_floats, np.nan,
-                             np.float32)
+        self.stage = np.full(STAGES * prog.stage_floats, np.nan, np.float32)
 
     def _ix(self, v, r, col):
         space, idx, ld, coff, cs = (int(a) for a in v)
@@ -170,8 +169,7 @@ def _emulate_rows(prog, tensors, R):
     """Run a row-cluster program over R rows of one lane, cluster by
     cluster; outputs are written in place."""
     flat = [t.reshape(-1) for t in tensors]
-    RB, Cr, S, SF = (prog.rows, prog.row_cluster, prog.stages,
-                     prog.stage_floats)
+    RB, Cr, S, SF = prog.rows, prog.row_cluster, STAGES, prog.stage_floats
     for first in range(0, prog.ctas(R), Cr):
         ctas = [_RowCta(prog, flat, (first + q) * RB,
                         int(np.clip(R - (first + q) * RB, 0, RB)))
@@ -296,20 +294,20 @@ def _stack(arrs, K):
 
 
 @pytest.fixture(scope="module", params=DESIGNS,
-                ids=lambda d: "rows{}-cr{}-s{}-f{}".format(*d))
+                ids=lambda d: "rows{}-cr{}-s{}-f{}".format(d[0], d[1], STAGES,
+                                                           d[2]))
 def row_runs(request, row_cases):
     """Per case and R: the plain outputs, the 8-row one-CTA emulation's and
     the row-cluster emulation's for the design, K = 2 lanes through
     lane_strides."""
-    rows_, cr, stages, sf = request.param
+    rows_, cr, sf = request.param
     K = 2
     runs = []
     for label, spec, stream, rows, res in row_cases:
         widths = _widths(stream, rows, res)
-        prog = tregion.lower(spec, *widths, 1, rows_, cr, stages, sf)
+        prog = tregion.lower(spec, *widths, 1, rows_, cr, sf)
         one = tregion.lower(spec, *widths)
-        assert (prog.rows, prog.row_cluster, prog.stages) == (rows_, cr,
-                                                               stages)
+        assert (prog.rows, prog.row_cluster) == (rows_, cr)
         for R in (5, 37):
             st = _stack([a[:R] for a in stream], K)
             rw, rs = _stack(rows, K), _stack(res, K)
@@ -343,7 +341,7 @@ def test_rows_design_matches_plain(row_runs):
 
 
 def test_rows_design_bits_equal_one_cta_tiles(row_runs):
-    """Rows per CTA, CTAs per cluster, ring stages and stage size do not
+    """Rows per CTA, CTAs per cluster and stage size do not
     enter the summation order: lane by lane the 8-row one-CTA emulation's
     outputs bit for bit."""
     for label, _, got, one in row_runs:
@@ -357,8 +355,7 @@ def test_wide_steps_take_the_ring(row_cases):
     blocks included); the hidden-32 regions have none."""
     by_label = {}
     for label, spec, stream, rows, res in row_cases:
-        prog = tregion.lower(spec, *_widths(stream, rows, res), 1, 16, 2, 2,
-                             1024)
+        prog = tregion.lower(spec, *_widths(stream, rows, res), 1, 16, 2, 1024)
         by_label.setdefault(label, []).append(prog.chunks)
     assert not any(c.size for c in by_label["h32o1"] + by_label["h32o2"])
     assert any(c.size for c in by_label["h160o1"])
@@ -398,15 +395,15 @@ def full_width_programs():
 @pytest.mark.parametrize("order", [1, 2])
 def test_stacked_fleet_takes_row_clusters(full_width_programs, order):
     """K = 8 x 8,192 rows (1,024 tiles a lane): the row-cluster design, a
-    cluster of more than one CTA, its workspace in shared memory beside at
-    least two ring stages, within the 232,448 bytes one CTA may hold with
+    cluster of more than one CTA, its workspace in shared memory beside its
+    ring, within the 232,448 bytes one CTA may hold with
     its static arrays (two CTAs per SM at order 1, whose workspace is
     smaller); and the one-CTA design's weight bytes from L2 cut by about
     Cr x rows / 8 (the narrow steps' few KB read as before)."""
     widths = full_width_programs[order]
     prog = tregion.plan_region(*widths, 8192, 8, 132)
     assert prog.cluster == 1 and prog.row_cluster > 1
-    assert prog.rows >= 16 and prog.stages >= 2 and prog.in_smem
+    assert prog.rows >= 16 and prog.in_smem
     assert prog.per_sm == (2 if order == 1 else 1)
     assert prog.smem_bytes + common.ABI["smem_dynamic_bytes"] <= 2 * 231424
     assert prog.smem_bytes <= common.ABI["smem_dynamic_bytes"]
@@ -432,8 +429,8 @@ def test_small_launches_keep_column_clusters(full_width_programs, R, lanes,
 
 def test_rows_design_rule():
     """``rows_design``: two CTAs per SM where 16 (else 8) rows leave each
-    room for two stages of at least STAGE_FLOATS, else one CTA per SM with
-    the most rows that do; the two stages as large as fit up to
+    room for the ring's stages of at least STAGE_FLOATS, else one CTA per SM
+    with the most rows that do; the stages as large as fit up to
     MAX_STAGE_FLOATS; 8 rows in global memory when nothing fits; a lane of
     one tile gets a cluster of one CTA."""
     steps = (("mm", 1, 0, 10, None, 1.0, False),
@@ -450,9 +447,27 @@ def test_rows_design_rule():
         prog = tregion.rows_design(spec, *widths, 4096)
         assert (prog.rows, prog.per_sm, prog.in_smem) == (rows, per_sm,
                                                           in_smem)
-        assert prog.row_cluster == tregion.ROW_CLUSTER and prog.stages == 2
+        assert prog.row_cluster == tregion.ROW_CLUSTER
         assert tregion.STAGE_FLOATS <= prog.stage_floats \
             <= tregion.MAX_STAGE_FLOATS
         assert prog.smem_bytes <= (two if per_sm == 2
                                    else common.ABI["smem_dynamic_bytes"])
         assert tregion.rows_design(spec, *widths, 3).row_cluster == 1
+
+
+def test_lower_takes_row_clusters_of_at_most_two():
+    """The kernel's ring serves clusters of one or ``ROW_CLUSTER`` = 2 CTAs
+    (``csrc/abi.cuh`` RT_ROW_CLUSTER): ``lower`` refuses a wider one, and
+    the launch layout it passes has ``design_ints`` ints."""
+    steps = (("mm", 1, 0, 10, None, 1.0, False),)
+    spec = tregion.RegionKernelSpec(steps=steps, stream_inputs=(0,),
+                                    residents=(10,), outputs=(1,))
+    widths = ((4,), (), ((4, 256),))
+    assert tregion.ROW_CLUSTER == 2
+    for cr in (1, 2):
+        prog = tregion.lower(spec, *widths, 1, 16, cr)
+        assert len(prog.design) == common.ABI["design_ints"]
+        assert prog.design[1] == cr
+    for cr in (0, 3):
+        with pytest.raises(ValueError, match="row cluster"):
+            tregion.lower(spec, *widths, 1, 16, cr)
