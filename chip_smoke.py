@@ -13,8 +13,11 @@ Phases (any failure exits non-zero; nothing is caught):
      kernels' SASS (cuobjdump), the row-cluster kernel's multicast bulk
      copies among them;
   3. every kernel against its plain PyTorch version on the card, at the
-     main path's shapes: fused_chain (every op, <= 1e-5 scaled; beside it
-     an empty kernel on its grid, the floor under a launch),
+     main path's shapes: fused_chain (every op, broadcast operands, 16
+     extras, a ragged [13,255] and views off 16-byte alignment, <= 1e-5
+     scaled; the wrapper's checks on CUDA operands; device and host time of
+     the path's chains with 1, 5 and 0 extras at [8,256] beside an empty
+     kernel on its grid, the floor under a launch),
      stream_matmul / siren_layer (<= 1e-4 scaled), region on every fused
      region the port plans for the full-width SIREN at orders 1-3 plus a
      column-tiled one, at R = 8 and R = 512 rows (<= 1e-4 scaled); ms per
@@ -181,7 +184,7 @@ def build_report(log, common):
             counts[fn] = collections.Counter()
         elif fn:
             for op in ("HGMMA", "HMMA", "UTMALDG", "FFMA", "LDGSTS", "UBLKCP",
-                       "LDL"):
+                       "LDL", "STL"):
                 if re.search(rf"\b{op}\b", line):
                     counts[fn][op] += 1
     pretty = demangle(list(counts))
@@ -197,6 +200,10 @@ def build_report(log, common):
             log(f"[build] SASS {pretty[fn]}: LDGSTS {c['LDGSTS']}, UBLKCP "
                 f"{c['UBLKCP']}, UTMALDG {c['UTMALDG']}, LDL {c['LDL']}, "
                 f"FFMA {c['FFMA']}")
+        elif fn.startswith("_Z18fused_chain_kernel"):
+            # the tile's cp.async staging and any local-memory traffic
+            log(f"[build] SASS {pretty[fn]}: LDGSTS {c['LDGSTS']}, LDL "
+                f"{c['LDL']}, STL {c['STL']}")
 
 
 def scaled_err(got, want):
@@ -379,35 +386,89 @@ def main() -> int:
                ("add", None), ("sub", None), ("div", None)],
               [("max", None), ("cos", None), ("min", None), ("scale", 30.0),
                ("sin", None)]]
+    # 16 binary steps (every binary op) between unary ones: the most
+    # extras a launch takes
+    chain16 = [(op, None) for op in ("mul", "add", "sub", "max", "min", "div")
+               * 3][:16]
+    chain16[4:4] = [("sin", None)]
+    chain16[10:10] = [("scale", 0.5), ("tanh", None)]
     errs = []
-    for shape in [(8, 256), (8, 2), (8, 1), (13, 256)]:
+
+    def check(x, chain, ex):
+        got = fused_chain(x, chain, ex)
+        torch.cuda.synchronize()
+        errs.append(scaled_err(got, eval_chain(x, chain, ex)))
+
+    for shape in [(8, 256), (8, 2), (8, 1), (13, 256), (13, 255)]:
         for chain in chains:
-            x = rand(*shape)
-            ex = [rand(*shape, lo=0.5, hi=1.5)
-                  for op, _ in chain if op in BINARY]
-            got = fused_chain(x, chain, ex)
-            torch.cuda.synchronize()
-            errs.append(scaled_err(got, eval_chain(x, chain, ex)))
+            check(rand(*shape), chain, [rand(*shape, lo=0.5, hi=1.5)
+                                        for op, _ in chain if op in BINARY])
         # broadcast operands, as the executor passes row-constant extras
         x, row, col = rand(*shape), rand(1, shape[1]), rand(shape[0], 1)
         got = fused_chain(x, [("mul", None), ("add", None)], [row, col])
         errs.append(scaled_err(got, x * row + col))
+        # 16 extras: full, row- and column-broadcast ones
+        check(rand(*shape), chain16,
+              [rand(*((1, shape[1]), (shape[0], 1), shape)[k % 3],
+                    lo=0.5, hi=1.5) for k in range(16)])
+    # views 4 bytes off 16-byte alignment: x contiguous, extras with an odd
+    # row stride, a row- and a column-broadcast one from strided storage
+    x = rand(8 * 256 + 1)[1:].view(8, 256)
+    check(x, [("mul", None), ("add", None), ("sub", None), ("div", None)],
+          [rand(8, 257)[:, 1:], rand(257)[1:], rand(8, 3)[:, 1:2],
+           rand(8, 257, lo=0.5, hi=1.5)[:, 1:]])
     worst = max(s for _, s in errs)
+    log(f"[kernel] fused_chain exactness: {len(errs)} checks ([8,256], "
+        f"[8,2], [8,1], [13,256], [13,255], broadcast and 16 extras, "
+        f"unaligned views): largest scaled err {worst:.3e}")
     if worst > 1e-5:
         raise AssertionError(f"fused_chain disagrees: scaled err {worst:.3e}")
-    chain = [("cos", None), ("mul", None), ("scale", 30.0)]  # the path's
-    x, e1 = rand(8, 256), rand(8, 256)
-    record("fused_chain", "src/repro_torch/kernels/csrc/fused_chain.cu",
-           "src/repro/kernels/fused_chain.py:81", errs,
-           timing(lambda: fused_chain(x, chain, [e1])),
-           timing(lambda: eval_chain(x, chain, [e1])),
-           4 * 8 * 256 * 3, 3 * 8 * 256)
-    # the floor under any launch at this grid: an empty kernel, 8 CTAs of 256
+    # the wrapper's checks on CUDA operands
+    x = rand(8, 256)
+    for exc, bad in [(ValueError, lambda: fused_chain(x, [("mul", None)])),
+                     (ValueError, lambda: fused_chain(x[None], [("sin", None)])),
+                     (ValueError, lambda: fused_chain(
+                         x, [("mul", None)] * 17, [x] * 17)),
+                     (TypeError, lambda: fused_chain(x.double(),
+                                                     [("sin", None)])),
+                     (ValueError, lambda: fused_chain(x.t(), [("sin", None)])),
+                     (TypeError, lambda: fused_chain(x, [("mul", None)],
+                                                     [x.cpu()]))]:
+        try:
+            bad()
+        except exc:
+            continue
+        raise AssertionError(f"fused_chain did not raise {exc.__name__}")
+    # device time and host time per call at [8,256], the path's chains with
+    # 1, 5 and 0 extras beside the floor under any launch on this grid: an
+    # empty kernel on the same grid and block
     floor = timing(lambda: launch_floor(x))
-    kernels["fused_chain"]["launch_floor_ms"] = floor[0]
     log(f"[kernel] launch floor: an empty kernel on fused_chain's grid for "
-        f"[8,256] (8 CTAs of 256 threads): {floor[0]:.5f} ms/launch on the "
-        f"device ({floor[1]:.5f} ms/call)")
+        f"[8,256]: {floor[0]:.5f} ms/launch on the device ({floor[1]:.5f} "
+        f"ms/call)")
+    by_chain, timed = {}, {}
+    for label, chain in [
+            ("cos·mul·scale", (("cos", None), ("mul", None), ("scale", 30.0))),
+            ("mul·mul·add·add·add·scale",
+             (("mul", None), ("mul", None), ("add", None), ("add", None),
+              ("add", None), ("scale", 0.5))),
+            ("scale", (("scale", 30.0),))]:
+        ex = [rand(8, 256) for op, _ in chain if op in BINARY]
+        t = timing(lambda: fused_chain(x, chain, ex))
+        timed[label] = chain, ex, t
+        by_chain[label] = {"extras": len(ex), "ms": t[0], "call_ms": t[1],
+                           "own_ms": t[0] - floor[0]}
+        log(f"[kernel] fused_chain {label} at [8,256] ({len(ex)} extras): "
+            f"{t[0]:.5f} ms/launch on the device, own {t[0] - floor[0]:.5f} "
+            f"ms above the floor ({t[1]:.5f} ms/call)")
+    chain, ex, t = timed["cos·mul·scale"]                 # the path's
+    record("fused_chain", "src/repro_torch/kernels/csrc/fused_chain.cu",
+           "src/repro/kernels/fused_chain.py:81", errs, t,
+           timing(lambda: eval_chain(x, chain, ex)),
+           4 * 8 * 256 * 3, 3 * 8 * 256)
+    kernels["fused_chain"].update(launch_floor_ms=floor[0],
+                                  launch_floor_call_ms=floor[1],
+                                  chains=by_chain)
 
     # -- 3b. stream_matmul / siren_layer -------------------------------------
     mm_errs = {"stream_matmul": [], "siren_layer": []}

@@ -46,7 +46,7 @@ ABI = {"region_rows": 8, "region_threads": 256, "region_instr_ints": 96,
        "region_max_cluster": 16, "row_cluster": 2,
        "rows_stages": 2, "row_groups": 4, "col_tile": 4, "chunk_ints": 5,
        "design_ints": 7, "rows_consumers": 256, "sm_smem_bytes": 233472,
-       "smem_static": 1024}
+       "smem_static": 1024, "chain_rows": 8, "chain_cols": 16}
 
 _LIB = None
 _LOCK = threading.Lock()
@@ -155,9 +155,8 @@ _VP, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 _SIGNATURES = {
     "rt_abi": ([ctypes.POINTER(_I), _I], _I),
     "rt_error_string": ([_I], ctypes.c_char_p),
-    "rt_fused_chain": ([_VP, _VP, _LL, _I, _I, _VP, _VP, _I, _VP, _VP, _VP,
-                        _VP], _I),
-    "rt_launch_floor": ([_LL, _VP], _I),
+    "rt_fused_chain": ([ctypes.c_char_p, ctypes.c_char_p, _VP], _I),
+    "rt_launch_floor": ([_I, _I, _VP], _I),
     "rt_matmul": ([_VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _I, _VP], _I),
     "rt_region": ([_VP, _VP, _I, _I, _VP, _VP, _I, _LL, _I, _I, _I, _I, _I,
                    _VP, _VP, _VP], _I),
@@ -180,6 +179,8 @@ _SIGNATURES = {
 def load_library() -> ctypes.CDLL:
     """The kernel library, built on first use and loaded once."""
     global _LIB
+    if _LIB is not None:
+        return _LIB
     with _LOCK:
         if _LIB is None:
             lib = ctypes.CDLL(str(build_library()))
@@ -206,7 +207,10 @@ def check_launch(rc: int, name: str) -> None:
 
 
 def stream_handle(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current stream of ``device`` (a CUDA device with an index), as
+    ``torch.cuda.current_stream(device).cuda_stream`` without building the
+    Stream object."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check_cuda_f32(name: str, device: torch.device, **tensors) -> None:

@@ -13,6 +13,10 @@
 #define RT_MAX_CHAIN 32         // steps of one elementwise chain
 #define RT_MAX_EXTRA 16         // streamed operands of one chain
 #define RT_BWD_IO_INTS 4        // ints per io entry of a backward program
+// fused_chain.cu: a CTA's tile of RT_CHAIN_ROWS x RT_CHAIN_COLS elements,
+// a thread each
+#define RT_CHAIN_ROWS 8
+#define RT_CHAIN_COLS 16
 // mm partial sums one region CTA keeps in shared memory
 #define RT_RED_FLOATS (RT_REGION_THREADS * RT_REGION_ROWS)
 #define RT_SMEM_BYTES 232448    // shared memory one CTA may use on Hopper

@@ -1,7 +1,8 @@
 // Hopper's asynchronous copies and the shared-memory barriers that track
-// them, shared by flash_attention_tc.cu (TMA tensor loads of Q, K, V) and
+// them, shared by flash_attention_tc.cu (TMA tensor loads of Q, K, V),
 // region.cu (bulk copies of weight chunks, multicast to the CTAs of a
-// cluster).
+// cluster), the region kernels' cp.async weight ring (region_steps.cuh) and
+// fused_chain.cu (cp.async staging of a tile's operands).
 //
 // A barrier (mbarrier) completes a phase when its pending arrivals reach
 // zero and every byte a copy announced (expect_tx) has landed; waiters name
@@ -12,6 +13,22 @@
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// cp.async: 4 or 16 bytes from global memory to shared memory, completing
+// with the thread's cp.async groups (cp.async.commit_group / wait_group)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {

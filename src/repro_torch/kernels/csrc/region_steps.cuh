@@ -139,20 +139,6 @@ __device__ __forceinline__ void owned(const Cta& c, const int* v, int cols,
 // every CTA walks its own sequence in program order.
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src)
-               : "memory");
-}
-
 // The layout of one chunk, from its instruction and phase.
 struct Chunk {
   const float* src;  // first element (row k, first column)

@@ -9,11 +9,16 @@ and binary ops against extra operands of the chain's shape:
 kernel's plain version evaluate chains through it, as the CUDA kernels share
 one ``eval_chain`` device function.  ``ChainSpec`` / ``build_chain_spec`` are
 the reference's planner half, copied as they are.
+
+The launch path is short because the main path launches ``fused_chain`` per
+8-row block, far more often than any other kernel: each distinct chain is
+encoded once (``chain_program``), and a call checks and packs only its
+tensors (``launch_args``) into one block that the C launcher reads.
 """
 
 from __future__ import annotations
 
-import ctypes
+import struct
 from dataclasses import dataclass
 
 import numpy as np
@@ -87,53 +92,134 @@ def encode_chain(chain) -> tuple[list[int], list[float]]:
     return ops, vals
 
 
-def fused_chain(x: torch.Tensor, chain, extras=()):
-    """Apply ``chain`` to ``x`` [R, C]; each extra broadcasts to ``x``'s
-    shape.  CPU tensors take the plain version; CUDA tensors the kernel."""
-    chain = tuple(chain)
+# the blocks rt_fused_chain reads (csrc/fused_chain.cu): a chain's
+# ChainProgram (steps, binary steps, opcodes, constants) and a call's
+# ChainCall (x, out, R, C, then each extra's pointer, row and column stride)
+_PROGRAM = struct.Struct(f"<ii{ABI['max_chain']}i{ABI['max_chain']}f")
+_CALLS = [struct.Struct("<QQii" + "Qqq" * n)
+          for n in range(ABI["max_extra"] + 1)]
+_MAX_PROGRAMS = 4096        # distinct chains kept; a plan has a few dozen
+
+
+@dataclass(frozen=True)
+class ChainProgram:
+    """A chain encoded for the kernel: its count of binary steps and the
+    ChainProgram block of ``csrc/fused_chain.cu`` (``encode_chain``'s
+    opcodes and baked constants)."""
+    n_bin: int
+    blob: bytes
+
+
+# step tuple -> ChainProgram; keys compare constants by value, so a chain
+# with a zero or NaN constant (0.0 == -0.0, nan != nan) is not kept
+_PROGRAMS: dict = {}
+
+
+def chain_program(chain: tuple) -> ChainProgram:
+    """``chain``'s ChainProgram, encoded once per distinct step tuple
+    (constants included); raises as ``encode_chain`` does."""
+    prog = _PROGRAMS.get(chain)
+    if prog is not None:
+        return prog
+    ops, vals = encode_chain(chain)
+    pad = ABI["max_chain"] - len(ops)
     n_bin = sum(1 for op, _ in chain if op in BINARY)
+    prog = ChainProgram(n_bin, _PROGRAM.pack(len(ops), n_bin, *ops,
+                                             *[0] * pad, *vals, *[0.0] * pad))
+    if all(v == v and v != 0.0
+           for op, v in chain if op in ("scale", "offset")):
+        if len(_PROGRAMS) >= _MAX_PROGRAMS:
+            _PROGRAMS.clear()
+        _PROGRAMS[chain] = prog
+    return prog
+
+
+def _check_arity(n_bin: int, extras) -> None:
     if n_bin != len(extras):
         raise ValueError(f"fused_chain: {n_bin} binary steps, "
                          f"{len(extras)} extras")
-    if x.device.type == "cpu":
-        return eval_chain(x.float(), chain, extras).to(x.dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_chain: unsupported device {x.device}")
+
+
+def launch_args(prog: ChainProgram, x: torch.Tensor, extras,
+                device: int) -> list:
+    """Check a launch's operands as the wrapper does for CUDA tensors on
+    the current device ``device`` (its index), and return the ChainCall
+    fields: x's pointer, 0 for out's, R, C, then each extra's pointer and
+    its strides as broadcast to ``x`` (0 where it broadcasts)."""
+    _check_arity(prog.n_bin, extras)
     if x.dim() != 2:
         raise ValueError(f"fused_chain: x must be [R, C], got {tuple(x.shape)}")
-    if len(extras) > ABI["max_extra"]:
-        raise ValueError(f"fused_chain: {len(extras)} extras exceed the "
+    if prog.n_bin > ABI["max_extra"]:
+        raise ValueError(f"fused_chain: {prog.n_bin} extras exceed the "
                          f"kernel's {ABI['max_extra']}")
-    check_cuda_f32("fused_chain", x.device, x=x)
-    views = []
+    if x.get_device() != device:
+        raise ValueError(f"fused_chain: tensors on {x.device}, current "
+                         f"device is cuda:{device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"fused_chain: x must be float32, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("fused_chain: x must be contiguous")
+    shape = x.shape
+    if shape[0] * shape[1] >= 1 << 31:
+        raise ValueError(f"fused_chain: {tuple(shape)} exceeds the kernel's "
+                         f"32-bit element index")
+    args = [x.data_ptr(), 0, shape[0], shape[1]]
     for k, e in enumerate(extras):
-        if e.device != x.device or e.dtype != torch.float32:
+        if e.get_device() != device or e.dtype != torch.float32:
             raise TypeError(f"fused_chain: extra {k} must be float32 on "
                             f"{x.device}")
-        views.append(e.expand(x.shape))       # strides 0 where broadcast
-    ops, vals = encode_chain(chain)
+        args.append(e.data_ptr())
+        args += e.stride() if e.shape == shape else _broadcast(e, shape)
+    return args
+
+
+def _broadcast(e: torch.Tensor, shape) -> tuple:
+    """``e.expand(shape).stride()`` for a 2-D ``shape`` (0 where ``e``
+    broadcasts), without building the view."""
+    d = e.dim()
+    if d == 2:
+        (n0, n1), (s0, s1) = e.shape, e.stride()
+    elif d == 1:
+        (n0, s0), (n1,), (s1,) = (1, 0), e.shape, e.stride()
+    else:
+        n0 = n1 = 1
+    m0, m1 = shape
+    if d <= 2 and n0 in (1, m0) and n1 in (1, m1):
+        return (s0 if n0 == m0 else 0), (s1 if n1 == m1 else 0)
+    return e.expand(shape).stride()           # raises as expand does
+
+
+def fused_chain(x: torch.Tensor, chain, extras=()):
+    """Apply ``chain`` to ``x`` [R, C]; each extra broadcasts to ``x``'s
+    shape.  CPU tensors take the plain version; CUDA tensors the kernel.
+    ``chain`` is best a tuple of ``(op, operand)`` tuples (``ChainSpec.steps``
+    is one): it is the key of its encoding."""
+    if type(chain) is not tuple:
+        chain = tuple(map(tuple, chain))
+    if not x.is_cuda:
+        _check_arity(sum(1 for op, _ in chain if op in BINARY), extras)
+        if x.device.type == "cpu":
+            return eval_chain(x.float(), chain, extras).to(x.dtype)
+        raise ValueError(f"fused_chain: unsupported device {x.device}")
+    prog = chain_program(chain)
+    args = launch_args(prog, x, extras, torch.cuda.current_device())
     out = torch.empty_like(x)
-    if x.numel() == 0:
+    if not args[2] * args[3]:
         return out
-    lib = load_library()
-    n = len(views)
-    rc = lib.rt_fused_chain(
-        x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], len(ops),
-        (ctypes.c_int * max(1, len(ops)))(*ops),
-        (ctypes.c_float * max(1, len(vals)))(*vals), n,
-        (ctypes.c_void_p * max(1, n))(*(v.data_ptr() for v in views)),
-        (ctypes.c_longlong * max(1, n))(*(v.stride(0) for v in views)),
-        (ctypes.c_longlong * max(1, n))(*(v.stride(1) for v in views)),
-        stream_handle(x.device))
+    args[1] = out.data_ptr()
+    rc = load_library().rt_fused_chain(prog.blob, _CALLS[prog.n_bin].pack(
+        *args), stream_handle(x.device))
     check_launch(rc, "fused_chain")
     return out
 
 
 def launch_floor(x: torch.Tensor) -> None:
-    """Launch an empty kernel on the grid ``fused_chain`` takes for ``x``
-    (CUDA): the floor under one of its launches.  Not counted."""
+    """Launch an empty kernel on the grid and block ``fused_chain`` takes
+    for ``x`` [R, C] (CUDA): the floor under one of its launches.  Not
+    counted."""
     check_cuda_f32("launch_floor", x.device, x=x)
-    rc = load_library().rt_launch_floor(x.numel(), stream_handle(x.device))
+    rc = load_library().rt_launch_floor(x.shape[0], x.shape[1],
+                                        stream_handle(x.device))
     if rc:
         raise RuntimeError(f"launch_floor: CUDA error {rc}")
 

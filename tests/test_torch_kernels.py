@@ -64,6 +64,12 @@ UNARY_OPS = ["sin", "cos", "exp", "tanh", "neg", "abs", "relu", "sigmoid",
      ("sub", None), ("div", None)],
     [("max", None), ("cos", None), ("min", None), ("scale", 30.0),
      ("sin", None)],
+    # chains of the full-width SIREN plan: fused order 3's, unfused order
+    # 3's longest, and the one chip_smoke.py times
+    [("mul", None), ("neg", None), ("mul", None)],
+    [("mul", None), ("mul", None), ("add", None), ("add", None),
+     ("add", None), ("scale", 30.0)],
+    [("cos", None), ("mul", None), ("scale", 30.0)],
 ])
 @pytest.mark.parametrize("shape", [(8, 256), (13, 2), (8, 1)])
 def test_fused_chain_plain_matches_reference(chain, shape):
