@@ -17,7 +17,8 @@ Phases (any failure exits non-zero; nothing is caught):
      extras, a ragged [13,255] and views off 16-byte alignment, <= 1e-5
      scaled; the wrapper's checks on CUDA operands; device and host time of
      the path's chains with 1, 5 and 0 extras at [8,256] beside an empty
-     kernel on its grid, the floor under a launch),
+     kernel on its grid, the floor under a launch; the host time of the
+     5 extras' strides, their own against ``expand``'s),
      stream_matmul / siren_layer (<= 1e-4 scaled), region on every fused
      region the port plans for the full-width SIREN at orders 1-3 plus a
      column-tiled one, at R = 8 and R = 512 rows (<= 1e-4 scaled); ms per
@@ -231,8 +232,9 @@ def main() -> int:
     from repro_torch.core.pipeline import compile_gradient
     from repro_torch.inr.siren import siren_fn, siren_init
     from repro_torch.kernels import common
-    from repro_torch.kernels.fused_chain import (BINARY, eval_chain,
-                                                 fused_chain, launch_floor)
+    from repro_torch.kernels.fused_chain import (BINARY, chain_program,
+                                                 eval_chain, fused_chain,
+                                                 launch_floor)
     from repro_torch.kernels.region import (RegionKernelSpec, lower,
                                            plan_region, plan_region_bwd,
                                            region_call, region_call_plain,
@@ -453,8 +455,11 @@ def main() -> int:
              (("mul", None), ("mul", None), ("add", None), ("add", None),
               ("add", None), ("scale", 0.5))),
             ("scale", (("scale", 30.0),))]:
+        # full [8,256] extras, as the SIREN plans pass every extra; the
+        # chain encoded once, as the executor passes ChainSpec.program
         ex = [rand(8, 256) for op, _ in chain if op in BINARY]
-        t = timing(lambda: fused_chain(x, chain, ex))
+        prog = chain_program(chain)
+        t = timing(lambda: fused_chain(x, prog, ex))
         timed[label] = chain, ex, t
         by_chain[label] = {"extras": len(ex), "ms": t[0], "call_ms": t[1],
                            "own_ms": t[0] - floor[0]}
@@ -466,9 +471,23 @@ def main() -> int:
            "src/repro/kernels/fused_chain.py:81", errs, t,
            timing(lambda: eval_chain(x, chain, ex)),
            4 * 8 * 256 * 3, 3 * 8 * 256)
+    # host time of the broadcast strides launch_args packs for the 5
+    # extras: their own strides (an extra of x's shape) against expand's
+    ex = timed["mul·mul·add·add·add·scale"][1]
+    strides_us = {}
+    for label, fn in [("stride", lambda: [e.stride() for e in ex]),
+                      ("expand", lambda: [e.expand(x.shape).stride()
+                                          for e in ex])]:
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            fn()
+        strides_us[label] = (time.perf_counter() - t0) / 2000 * 1e6
+    log(f"[host] strides of 5 [8,256] extras: own {strides_us['stride']:.3f} "
+        f"us, by expand {strides_us['expand']:.3f} us")
     kernels["fused_chain"].update(launch_floor_ms=floor[0],
                                   launch_floor_call_ms=floor[1],
-                                  chains=by_chain)
+                                  chains=by_chain, strides_us=strides_us)
 
     # -- 3b. stream_matmul / siren_layer -------------------------------------
     mm_errs = {"stream_matmul": [], "siren_layer": []}

@@ -266,7 +266,7 @@ def _run_segment(plan: SegmentPlan, seg, kernel: str, env, res_env,
         spec = seg.meta["chain"]
         x = val(spec.x)
         extras = [val(e) for e in spec.extras]
-        return fused_chain(x, spec.steps, extras)
+        return fused_chain(x, spec.program, extras)
 
     # reference fallback: interpret the segment node by node
     local: dict[int, torch.Tensor] = {}

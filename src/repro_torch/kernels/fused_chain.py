@@ -11,15 +11,17 @@ one ``eval_chain`` device function.  ``ChainSpec`` / ``build_chain_spec`` are
 the reference's planner half, copied as they are.
 
 The launch path is short because the main path launches ``fused_chain`` per
-8-row block, far more often than any other kernel: each distinct chain is
-encoded once (``chain_program``), and a call checks and packs only its
-tensors (``launch_args``) into one block that the C launcher reads.
+8-row block, far more often than any other kernel: a plan segment's chain is
+encoded once (``ChainSpec.program``, made by ``chain_program``), and a call
+checks and packs only its tensors (``launch_args``) into one block that the
+C launcher reads.
 """
 
 from __future__ import annotations
 
 import struct
 from dataclasses import dataclass
+from functools import cached_property
 
 import numpy as np
 import torch
@@ -98,40 +100,27 @@ def encode_chain(chain) -> tuple[list[int], list[float]]:
 _PROGRAM = struct.Struct(f"<ii{ABI['max_chain']}i{ABI['max_chain']}f")
 _CALLS = [struct.Struct("<QQii" + "Qqq" * n)
           for n in range(ABI["max_extra"] + 1)]
-_MAX_PROGRAMS = 4096        # distinct chains kept; a plan has a few dozen
 
 
 @dataclass(frozen=True)
 class ChainProgram:
-    """A chain encoded for the kernel: its count of binary steps and the
-    ChainProgram block of ``csrc/fused_chain.cu`` (``encode_chain``'s
+    """A chain encoded for the kernel: its steps, its count of binary steps
+    and the ChainProgram block of ``csrc/fused_chain.cu`` (``encode_chain``'s
     opcodes and baked constants)."""
+    steps: tuple
     n_bin: int
     blob: bytes
 
 
-# step tuple -> ChainProgram; keys compare constants by value, so a chain
-# with a zero or NaN constant (0.0 == -0.0, nan != nan) is not kept
-_PROGRAMS: dict = {}
-
-
-def chain_program(chain: tuple) -> ChainProgram:
-    """``chain``'s ChainProgram, encoded once per distinct step tuple
-    (constants included); raises as ``encode_chain`` does."""
-    prog = _PROGRAMS.get(chain)
-    if prog is not None:
-        return prog
-    ops, vals = encode_chain(chain)
+def chain_program(chain) -> ChainProgram:
+    """Encode ``chain`` for the kernel; raises as ``encode_chain`` does.
+    ``ChainSpec.program`` keeps one per plan segment."""
+    steps = tuple(map(tuple, chain))
+    ops, vals = encode_chain(steps)
     pad = ABI["max_chain"] - len(ops)
-    n_bin = sum(1 for op, _ in chain if op in BINARY)
-    prog = ChainProgram(n_bin, _PROGRAM.pack(len(ops), n_bin, *ops,
-                                             *[0] * pad, *vals, *[0.0] * pad))
-    if all(v == v and v != 0.0
-           for op, v in chain if op in ("scale", "offset")):
-        if len(_PROGRAMS) >= _MAX_PROGRAMS:
-            _PROGRAMS.clear()
-        _PROGRAMS[chain] = prog
-    return prog
+    n_bin = sum(1 for op, _ in steps if op in BINARY)
+    return ChainProgram(steps, n_bin, _PROGRAM.pack(
+        len(ops), n_bin, *ops, *[0] * pad, *vals, *[0.0] * pad))
 
 
 def _check_arity(n_bin: int, extras) -> None:
@@ -169,39 +158,27 @@ def launch_args(prog: ChainProgram, x: torch.Tensor, extras,
             raise TypeError(f"fused_chain: extra {k} must be float32 on "
                             f"{x.device}")
         args.append(e.data_ptr())
-        args += e.stride() if e.shape == shape else _broadcast(e, shape)
+        # an extra of x's shape (every extra of the SIREN plans) has its own
+        # strides; expand, which costs more host time, only for the others
+        args += e.stride() if e.shape == shape else e.expand(shape).stride()
     return args
-
-
-def _broadcast(e: torch.Tensor, shape) -> tuple:
-    """``e.expand(shape).stride()`` for a 2-D ``shape`` (0 where ``e``
-    broadcasts), without building the view."""
-    d = e.dim()
-    if d == 2:
-        (n0, n1), (s0, s1) = e.shape, e.stride()
-    elif d == 1:
-        (n0, s0), (n1,), (s1,) = (1, 0), e.shape, e.stride()
-    else:
-        n0 = n1 = 1
-    m0, m1 = shape
-    if d <= 2 and n0 in (1, m0) and n1 in (1, m1):
-        return (s0 if n0 == m0 else 0), (s1 if n1 == m1 else 0)
-    return e.expand(shape).stride()           # raises as expand does
 
 
 def fused_chain(x: torch.Tensor, chain, extras=()):
     """Apply ``chain`` to ``x`` [R, C]; each extra broadcasts to ``x``'s
-    shape.  CPU tensors take the plain version; CUDA tensors the kernel.
-    ``chain`` is best a tuple of ``(op, operand)`` tuples (``ChainSpec.steps``
-    is one): it is the key of its encoding."""
-    if type(chain) is not tuple:
-        chain = tuple(map(tuple, chain))
+    shape.  ``chain`` is a list of ``(op, operand)`` steps, or a
+    ``ChainProgram`` (the executor passes ``ChainSpec.program``), which
+    spares encoding it on every call.  CPU tensors take the plain version;
+    CUDA tensors the kernel."""
+    prog = chain if type(chain) is ChainProgram else None
     if not x.is_cuda:
-        _check_arity(sum(1 for op, _ in chain if op in BINARY), extras)
+        steps = chain if prog is None else prog.steps
+        _check_arity(sum(1 for op, _ in steps if op in BINARY), extras)
         if x.device.type == "cpu":
-            return eval_chain(x.float(), chain, extras).to(x.dtype)
+            return eval_chain(x.float(), steps, extras).to(x.dtype)
         raise ValueError(f"fused_chain: unsupported device {x.device}")
-    prog = chain_program(chain)
+    if prog is None:
+        prog = chain_program(chain)
     args = launch_args(prog, x, extras, torch.cuda.current_device())
     out = torch.empty_like(x)
     if not args[2] * args[3]:
@@ -247,6 +224,12 @@ class ChainSpec:
     x: int
     steps: tuple
     extras: tuple[int, ...]
+
+    @cached_property
+    def program(self) -> ChainProgram:
+        """``steps`` encoded for the kernel, once per spec (not in the
+        reference: the executor launches a segment once per block)."""
+        return chain_program(self.steps)
 
 
 def _scalar_const(g, nid):

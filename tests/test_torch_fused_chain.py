@@ -13,10 +13,12 @@ filled itself, and every output element is written exactly once.  The
 values the threads read, gathered into tensors, must give ``eval_chain``'s
 result with ``torch.equal``.
 
-The launch path encodes each chain once (``chain_program``) and packs only a
-call's tensors (``launch_args``); the encoding must be ``encode_chain``'s,
-chains with different constants must not share it, and the wrapper's checks
-must raise as they always have.
+The launch path encodes a plan segment's chain once (``ChainSpec.program``,
+made by ``chain_program``) and packs only a call's tensors (``launch_args``);
+the encoding must be ``encode_chain``'s, chains with different constants must
+not share it, the executor must pass it, and the wrapper's checks must raise
+as they always have.  The SIREN plans' chains at order 3 take only extras of
+x's shape, the case ``chip_smoke.py`` times.
 """
 
 import math
@@ -48,7 +50,7 @@ def _emulate(chain, x, extras):
     """Run the kernel's tile map on CPU tensors; returns the output, the
     storage elements each operand was read from and the values the chain
     read, gathered."""
-    prog = tfc.chain_program(tuple(chain))
+    prog = tfc.chain_program(chain)
     args = tfc.launch_args(prog, x, extras, -1)
     R, C = args[2], args[3]
     views = [x] + [e.expand(x.shape) for e in extras]
@@ -155,6 +157,10 @@ def test_tile_map_stages_and_writes_every_element_once(shape, n_extra):
     ("row", True, (8, 256)),
     ("col", False, (13, 255)),    # column broadcast: column stride 0
     ("scalar", False, (8, 256)),  # both strides 0
+    ("scalar", False, (8, 1)),    # a 0-d extra where x has a size-1 dim
+    ("scalar", False, (1, 256)),
+    ("vector", False, (8, 256)),  # a 1-d extra: row broadcast
+    ("vector", False, (1, 1)),
 ])
 def test_broadcast_extra_is_read_through_stride_zero(kind, offset, shape):
     """Each thread copies its own element of an extra through the extra's
@@ -165,6 +171,8 @@ def test_broadcast_extra_is_read_through_stride_zero(kind, offset, shape):
     x = torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32))
     if kind == "scalar":
         e = torch.from_numpy(rng.uniform(0.5, 1.5, ()).astype(np.float32))
+    elif kind == "vector":
+        e = torch.from_numpy(rng.uniform(0.5, 1.5, C).astype(np.float32))
     else:
         e = _operand(rng, kind, R, C, offset)
     got, sources, _ = _emulate([("mul", None)], x, [e])
@@ -173,7 +181,7 @@ def test_broadcast_extra_is_read_through_stride_zero(kind, offset, shape):
     if kind == "full":
         want = {base + r * st[0] + c * st[1] for r in range(R)
                 for c in range(C)}
-    elif kind == "row":
+    elif kind in ("row", "vector"):
         want = {base + c * st[-1] for c in range(C)}
     elif kind == "col":
         want = {base + r * st[0] for r in range(R)}
@@ -207,23 +215,44 @@ def test_chain_program_is_encode_chain(chain):
     assert (n_ops, got_ops) == (len(ops), ops)
     assert got_vals == [float(np.float32(v)) for v in vals]
     assert n_bin == prog.n_bin == sum(op in tfc.BINARY for op, _ in chain)
-    assert tfc.chain_program(chain) is prog            # encoded once
+    assert prog.steps == chain
+    spec = tfc.ChainSpec(x=0, steps=chain, extras=tuple(range(n_bin)))
+    assert spec.program is spec.program                # encoded once
+    assert spec.program == prog
+
+
+def _spec(*steps):
+    return tfc.ChainSpec(x=0, steps=steps, extras=())
 
 
 def test_chain_program_keeps_constants_apart():
-    a = tfc.chain_program((("scale", 30.0),))
-    b = tfc.chain_program((("scale", 0.5),))
-    assert _unpack(a.blob)[3] == [30.0] and _unpack(b.blob)[3] == [0.5]
-    assert tfc.chain_program((("scale", 30.0),)) is a
-    # 0.0 == -0.0 and nan != nan as keys: such chains are encoded per call
-    pos = tfc.chain_program((("scale", 0.0),))
-    neg = tfc.chain_program((("scale", -0.0),))
-    assert math.copysign(1, _unpack(neg.blob)[3][0]) == -1
-    assert math.copysign(1, _unpack(pos.blob)[3][0]) == 1
-    nan = tfc.chain_program((("offset", math.nan),))
-    assert math.isnan(_unpack(nan.blob)[3][0])
-    for key in [(("scale", 0.0),), (("offset", math.nan),)]:
-        assert key not in tfc._PROGRAMS
+    a, b = _spec(("scale", 30.0)), _spec(("scale", 0.5))
+    assert _unpack(a.program.blob)[3] == [30.0]
+    assert _unpack(b.program.blob)[3] == [0.5]
+    # specs equal as values (0.0 == -0.0) keep programs of their own
+    pos, neg = _spec(("scale", 0.0)), _spec(("scale", -0.0))
+    assert pos == neg
+    assert math.copysign(1, _unpack(neg.program.blob)[3][0]) == -1
+    assert math.copysign(1, _unpack(pos.program.blob)[3][0]) == 1
+    nan = _spec(("offset", math.nan))
+    assert math.isnan(_unpack(nan.program.blob)[3][0])
+    assert nan.program is nan.program
+
+
+def test_chain_of_lists_encodes_as_tuples():
+    """A chain given as a list, or a tuple of lists, encodes as its tuple
+    and runs as it on the CPU."""
+    chain = (("cos", None), ("mul", None), ("scale", 30.0))
+    lists = tuple(list(step) for step in chain)
+    for c in (lists, list(lists)):
+        prog = tfc.chain_program(c)
+        assert prog == tfc.chain_program(chain) and prog.steps == chain
+    rng = np.random.default_rng(3)
+    x, e = (torch.from_numpy(rng.uniform(-1, 1, (8, 16)).astype(np.float32))
+            for _ in range(2))
+    want = tfc.eval_chain(x, chain, [e])
+    for c in (lists, list(lists), tfc.chain_program(chain)):
+        assert torch.equal(tfc.fused_chain(x, c, [e]), want)
 
 
 @pytest.mark.parametrize("chain", [
@@ -281,3 +310,44 @@ def test_wrapper_errors_on_the_cpu_path():
         tfc.fused_chain(x.to("meta"), [("sin", None)])
     with pytest.raises(ValueError, match="unknown op"):
         tfc.fused_chain(x, [("tan", None)])
+
+
+@pytest.mark.parametrize("fuse", [True, False], ids=["fused", "unfused"])
+def test_order3_plan_passes_programs_and_full_block_extras(fuse,
+                                                          monkeypatch):
+    """The full-width SIREN at order 3: the executor passes each segment's
+    ``ChainSpec.program``, and every extra is a contiguous tensor of x's
+    [8, 256] block, so the chains ``chip_smoke.py`` times at [8,256] with
+    full extras are the path's own (fused: ``mul·neg·mul``, ``mul·mul``;
+    unfused also ``mul·mul·add·add·add·scale``)."""
+    from repro_torch.configs.siren import SirenConfig
+    from repro_torch.core.config import HardwareConfig
+    from repro_torch.core.pipeline import compile_gradient
+    from repro_torch.inr.siren import siren_fn, siren_init
+
+    seen = {}
+    run = tfc.fused_chain
+
+    def spy(x, chain, extras=()):
+        assert type(chain) is tfc.ChainProgram
+        assert x.shape == (8, 256) and x.is_contiguous()
+        for e in extras:
+            assert e.shape == x.shape and e.is_contiguous()
+        name = "·".join(op for op, _ in chain.steps)
+        seen[name] = len(extras)
+        return run(x, chain, extras)
+
+    monkeypatch.setattr(tfc, "fused_chain", spy)
+    cfg = SirenConfig()
+    f = siren_fn(cfg, siren_init(cfg, torch.Generator().manual_seed(0),
+                                 device="cpu"))
+    coords = torch.from_numpy(np.random.default_rng(0).uniform(
+        -1, 1, (cfg.batch, 2)).astype(np.float32))
+    cg = compile_gradient(f, 3, coords, device="cpu",
+                          config=HardwareConfig(use_pallas=True,
+                                                fuse_regions=fuse))
+    cg.apply_batched(coords[:8])
+    assert seen["mul·neg·mul"] == seen["mul·mul"] == 2
+    if not fuse:
+        assert seen["mul·mul·add·add·add·scale"] == 5
+        assert max(seen.values()) == 5
