@@ -27,7 +27,12 @@ Phases (any failure exits non-zero; nothing is caught):
   4. the main path: ``compile_gradient`` -> ``apply_batched`` on the
      full-width SIREN (random weights from a seeded generator) at orders
      1-3, fused on a 256 x 256 grid and unfused on a 64 x 64 grid, every
-     output held to a float64 torch.autograd oracle (<= 1e-4 of max|oracle|);
+     output held to a float64 torch.autograd oracle (<= 1e-4 of
+     max|oracle|), one 512-row chunk launching each unit of the plan once;
+     then, uncounted, two chunks, all 4,096 rows and every unit alone held
+     torch.equal to the per-block walk (``apply_block`` on every 8-row
+     block), µs per row and busy share of both on 4,096 rows, and one
+     reading of the fused path with the 65,536-row grid as one chunk;
   5. multi-INR serving at full width with K = 8 SIRENs (lane 0 is phase
      4's weights): region_call_stacked on the real regions of orders 1-2
      against its plain version (<= 1e-4 scaled) and, with torch.equal,
@@ -39,20 +44,25 @@ Phases (any failure exits non-zero; nothing is caught):
      plain version; MultiINRArtifact's
      stacked path (orders 1-2, broadcast and per-lane coordinates, N =
      8,192 rows per lane and a ragged N) and per-lane path (order 3, N =
-     1,024), every lane held to its float64 oracle; the ServingEngine
+     1,024, one chunk launching each unit once per lane), every lane held
+     to its float64 oracle; the ServingEngine
      (order 2: grouping, a zero-row request, a K = 1 non-base weight id,
      stats) and a fresh engine restored from an ArtifactStore by
-     signature alone (no tracer call, outputs torch.equal);
+     signature alone (no tracer call, outputs torch.equal); then,
+     uncounted, the per-lane lanes torch.equal to its per-block walk,
+     both timed;
   6. streamed fitting at full width (phase 4's weights): region_bwd on the
      real regions of orders 1-2 and a column-tiled one, at the fit path's
      R = 8 and at R = 1,000 (many CTAs, a ragged tile, the partial
      reduction), against its plain version (<= 1e-4 scaled); compile_fit
      -> value_and_grad at order 1 (GradMSE) and 2 (LaplacianMSE) on N =
      4,096 rows against a float64 whole-grid torch.autograd oracle (loss
-     and every leaf gradient <= 1e-4 scaled); fit at order 2 (3 steps of
+     and every leaf gradient <= 1e-4 scaled), one chunk launching one
+     region and one region_bwd a region unit; fit at order 2 (3 steps of
      1,024-row chunks) -> ArtifactStore -> a fresh ServingEngine, within
      1e-4 of compile_gradient of the fitted weights; fit_many with K = 2
-     lanes, each torch.equal to fit;
+     lanes, each torch.equal to fit; then, uncounted, µs per fitted row and
+     busy share beside the per-block fit (chunk_blocks = 1);
   7. LM serving: flash_attention against its plain version and a float64
      evaluation (sliced over heads) at the qwen3-8b prefill shape (bf16,
      causal), a gemma3-4b local layer (bf16, window 1,024, ragged length),
@@ -205,6 +215,21 @@ def build_report(log, common):
             # the tile's cp.async staging and any local-memory traffic
             log(f"[build] SASS {pretty[fn]}: LDGSTS {c['LDGSTS']}, LDL "
                 f"{c['LDL']}, STL {c['STL']}")
+
+
+def plan_launches(cg):
+    """Launches of one pass of ``cg`` over any rows: one per execution
+    unit, by the kernel its dispatch names."""
+    return collections.Counter("region" if k.startswith("region") else k
+                               for _, _, k in cg.dispatch if k != "interpret")
+
+
+def launched_by(launches, fn):
+    """The launches ``fn()`` makes, by kernel (``launches``: the wrappers'
+    counter, ``common.LAUNCHES``)."""
+    before = collections.Counter(launches)
+    fn()
+    return collections.Counter(launches) - before
 
 
 def scaled_err(got, want):
@@ -565,8 +590,8 @@ def main() -> int:
             raise AssertionError("the tight budget planned no tile group")
 
         def check(region, ops, order=order, conf=conf):
-            """The region at the main path's R = 8 and at R = 512 (the
-            chunk-wide launch of ROADMAP Queue 1 item 2), each against
+            """The region at one block's R = 8 and at R = 512 (the
+            main path's chunk-wide launch), each against
             its plain version, and the device time of one launch."""
             nonlocal timed_region
             stream, rows, res, out_info = ops
@@ -658,9 +683,12 @@ def main() -> int:
                 [c + [o] for c, o in zip(cols, outs)]
         return [torch.cat(c) for c in cols]
 
+    # the main path, counted: each order's apply_batched and one chunk
+    paths = [(fused_cfg, coords, "fused"), (unfused_cfg, coords_small,
+                                             "unfused")]
+    want_main = {}
     common.reset_launches()
-    for conf, xs, label in [(fused_cfg, coords, "fused"),
-                            (unfused_cfg, coords_small, "unfused")]:
+    for conf, xs, label in paths:
         for order in (1, 2, 3):
             cg = compile_gradient(f, order, xs[:cfg.batch], config=conf,
                                   device="cuda")
@@ -671,7 +699,7 @@ def main() -> int:
             outs = cg.apply_batched(xs)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            want = oracle(xs, order)
+            want = want_main[label, order] = oracle(xs, order)
             if len(outs) != len(want):
                 raise AssertionError(f"{len(outs)} outputs, want {len(want)}")
             errs = []
@@ -680,14 +708,12 @@ def main() -> int:
                         not bool(torch.isfinite(o).all()):
                     raise AssertionError(f"bad output {tuple(o.shape)}")
                 errs.append(scaled_err(o, w)[1])
-            # device busy share: the profiler's kernel time for one chunk,
-            # scaled to N rows, over the wall time of the timed run
+            # one chunk launches each unit of the plan once
             rows = cg.config.chunk_blocks * cg.config.block
             xc = xs[:rows].reshape(cg.config.chunk_blocks, cg.config.block,
                                    -1)
-            chunk_ms = device_ms(lambda: cg.apply_chunk(xc), 2)
-            busy = (f"{chunk_ms * xs.shape[0] / rows / (wall * 1e3):.3f}"
-                    if chunk_ms is not None else "not measured")
+            per_chunk = launched_by(common.LAUNCHES,
+                                    lambda: cg.apply_chunk(xc))
             launches = {k: v - before.get(k, 0)
                         for k, v in common.LAUNCHES.items()
                         if v - before.get(k, 0)}
@@ -699,11 +725,15 @@ def main() -> int:
                 f"fused={len(rp.fused_regions()) if rp else 0} "
                 f"wall={wall * 1e3:.1f} ms "
                 f"us_per_row={wall * 1e6 / xs.shape[0]:.3f} "
-                f"device_busy_share={busy} "
-                f"max_scaled_err={max(errs):.3e} launches={launches}")
+                f"max_scaled_err={max(errs):.3e} launches={launches} "
+                f"per {rows}-row chunk={dict(per_chunk)}")
             if max(errs) > 1e-4:
                 raise AssertionError(f"{label} order {order}: scaled err "
                                      f"{max(errs):.3e} > 1e-4")
+            if per_chunk != plan_launches(cg):
+                raise AssertionError(f"{label} order {order}: one chunk "
+                                     f"launched {dict(per_chunk)}, the plan's "
+                                     f"units {dict(plan_launches(cg))}")
             need = (["region"] + (["fused_chain"] if order == 3 else [])
                     if conf is fused_cfg else
                     ["fused_chain", "siren_layer", "stream_matmul"])
@@ -714,15 +744,109 @@ def main() -> int:
     log(f"[launches] phase 4 (compile_gradient -> apply_batched): "
         f"{launches_main}")
 
+    # chunk-wide against the per-block walk (apply_block on every 8-row
+    # block, as the port served before chunks) on the same 4,096 rows:
+    # bit for bit, unit by unit, and µs per row with the busy share
+    def per_block(cg, x):
+        b = cg.config.block
+        outs = [cg.apply_block(x[i:i + b]) for i in range(0, x.shape[0], b)]
+        return tuple(torch.cat(col) for col in zip(*outs))
+
+    def unit_equality(cg, x):
+        """Each execution unit on x's rows in one launch against the same
+        unit launched block by block on the same inputs: [units equal,
+        units] by kernel."""
+        plan, B, b = cg.plan, cg.plan.batch, cg.config.block
+        units = (cg.region_plan.units() if cg.region_plan is not None
+                 else [("seg", s) for s in plan.segments])
+        env = {plan.inputs[0]: x}
+        tally = collections.defaultdict(lambda: [0, 0])
+        for (kind, u), (_, _, kernel) in zip(units, cg.dispatch):
+            def run(e, rows):
+                if kind == "region":
+                    _run_region(plan, u, e, cg.residents, rows, B)
+                    return [e[o] for o in u.outputs]
+                return [_run_segment(plan, u, cg._decisions[u.id], e,
+                                     cg.residents, rows, B)]
+            wide = run(dict(env), x.shape[0])
+            blocks = [run({k: env[k][i:i + b] for k in u.stream_inputs}, b)
+                      for i in range(0, x.shape[0], b)]
+            name = "region" if kernel.startswith("region") else kernel
+            tally[name][0] += all(torch.equal(w, torch.cat(col))
+                                  for w, col in zip(wide, zip(*blocks)))
+            tally[name][1] += 1
+            outs = u.outputs if kind == "region" else (u.output,)
+            env.update(zip(outs, wide))
+        return dict(tally)
+
+    def reading(fn, rows):
+        """µs per row and busy share of fn() over ``rows`` rows: wall of
+        one call after a warm-up, device time of another."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        dms = device_ms(fn, 1)
+        busy = (f"{dms / (wall * 1e3):.3f}" if dms is not None
+                else "not measured")
+        return f"{wall * 1e6 / rows:.3f} us/row, busy {busy}"
+
+    for conf, xs, label in paths:
+        for order in (1, 2, 3):
+            cg = compile_gradient(f, order, xs[:cfg.batch], config=conf,
+                                  device="cuda")
+            x = xs[:4096]
+            rows = cg.config.chunk_blocks * cg.config.block
+            xc = x[:2 * rows].reshape(2, cg.config.chunk_blocks,
+                                      cg.config.block, -1)
+            chunks = [cg.apply_chunk(xc[c]) for c in range(2)]
+            walk = per_block(cg, x)
+            same = all(torch.equal(o.reshape(-1, *o.shape[2:]),
+                                   w[c * rows:(c + 1) * rows])
+                       for c in range(2) for o, w in zip(chunks[c], walk))
+            whole = all(torch.equal(a, b) for a, b in
+                        zip(cg.apply_batched(x), walk))
+            units = unit_equality(cg, x[:rows])
+            log(f"[main] {label} order {order}: two {rows}-row chunks "
+                f"torch.equal to the per-block walk: {same}, all 4096 rows: "
+                f"{whole}; units equal by kernel (equal, units): {units}")
+            log(f"[main] {label} order {order} on 4096 rows: chunk-wide "
+                f"{reading(lambda: cg.apply_batched(x), 4096)}; per-block "
+                f"walk {reading(lambda: per_block(cg, x), 4096)}")
+            if not (same and whole) or any(e != n for e, n in
+                                           units.values()):
+                raise AssertionError(f"{label} order {order}: chunk-wide "
+                                     f"differs from the per-block walk "
+                                     f"(units {units})")
+    # one launch per unit for the whole 65,536-row grid (chunk_blocks =
+    # 8,192), a reading for the dataflow model's choice of the chunk
+    wide_cfg = dataclasses.replace(fused_cfg, chunk_blocks=8192)
+    for order in (1, 2, 3):
+        cg = compile_gradient(f, order, coords[:cfg.batch], config=wide_cfg,
+                              device="cuda")
+        cg.apply_batched(coords)
+        got = launched_by(common.LAUNCHES, lambda: cg.apply_batched(coords))
+        errs = [scaled_err(o, w)[1] for o, w in
+                zip(cg.apply_batched(coords), want_main["fused", order])]
+        log(f"[main] fused order {order}, chunk_blocks=8192 (one chunk of "
+            f"{coords.shape[0]} rows): "
+            f"{reading(lambda: cg.apply_batched(coords), coords.shape[0])}; "
+            f"launches {dict(got)}; max_scaled_err {max(errs):.3e}")
+        if max(errs) > 1e-4 or got != plan_launches(cg):
+            raise AssertionError(f"chunk_blocks=8192 order {order}: err "
+                                 f"{max(errs):.3e}, launches {dict(got)}")
+
     # -- 5. multi-INR serving ------------------------------------------------
     launches_multi = multi_inr_phase(
         log, torch, dev, cfg, f, params, coords, fused_cfg, oracle,
-        scaled_err, device_ms, timing, record)
+        scaled_err, device_ms, timing, record, reading)
 
     # -- 6. streamed fitting -------------------------------------------------
     launches_fit = fit_phase(
         log, torch, dev, cfg, f, params, coords_small, fused_cfg, tiled_cfg,
-        walk_block, scaled_err, device_ms, timing, record)
+        walk_block, scaled_err, device_ms, timing, record, reading)
 
     # -- 7. LM serving --------------------------------------------------------
     launches_ops, launches_lm = lm_phase(log, torch, dev, scaled_err,
@@ -757,7 +881,7 @@ def main() -> int:
 
 
 def multi_inr_phase(log, torch, dev, cfg, f, params, coords, fused_cfg,
-                    oracle, scaled_err, device_ms, timing, record):
+                    oracle, scaled_err, device_ms, timing, record, reading):
     """Phase 5; returns the launches made while it drove the multi-INR
     paths (the kernel checks before it are not counted)."""
     from repro_torch.core import trace
@@ -860,7 +984,7 @@ def multi_inr_phase(log, torch, dev, cfg, f, params, coords, fused_cfg,
         f"{max(e for _, e in rag_errs):.3e} against the plain version, "
         f"lanes bit-equal to {K} region_call launches")
     # one lane of 65,536 rows through region_call: the many-tile shape of
-    # chunk-wide launches (ROADMAP Queue 1 item 2)
+    # one chunk of 8,192 blocks
     big = coords[:65536].contiguous()
     lane0 = ([r[0] for r in rows], [r[0] for r in res])
     got = region_call(spec, [big], *lane0, out_info)
@@ -922,16 +1046,9 @@ def multi_inr_phase(log, torch, dev, cfg, f, params, coords, fused_cfg,
                         not bool(torch.isfinite(o[k]).all()):
                     raise AssertionError(f"bad output {tuple(o.shape)}")
                 errs.append(scaled_err(o[k], w)[1])
-        # device busy share: profiler kernel time over the wall, of the
-        # whole call on the stacked path, of 8 blocks scaled to the call's
-        # rows on the per-lane path (as in phase 4)
-        if m.double_buffered:
-            busy_ms = device_ms(lambda: m.apply_batched(x), 2)
-        else:
-            rows = 8 * m.base.config.block
-            part = x[..., :rows, :]
-            part_ms = device_ms(lambda: m.apply_batched(part), 2)
-            busy_ms = part_ms * n / rows if part_ms is not None else None
+        # device busy share: profiler kernel time of the whole call over
+        # the wall
+        busy_ms = device_ms(lambda: m.apply_batched(x), 2)
         busy = (f"{busy_ms / (wall * 1e3):.3f}" if busy_ms is not None
                 else "not measured")
         path = "stacked" if m.double_buffered else "per-lane"
@@ -962,7 +1079,20 @@ def multi_inr_phase(log, torch, dev, cfg, f, params, coords, fused_cfg,
     if m3.double_buffered:
         raise AssertionError("order 3: the plan has non-region units, the "
                              "stacked path must not be taken")
-    serve_check(m3, 3, lane_coords[:, :N_LANE3], "per-lane")
+    x3 = lane_coords[:, :N_LANE3]
+    per_lane = serve_check(m3, 3, x3, "per-lane")
+    # one chunk: each unit once per lane, at the chunk's rows
+    cb, block = m3.base.config.chunk_blocks, m3.base.config.block
+    xb = x3[:, :cb * block].reshape(K, cb, block, 2).movedim(1, 0)
+    per_chunk = launched_by(common.LAUNCHES, lambda: m3.apply_chunk(xb))
+    want = collections.Counter({k: K * v for k, v in
+                                plan_launches(m3.base).items()})
+    log(f"[multi] per-lane order 3: one {cb * block}-row chunk of K={K} "
+        f"lanes launched {dict(per_chunk)} (the plan's units x K: "
+        f"{dict(want)})")
+    if per_chunk != want:
+        raise AssertionError(f"per-lane chunk launched {dict(per_chunk)}, "
+                             f"want {dict(want)}")
 
     # the engine: one signature group of 3 INRs (one named twice), a
     # zero-row request, then a K = 1 group with a non-base weight id
@@ -1014,11 +1144,34 @@ def multi_inr_phase(log, torch, dev, cfg, f, params, coords, fused_cfg,
     shutil.rmtree(store_dir, ignore_errors=True)
     launches = dict(common.LAUNCHES)
     log(f"[launches] phase 5 (multi-INR serving): {launches}")
+
+    # the per-lane path as it served before chunks (8-row blocks, lane by
+    # lane) on the same rows: bit for bit, µs per row over K·N, busy share
+    block_fn = m3.base.resident_block_fn()
+
+    def per_block(x):
+        lanes = []
+        for k, res in enumerate(m3._lane_res):
+            outs = [block_fn(res, x[k, i:i + block])
+                    for i in range(0, x.shape[1], block)]
+            lanes.append([torch.cat(col) for col in zip(*outs)])
+        return tuple(torch.stack(col) for col in zip(*lanes))
+
+    walk = per_block(x3)
+    if not all(torch.equal(a, b) for a, b in zip(per_lane, walk)):
+        raise AssertionError("per-lane chunks differ from the per-block "
+                             "walk")
+    for label, fn in [("chunk-wide", lambda: m3.apply_batched(x3)),
+                      ("per-block walk", lambda: per_block(x3))]:
+        log(f"[multi] per-lane order 3 {label}, K={K} x N={N_LANE3}: "
+            f"{reading(fn, K * N_LANE3)} (over K·N rows)")
+    log("[multi] per-lane order 3: chunk-wide lanes torch.equal to the "
+        "per-block walk")
     return launches
 
 
 def fit_phase(log, torch, dev, cfg, f, params, coords, fused_cfg, tiled_cfg,
-              walk_block, scaled_err, device_ms, timing, record):
+              walk_block, scaled_err, device_ms, timing, record, reading):
     """Phase 6; returns the launches made while it drove the fit path (the
     kernel checks before it are not counted)."""
     import dataclasses
@@ -1028,6 +1181,7 @@ def fit_phase(log, torch, dev, cfg, f, params, coords, fused_cfg, tiled_cfg,
     from repro_torch.core.pipeline import compile_gradient
     from repro_torch.fit import (GradMSE, LaplacianMSE, compile_fit, fit,
                                  fit_many)
+    from repro_torch.fit.compile import _fit_units
     from repro_torch.inr.siren import siren_fn, siren_init
     from repro_torch.kernels import common
     from repro_torch.kernels.region import (RegionKernelSpec,
@@ -1144,6 +1298,7 @@ def fit_phase(log, torch, dev, cfg, f, params, coords, fused_cfg, tiled_cfg,
 
     common.reset_launches()
     rng = np.random.default_rng(SEED)
+    fitted = []
     for order, loss in [(1, GradMSE()), (2, LaplacianMSE())]:
         target = torch.from_numpy(rng.standard_normal(
             (N, loss.target_cols(cfg.out_features, cfg.in_features))
@@ -1161,19 +1316,25 @@ def fit_phase(log, torch, dev, cfg, f, params, coords, fused_cfg, tiled_cfg,
         got = [p[k] for p in grads for k in sorted(p)]
         errs = [scaled_err(a, b)[1] for a, b in zip(got, want)]
         val_err = scaled_err(val.reshape(1), want_val.reshape(1))[1]
-        part = 512
-        part_ms = device_ms(lambda: cf.value_and_grad(
-            params, coords[:part], target[:part]), 1)
-        busy = (f"{part_ms * N / part / (wall * 1e3):.3f}"
-                if part_ms is not None else "not measured")
+        # one chunk: each region unit once forward and once backward
+        rows = cf.config.chunk_blocks * cf.config.block
+        per_chunk = launched_by(common.LAUNCHES, lambda: cf.value_and_grad(
+            params, coords[:rows], target[:rows]))
+        regions = sum(k == "region" for k, _ in _fit_units(cf.cg))
         log(f"[fit] value_and_grad order {order} {type(loss).__name__}: "
             f"N={N} {cf.describe()} loss={float(val):.6f} "
             f"(scaled err {val_err:.3e}) leaf grad scaled errs "
             f"{[f'{e:.2e}' for e in errs]} wall={wall * 1e3:.1f} ms "
-            f"us_per_row={wall * 1e6 / N:.3f} device_busy_share={busy}")
+            f"us_per_row={wall * 1e6 / N:.3f}; one {rows}-row chunk "
+            f"launched {dict(per_chunk)}")
         if max(errs + [val_err]) > 1e-4:
             raise AssertionError(f"fit order {order}: scaled err "
                                  f"{max(errs + [val_err]):.3e} > 1e-4")
+        if not (regions and per_chunk["region"] == regions
+                and per_chunk["region_bwd"] == regions):
+            raise AssertionError(f"fit order {order}: one chunk launched "
+                                 f"{dict(per_chunk)} for {regions} regions")
+        fitted.append((order, loss, target))
 
     # fit -> store -> a fresh engine serves the fitted weights
     store_dir = ROOT / "build" / "chip_smoke_fit_store"
@@ -1233,6 +1394,20 @@ def fit_phase(log, torch, dev, cfg, f, params, coords, fused_cfg, tiled_cfg,
     if not (launches.get("region") and launches.get("region_bwd")):
         raise AssertionError(f"the fit path launched {launches}, needs "
                              f"region and region_bwd")
+
+    # µs per fitted row, chunk-wide beside per-block (chunk_blocks = 1:
+    # one autograd pass, region and region_bwd per 8-row block, as the
+    # port fitted before chunks), on the same rows
+    for order, loss, target in fitted:
+        for label, conf in [("chunk-wide", fused_cfg),
+                            ("per-block", dataclasses.replace(
+                                fused_cfg, chunk_blocks=1))]:
+            cf = compile_fit(f, loss, order, coords[:cfg.batch],
+                             params=params, config=conf, device="cuda")
+            read = reading(lambda: cf.value_and_grad(params, coords, target),
+                           N)
+            log(f"[fit] value_and_grad order {order} {label} on {N} rows: "
+                f"{read}")
     return launches
 
 

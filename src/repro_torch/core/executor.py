@@ -3,8 +3,9 @@
 * ``reference_executor`` evaluates the ComputeGraph op by op in topological
   order, materializing every intermediate (the buffered execution).
 * ``_run_segment`` / ``_run_region`` execute one unit of the SegmentPlan /
-  RegionPlan on one block of rows; ``core.pipeline.CompiledGradient`` drives
-  them.  A unit dispatches to its kernel wrapper (``fused_chain``,
+  RegionPlan over the rows of one call (a block, or a chunk of
+  ``chunk_blocks`` blocks as one launch); ``core.pipeline.CompiledGradient``
+  drives them.  A unit dispatches to its kernel wrapper (``fused_chain``,
   ``stream_matmul``, ``siren_layer``, ``region``), which launches the CUDA
   kernel for CUDA tensors and runs its plain version for CPU tensors; the
   ``interpret`` decision evaluates the unit node by node.
@@ -222,23 +223,49 @@ def check_streamable(g: ComputeGraph) -> bool:
     return True
 
 
-def _resident_val(plan: SegmentPlan, res_env, i: int, block: int, B: int):
+class ResidentEnv(dict):
+    """A resident environment (node id -> tensor) that keeps, per
+    row-constant resident, the contiguous ``[rows, ...]`` block a call of
+    ``rows`` rows reads it as: built at first use for the largest row count
+    seen so far, and handed to a call of fewer rows as its leading rows.
+    An artifact sees a full chunk and remainders, so each block is built
+    about once and costs a launch no host time after that."""
+
+    def __init__(self, residents=()):
+        super().__init__(residents)
+        self._blocks: dict[int, torch.Tensor] = {}
+
+    def row_block(self, nid: int, rows: int) -> torch.Tensor:
+        """Row-constant resident ``nid`` (equal rows) as ``rows`` rows: its
+        row 0 broadcast, contiguous."""
+        have = self._blocks.get(nid)
+        if have is None or have.shape[0] < rows:
+            a = self[nid]
+            have = self._blocks[nid] = a[:1].expand(
+                rows, *a.shape[1:]).contiguous()
+        return have if have.shape[0] == rows else have[:rows]
+
+
+def _resident_val(plan: SegmentPlan, res_env: ResidentEnv, i: int, rows: int,
+                  B: int):
+    """Resident ``i`` as a call of ``rows`` rows reads it.  A row-constant
+    resident with the trace batch B as its dim 0 has equal rows, so it
+    serves any row count (a chunk may hold more rows than B) as a block of
+    its row 0.  Weights (even if dim0 == B) stay whole."""
     a = res_env[i]
-    # broadcast-row-constant residents shrink to one block; weights
-    # (even if dim0 == B) stay whole
     if i in plan.rowconst and a.dim() and a.shape[:1] == (B,):
-        a = a[:block]
+        return res_env.row_block(i, rows)
     return a
 
 
-def _run_segment(plan: SegmentPlan, seg, kernel: str, env, res_env,
-                 block: int, B: int):
-    """Execute one segment on one block; returns the segment's output."""
+def _run_segment(plan: SegmentPlan, seg, kernel: str, env,
+                 res_env: ResidentEnv, rows: int, B: int):
+    """Execute one segment on ``rows`` rows; returns the segment's output."""
     g = plan.graph
 
     def val(i):
         if i in plan.resident:
-            return _resident_val(plan, res_env, i, block, B)
+            return _resident_val(plan, res_env, i, rows, B)
         return env[i]
 
     if kernel == "stream_matmul":
@@ -274,44 +301,44 @@ def _run_segment(plan: SegmentPlan, seg, kernel: str, env, res_env,
     for nid in seg.nodes:
         n = g.nodes[nid]
         args = [local[i] if i in node_set else val(i) for i in n.inputs]
-        local[nid] = _eval_node(n, args, block_b=block,
+        local[nid] = _eval_node(n, args, block_b=rows,
                                 device=args[0].device if args else None)
     return local[seg.output]
 
 
-def _run_region(plan: SegmentPlan, region, env, res_env, block: int, B: int):
-    """Execute one FusedRegion on one block through the region kernel:
+def _run_region(plan: SegmentPlan, region, env, res_env: ResidentEnv,
+                rows: int, B: int):
+    """Execute one FusedRegion on ``rows`` rows through the region kernel:
     intermediates stay inside the launch; region outputs are assigned into
     ``env``."""
     from repro_torch.kernels.region import region_call
     outs = region_call(region.spec,
-                       *region_operands(plan, region, env, res_env, block, B))
+                       *region_operands(plan, region, env, res_env, rows, B))
     for nid, o in zip(region.outputs, outs):
         env[nid] = o
 
 
-def region_operands(plan: SegmentPlan, region, env, res_env, block: int,
-                    B: int):
-    """``(stream, rows, residents, out_info)`` of one region on one block,
-    as ``region_call`` takes them."""
+def region_operands(plan: SegmentPlan, region, env, res_env: ResidentEnv,
+                    rows: int, B: int):
+    """``(stream, rows, residents, out_info)`` of one region on ``rows``
+    rows, as ``region_call`` takes them."""
     g = plan.graph
     spec = region.spec
     stream = [env[nid] for nid in region.stream_inputs]
-    n_rows = stream[0].shape[0] if stream else block
     for nid, cols in region.broadcast_inputs:
-        a = _resident_val(plan, res_env, nid, block, B)
-        stream.append(torch.broadcast_to(a, (n_rows, cols)).contiguous())
-    rows = []
+        a = _resident_val(plan, res_env, nid, rows, B)
+        stream.append(torch.broadcast_to(a, (rows, cols)).contiguous())
+    row_ops = []
     for nid, cols in region.bcast_rows:
         # row-const resident extra: ONE [1, C] row broadcasts in the kernel
-        a = _resident_val(plan, res_env, nid, block, B)
+        a = res_env[nid]
         if a.dim() >= 2:
             a = a[:1].reshape(1, a.shape[-1])
         elif a.dim() == 1:
             a = a[None, :]
         else:
             a = a.reshape(1, 1)
-        rows.append(a)
+        row_ops.append(a)
     bias_ids = {s[4] for s in spec.steps if s[0] == "mm" and s[4] is not None}
     residents = []
     for nid in region.resident_inputs:
@@ -322,4 +349,4 @@ def region_operands(plan: SegmentPlan, region, env, res_env, block: int,
         residents.append(a)
     out_info = tuple((g.nodes[o].shape[-1], g.nodes[o].dtype)
                      for o in region.outputs)
-    return stream, rows, residents, out_info
+    return stream, row_ops, residents, out_info

@@ -8,8 +8,10 @@ paper's autograd structure (``inr.gradnet.paper_gradients`` traced by
 ``core.trace.extract_graph``), optimizes it, partitions it into segments and
 fused regions, and computes the residents (weights and every const-derived
 tensor) once on the device.  The artifact then serves any number of rows:
-``apply_batched`` pads them to a block multiple and streams them block by
-block through the region / segment kernels.
+``apply_batched`` pads them to a block multiple and streams them chunk by
+chunk: each execution unit (a fused region, or a segment) runs as one
+launch over a chunk's ``chunk_blocks · block`` rows, as the reference runs
+a chunk as one device program.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; there
 every kernel wrapper runs its plain PyTorch version.  Repeat compilations
@@ -23,9 +25,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.config import HardwareConfig, as_hardware_config
-from repro_torch.core.executor import (_eval_node, _run_region,
-                                       _run_segment, check_streamable,
-                                       const_tensor, torch_dtype)
+from repro_torch.core.executor import (ResidentEnv, _eval_node,
+                                       _run_region, _run_segment,
+                                       check_streamable, const_tensor,
+                                       torch_dtype)
 from repro_torch.core.graph import ComputeGraph
 from repro_torch.core.segment import (INTERPRET, SegmentPlan,
                                       apply_hardware_config,
@@ -46,7 +49,7 @@ class CompiledGradient:
         self.graph = graph
         self.plan = plan
         self.config = config              # resolved HardwareConfig
-        self.residents = residents        # node id -> tensor on ``device``
+        self.residents = ResidentEnv(residents)  # node id -> tensor
         self.dispatch = dispatch          # one (id, kind, kernel) per kernel
         self.device = device
         self.fn = fn
@@ -66,13 +69,15 @@ class CompiledGradient:
     # -- execution ---------------------------------------------------------
 
     def resident_block_fn(self):
-        """The per-block pipeline parameterized by its resident environment:
-        ``f(res_env, *xblk) -> streamed outs``.  With kernel dispatch and a
-        region plan, fused regions run as ONE region launch each
-        (``_run_region``); everything else runs segment by segment."""
+        """The pipeline over the rows of one call, parameterized by its
+        resident environment: ``f(res_env, *xrows) -> streamed outs`` for
+        any row count (a block, a chunk, the plan batch).  With kernel
+        dispatch and a region plan, fused regions run as ONE region launch
+        each (``_run_region``); everything else runs segment by segment,
+        one launch a segment.  ``res_env`` is a ``ResidentEnv``."""
         plan, g = self.plan, self.graph
         decisions = self._decisions
-        block, B = self.config.block, plan.batch
+        B = plan.batch
         input_nodes = [g.nodes[i] for i in plan.inputs]
         streamed_outs = self._streamed_outs
 
@@ -81,14 +86,15 @@ class CompiledGradient:
         else:
             units = [("seg", s) for s in plan.segments]
 
-        def block_fn(res_env, *xblk):
-            env = {n.id: xblk[_p(n, "idx")] for n in input_nodes}
+        def block_fn(res_env, *xrows):
+            env = {n.id: xrows[_p(n, "idx")] for n in input_nodes}
+            rows = xrows[0].shape[0]
             for kind, u in units:
                 if kind == "region":
-                    _run_region(plan, u, env, res_env, block, B)
+                    _run_region(plan, u, env, res_env, rows, B)
                 else:
                     env[u.output] = _run_segment(plan, u, decisions[u.id],
-                                                 env, res_env, block, B)
+                                                 env, res_env, rows, B)
             return tuple(env[o] for o in streamed_outs)
         return block_fn
 
@@ -98,26 +104,20 @@ class CompiledGradient:
 
     def apply_chunk(self, xchunk):
         """One CHUNK step: ``xchunk`` is [n_blocks, block, ...features];
-        returns the streamed outputs, each [n_blocks, block, ...]."""
-        per_block = [self.apply_block(xchunk[i])
-                     for i in range(xchunk.shape[0])]
-        return tuple(torch.stack(col) for col in zip(*per_block))
+        returns the streamed outputs, each [n_blocks, block, ...].  The
+        chunk's rows make ONE pass: one launch per execution unit."""
+        nb, block = xchunk.shape[:2]
+        outs = self._block_fn(self.residents,
+                              xchunk.reshape(nb * block, *xchunk.shape[2:]))
+        return tuple(o.reshape(nb, block, *o.shape[1:]) for o in outs)
 
     def apply(self, *inputs):
         """The plan-batch streaming execution: every input has the trace
-        batch; returns every graph output."""
+        batch, streamed in one pass; returns every graph output."""
         plan, g = self.plan, self.graph
-        block, B = self.config.block, plan.batch
-        n_blocks = B // block
         inputs = [torch.as_tensor(x, device=self.device) for x in inputs]
-        if self._streamed_outs:
-            per_block = [self._block_fn(self.residents,
-                                        *(x[i * block:(i + 1) * block]
-                                          for x in inputs))
-                         for i in range(n_blocks)]
-            vals = iter(torch.cat(col) for col in zip(*per_block))
-        else:
-            vals = iter(())
+        vals = iter(self._block_fn(self.residents, *inputs)
+                    if self._streamed_outs else ())
         return tuple(self.residents[o] if o in plan.resident else next(vals)
                      for o in g.outputs)
 
@@ -127,8 +127,8 @@ class CompiledGradient:
         ``coords`` is [N, ...features] for any N: the batch is padded to a
         block multiple with copies of the last row (padding never reaches
         the caller), full chunks of ``config.chunk_blocks`` blocks go
-        through ``apply_chunk``, the remainder block by block, and the
-        first N rows of each output are returned."""
+        through ``apply_chunk``, the remainder blocks as one more pass, and
+        the first N rows of each output are returned."""
         if len(self.plan.inputs) != 1:
             raise ValueError("apply_batched serves single-input (coordinate) "
                              "pipelines; use apply() for multi-input graphs")
@@ -160,8 +160,9 @@ class CompiledGradient:
                 pieces.append(tuple(
                     o.reshape(chunk_blocks * block, *o.shape[2:])
                     for o in outs))
-        for i in range(n_chunks * chunk_blocks, nb):
-            pieces.append(self.apply_block(coords[i * block:(i + 1) * block]))
+        if nb > n_chunks * chunk_blocks:
+            pieces.append(self._block_fn(
+                self.residents, coords[n_chunks * chunk_blocks * block:]))
 
         streamed = iter(torch.cat(col)[:n] if len(col) > 1 else col[0][:n]
                         for col in zip(*pieces))

@@ -1,15 +1,16 @@
 """compile_fit — the fitting half of the pipeline front door (port of
 ``repro.fit.compile``, DESIGN.md §11).
 
-Serving streams an INR's order-n gradient outputs block by block through
+Serving streams an INR's order-n gradient outputs chunk by chunk through
 the SegmentPlan / FusedRegion schedule; fitting needs ∂/∂θ of a LOSS over
-those same outputs.  ``CompiledFit`` reuses the serving artifact's block
-pipeline and accumulates the loss gradient ONLINE, one block at a time, so
-reverse mode only ever buffers ONE block's activations — peak memory
-O(block x depth) — while the summed partials match the whole-grid gradient
-up to float reassociation.
+those same outputs.  ``CompiledFit`` reuses the serving artifact's
+pipeline and accumulates the loss gradient ONLINE, one chunk of
+``chunk_blocks`` blocks at a time (one autograd pass, and one launch per
+unit and direction, a chunk), so reverse mode only ever buffers ONE
+chunk's activations — peak memory O(chunk x depth) — while the summed
+partials match the whole-grid gradient up to float reassociation.
 
-  * The per-block forward is the execution-unit walk the serving executor
+  * The per-chunk forward is the execution-unit walk the serving executor
     uses.  Segments run through the per-node interpreter (differentiable
     torch ops); fused regions run through ``kernels.region.region_grad_fn``,
     a ``torch.autograd.Function`` whose forward is ``region_call`` (the
@@ -21,11 +22,11 @@ up to float reassociation.
     buffered unit.
   * The resident environment (weights and the tensors derived from them)
     is built ONCE per call from the trainable leaves under autograd.  Each
-    block differentiates with respect to detached copies of the residents;
-    their cotangents are summed over the blocks and pulled back through the
+    chunk differentiates with respect to detached copies of the residents;
+    their cotangents are summed over the chunks and pulled back through the
     resident environment once at the end.  The reference rebuilds the
     environment inside every block's gradient instead; both give the same
-    sum up to float reassociation, and this one spends no per-block host
+    sum up to float reassociation, and this one spends no per-chunk host
     time on the rebuild.
 
 Trainable parameters are identified the ``bind_weights`` way: each Const
@@ -43,8 +44,9 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.ckpt import host_array, tree_items
-from repro_torch.core.executor import (_eval_node, _run_segment,
-                                       const_tensor, region_operands)
+from repro_torch.core.executor import (ResidentEnv, _eval_node,
+                                       _run_segment, const_tensor,
+                                       region_operands)
 from repro_torch.core.regions import (fit_backward_bytes,
                                       plan_fit_checkpoints,
                                       unit_act_row_bytes)
@@ -120,7 +122,7 @@ def match_trainable(cg, params):
 
 
 # ---------------------------------------------------------------------------
-# the differentiable block pipeline
+# the differentiable chunk pipeline
 # ---------------------------------------------------------------------------
 
 def _region_unit_fn(cg, region):
@@ -129,15 +131,14 @@ def _region_unit_fn(cg, region):
     differentiable region call."""
     from repro_torch.kernels.region import region_grad_fn
     plan, g = cg.plan, cg.graph
-    block, B = cg.config.block, plan.batch
     out_info = tuple((g.nodes[o].shape[-1], g.nodes[o].dtype)
                      for o in region.outputs)
     call = region_grad_fn(region.spec, out_info)
 
-    def run(res_env, env):
-        stream, rows, residents, _ = region_operands(plan, region, env,
-                                                     res_env, block, B)
-        outs = call(*stream, *rows, *residents)
+    def run(res_env, env, rows):
+        stream, row_ops, residents, _ = region_operands(
+            plan, region, env, res_env, rows, plan.batch)
+        outs = call(*stream, *row_ops, *residents)
         return dict(zip(region.outputs, outs))
 
     return run
@@ -147,10 +148,10 @@ def _segment_unit_fn(cg, seg):
     """One segment through the per-node interpreter — plain torch ops, so
     autograd differentiates it (the CPU/default fit path)."""
     plan = cg.plan
-    block, B = cg.config.block, plan.batch
 
-    def run(res_env, env):
-        out = _run_segment(plan, seg, INTERPRET, env, res_env, block, B)
+    def run(res_env, env, rows):
+        out = _run_segment(plan, seg, INTERPRET, env, res_env, rows,
+                           plan.batch)
         return {seg.output: out}
 
     return run
@@ -163,12 +164,13 @@ class _Recompute(torch.autograd.Function):
     backward, so the two agree bit for bit."""
 
     @staticmethod
-    def forward(ctx, fnu, res_keys, env_keys, out_keys, *flat):
-        ctx.fnu, ctx.res_keys, ctx.env_keys = fnu, res_keys, env_keys
+    def forward(ctx, fnu, rows, res_keys, env_keys, out_keys, *flat):
+        ctx.fnu, ctx.rows = fnu, rows
+        ctx.res_keys, ctx.env_keys = res_keys, env_keys
         ctx.save_for_backward(*flat)
         nr = len(res_keys)
-        out = fnu(dict(zip(res_keys, flat[:nr])),
-                  dict(zip(env_keys, flat[nr:])))
+        out = fnu(ResidentEnv(zip(res_keys, flat[:nr])),
+                  dict(zip(env_keys, flat[nr:])), rows)
         out_keys.extend(out)
         ctx.out_keys = tuple(out)
         return tuple(out.values())
@@ -179,8 +181,8 @@ class _Recompute(torch.autograd.Function):
                 for t in ctx.saved_tensors]
         nr = len(ctx.res_keys)
         with torch.enable_grad():
-            out = ctx.fnu(dict(zip(ctx.res_keys, flat[:nr])),
-                          dict(zip(ctx.env_keys, flat[nr:])))
+            out = ctx.fnu(ResidentEnv(zip(ctx.res_keys, flat[:nr])),
+                          dict(zip(ctx.env_keys, flat[nr:])), ctx.rows)
             outs = [out[k] for k in ctx.out_keys]
         want = [i for i, t in enumerate(flat) if t.requires_grad]
         pairs = [(o, c) for o, c in zip(outs, cts) if o.requires_grad]
@@ -192,25 +194,26 @@ class _Recompute(torch.autograd.Function):
                                       allow_unused=True)
             for i, gr in zip(want, got):
                 grads[i] = gr
-        return (None, None, None, None, *grads)
+        return (None, None, None, None, None, *grads)
 
 
 def _checkpointed(fnu):
-    """Gradient checkpoint cut: ``fnu(res_env, env) -> {node: tensor}`` run
-    so that only its boundary inputs are saved, its interior rebuilt on the
-    backward sweep (``_Recompute``)."""
-    def wrapped(res_env, env):
+    """Gradient checkpoint cut: ``fnu(res_env, env, rows) -> {node:
+    tensor}`` run so that only its boundary inputs are saved, its interior
+    rebuilt on the backward sweep (``_Recompute``)."""
+    def wrapped(res_env, env, rows):
         out_keys: list = []
-        outs = _Recompute.apply(fnu, tuple(res_env), tuple(env), out_keys,
-                                *res_env.values(), *env.values())
+        outs = _Recompute.apply(fnu, rows, tuple(res_env), tuple(env),
+                                out_keys, *res_env.values(), *env.values())
         return dict(zip(out_keys, outs))
 
     return wrapped
 
 
 def _make_fit_block_fn(cg, checkpoints):
-    """``f(res_env, xblk) -> streamed outs`` over the artifact's execution
-    units, with a recompute boundary around each cut unit."""
+    """``f(res_env, xrows) -> streamed outs`` over the artifact's execution
+    units for any row count, with a recompute boundary around each cut
+    unit; ``res_env`` is a ``ResidentEnv``."""
     plan, g = cg.plan, cg.graph
     units = _fit_units(cg)
     input_nodes = [g.nodes[i] for i in plan.inputs]
@@ -226,11 +229,12 @@ def _make_fit_block_fn(cg, checkpoints):
             fnu = _checkpointed(fnu)
         unit_fns.append((fnu, needs))
 
-    def block_fn(res_env, xblk):
-        env = {n.id: xblk for n in input_nodes}
+    def block_fn(res_env, xrows):
+        env = {n.id: xrows for n in input_nodes}
+        rows = xrows.shape[0]
         for fnu, needs in unit_fns:
             sub = {nid: env[nid] for nid in needs if nid in env}
-            env.update(fnu(res_env, sub))
+            env.update(fnu(res_env, sub, rows))
         return tuple(env[o] for o in streamed_outs)
 
     return block_fn
@@ -254,7 +258,7 @@ class CompiledFit:
 
     ``value_and_grad(params, coords, targets)`` returns the mean loss over
     ``coords`` and its gradient in the caller's params tree — computed
-    block by block with online accumulation, never materializing a
+    chunk by chunk with online accumulation, never materializing a
     per-grid activation tensor."""
     cg: object
     loss: Objective
@@ -321,7 +325,7 @@ class CompiledFit:
     def _res_env(self, leaves):
         """The resident environment from the trainable leaves, under
         autograd when they require grad (the MultiINRArtifact recompute)."""
-        env: dict[int, torch.Tensor] = {}
+        env = ResidentEnv()
         for nid, n in self._resident_order:
             if n.op == "Const":
                 i = self.leaf_of.get(nid)
@@ -352,9 +356,9 @@ class CompiledFit:
                 t.reshape(nb, block, cols), mask.reshape(nb, block), N)
 
     def value_and_grad(self, params, coords, targets):
-        """Mean loss over the grid and its ∂/∂params — streamed: one block
+        """Mean loss over the grid and its ∂/∂params — streamed: one chunk
         of activations live at a time, gradient partials accumulated over
-        the blocks, one normalization at the end."""
+        the chunks, one normalization at the end."""
         leaves = self.leaves_of(params)
         loss, gleaves = self._stream_vg(leaves, coords, targets)
         grads = [torch.zeros_like(l) for l in self.template_leaves]
@@ -369,9 +373,12 @@ class CompiledFit:
         return total / N, tuple(g / N for g in grads)
 
     def _sum_vg(self, leaves, xb, yb, mb):
-        """The sum over blocks of the masked row losses, and its gradient
-        per leaf (zeros for a leaf no block reads)."""
+        """The sum over blocks (``[n_blocks, block, ...]``) of the masked
+        row losses, and its gradient per leaf (zeros for a leaf no block
+        reads): one autograd pass per chunk of ``chunk_blocks`` blocks, the
+        last chunk ragged."""
         C, D = self.out_features, self.in_features
+        cb = self.config.chunk_blocks
         with torch.enable_grad():
             lv = [l.detach().requires_grad_(l.is_floating_point())
                   for l in leaves]
@@ -379,13 +386,13 @@ class CompiledFit:
             trained = [nid for nid, v in res_env.items() if v.requires_grad]
             total = torch.zeros((), dtype=torch.float32, device=self.device)
             acc: dict[int, torch.Tensor] = {}
-            for b in range(xb.shape[0]):
-                blk = dict(res_env)
+            for c in range(0, xb.shape[0], cb):
+                blk = ResidentEnv(res_env)
                 for nid in trained:
                     blk[nid] = res_env[nid].detach().requires_grad_(True)
-                outs = self._block_fn(blk, xb[b])
-                loss = torch.sum(self.loss.row_loss(outs, yb[b], C, D)
-                                 * mb[b])
+                xc, yc, mc = (t[c:c + cb].flatten(0, 1) for t in (xb, yb, mb))
+                outs = self._block_fn(blk, xc)
+                loss = torch.sum(self.loss.row_loss(outs, yc, C, D) * mc)
                 if loss.requires_grad:
                     grads = torch.autograd.grad(
                         loss, [blk[nid] for nid in trained],
@@ -409,11 +416,13 @@ class CompiledFit:
 
     # -- the memory model --------------------------------------------------
     def peak_bytes(self, n_rows: int | None = None) -> int:
-        """Modeled peak fit memory.  ``n_rows=None`` — the STREAMED path:
-        optimizer state (params, grads, Adam mu/nu) plus ONE block's
-        backward-sweep buffering under the checkpoint cuts.  With
-        ``n_rows`` — the whole-grid baseline: every unit's activations
-        buffered for EVERY row, no cuts."""
+        """Modeled peak fit memory, the reference's model.  ``n_rows=None``
+        — the STREAMED path: optimizer state (params, grads, Adam mu/nu)
+        plus ONE block's backward-sweep buffering under the checkpoint
+        cuts.  With ``n_rows`` — the whole-grid baseline: every unit's
+        activations buffered for EVERY row, no cuts.  The port's streamed
+        path holds one chunk's activations (``chunk_blocks`` blocks), not
+        one block's: the model stays the reference's per-block one."""
         plan, cfg = self.cg.plan, self.config
         units = _fit_units(self.cg)
         param_bytes = sum(l.numel() * l.element_size()

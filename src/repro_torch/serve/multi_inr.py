@@ -11,10 +11,11 @@ through the base artifact's block pipeline.
 
 Two serving paths, as in the reference:
 
-  * the PER-LANE path (the reference's ``vmap`` path): a loop over lanes and
-    8-row blocks that calls ``base.resident_block_fn()`` with lane k's
-    residents, so every region runs through ``region_call`` and every
-    singleton through ``fused_chain``.  ``torch.func.vmap`` cannot go
+  * the PER-LANE path (the reference's ``vmap`` path): a loop over lanes
+    and chunks that calls ``base.resident_block_fn()`` with lane k's
+    residents on a chunk's ``chunk_blocks · block`` rows at a time, so
+    every region runs as one ``region_call`` and every singleton as one
+    ``fused_chain`` per lane and chunk.  ``torch.func.vmap`` cannot go
     through the ctypes launch of a hand-written kernel, hence the loop.
   * the STACKED path (the reference's ``resident_double_buffer=True``,
     DESIGN.md §7): when the whole pipeline is fused regions, each region
@@ -45,7 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.ckpt import host_array, tree_items
-from repro_torch.core.executor import _eval_node, torch_dtype
+from repro_torch.core.executor import ResidentEnv, _eval_node, torch_dtype
 
 
 def pad_rows(c, n_pad: int):
@@ -161,7 +162,8 @@ class MultiINRArtifact:
         # a view of each stack (contiguous, as the kernels require)
         self.residents = {nid: torch.stack([r[nid] for r in per_inr])
                           .contiguous() for nid in per_inr[0]}
-        self._lane_res = [{nid: v[k] for nid, v in self.residents.items()}
+        self._lane_res = [ResidentEnv({nid: v[k] for nid, v in
+                                       self.residents.items()})
                           for k in range(self.n_inrs)]
         self.double_buffered = self._stacked_applicable()
         self._serve = (self._make_serve_stacked() if self.double_buffered
@@ -177,18 +179,20 @@ class MultiINRArtifact:
 
     def _make_serve(self):
         """The per-lane path: ``x`` is [K, rows, ...] (rows a block
-        multiple); each lane's rows stream block by block through the base
-        pipeline with that lane's residents.  Returns [K, rows, ...] per
-        streamed output."""
+        multiple); each lane's rows stream through the base pipeline with
+        that lane's residents, one pass (one launch per unit) for each
+        chunk of ``chunk_blocks`` blocks and one for the remainder.
+        Returns [K, rows, ...] per streamed output."""
         block_fn = self.base.resident_block_fn()
-        block = self.base.config.block
+        chunk = self.base.config.chunk_blocks * self.base.config.block
 
         def serve(x):
             lanes = []
             for k, res in enumerate(self._lane_res):
-                per_block = [block_fn(res, x[k, i:i + block])
-                             for i in range(0, x.shape[1], block)]
-                lanes.append([torch.cat(col) for col in zip(*per_block)])
+                passes = [block_fn(res, x[k, i:i + chunk])
+                          for i in range(0, x.shape[1], chunk)]
+                lanes.append([torch.cat(col) if len(col) > 1 else col[0]
+                              for col in zip(*passes)])
             return tuple(torch.stack(col) for col in zip(*lanes))
         return serve
 

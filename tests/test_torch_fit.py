@@ -176,8 +176,8 @@ def test_checkpointed_unit_backward_bitwise(siren, use_pallas):
                else FC._segment_unit_fn(cf.cg, u))
         sub = {nid: env[nid].detach().requires_grad_(True)
                for nid in u.stream_inputs if nid in env}
-        plain = fnu(res_env, sub)
-        cut = FC._checkpointed(fnu)(res_env, sub)
+        plain = fnu(res_env, sub, xb.shape[1])
+        cut = FC._checkpointed(fnu)(res_env, sub, xb.shape[1])
         for k in plain:
             assert torch.equal(plain[k], cut[k])
         keys = [k for k in plain if plain[k].requires_grad]
