@@ -79,14 +79,27 @@ Phases (any failure exits non-zero; nothing is caught):
      bf16 (B = 2, S = 4,096): prefill through the kernel (36 launches per
      prefill), 16 greedy decode steps (no launch), the "flash" prefill's
      logits beside the kernel's;
-  8. the launches of every kernel on each path, counted from 0 just before
+  8. the paper's compiler half on phase 4's SIREN: ``compile_gradient(...,
+     config="auto")`` at orders 1-2 with the measure hook (each candidate's
+     real ``apply_batched`` timed on the card; the analytic winner, every
+     timed candidate, the chosen config, both searches' seconds and
+     ``describe()``); the auto artifact on the 256 x 256 grid against the
+     float64 oracle, one chunk launching its plan's units, µs per row and
+     busy share beside the default artifact; blocks 16, 32 and 64 at
+     orders 1-2 against the float64 oracle; ``dataflow_summary`` at orders
+     1-3, fused and unfused (paper Table IV: sums of FIFO depths and
+     latencies before and after, model outputs) with the byte accounting
+     beside ``torch.cuda.max_memory_allocated`` of one 4,096-row call; an
+     auto request persisted and restored from an ArtifactStore with no
+     trace and no search;
+  9. the launches of every kernel on each path, counted from 0 just before
      the path and read just after it: phase 4 must launch region,
      fused_chain, stream_matmul and siren_layer, phase 5 region_stacked
      (stacked path) and region and fused_chain (per-lane path), phase 6
      region and region_bwd, phase 7 flash_attention (LM serving) and
-     ssd_scan (the kernel library's entry point); one JSON line of
-     per-kernel numbers;
-  9. the last line: {"ok": true, "device": {...}}.
+     ssd_scan (the kernel library's entry point), phase 8 region; one
+     JSON line of per-kernel numbers;
+  10. the last line: {"ok": true, "device": {...}}.
 
 Times: ``ms`` is the device time of one call (torch.profiler, the sum of
 the kernel records per call; for a plain version, every kernel it
@@ -852,14 +865,19 @@ def main() -> int:
     launches_ops, launches_lm = lm_phase(log, torch, dev, scaled_err,
                                          device_ms, timing, record)
 
-    # -- 8. launches ---------------------------------------------------------
+    # -- 8. the compiler half: config="auto", the dataflow model -------------
+    launches_auto = autoconfig_phase(log, torch, cfg, f, coords, fused_cfg,
+                                     unfused_cfg, want_main, scaled_err,
+                                     reading)
+
+    # -- 9. launches ---------------------------------------------------------
     # ``launches`` counts the path a kernel was ported for (phase 4's for
     # PR 11's kernels, phase 5's for region_stacked, phase 6's for
     # region_bwd, phase 7's for flash_attention and ssd_scan);
     # ``launches_by_path`` gives every path's own count.
     paths = {"compile_gradient": launches_main, "multi_inr": launches_multi,
              "fit": launches_fit, "lm_serve": launches_lm,
-             "kernel_ops": launches_ops}
+             "kernel_ops": launches_ops, "compile_auto": launches_auto}
     home = {"region_stacked": "multi_inr", "region_bwd": "fit",
             "flash_attention": "lm_serve", "ssd_scan": "kernel_ops"}
     for name, rec in kernels.items():
@@ -1710,6 +1728,208 @@ def lm_phase(log, torch, dev, scaled_err, device_ms, timing, record):
     if not launches_lm.get("flash_attention"):
         raise AssertionError(f"LM serving launched {launches_lm}")
     return launches_ops, launches_lm
+
+
+def autoconfig_phase(log, torch, cfg, f, coords, fused_cfg, unfused_cfg,
+                     want_main, scaled_err, reading):
+    """Phase 8, the paper's compiler half on the card; returns the launches
+    of its auto path alone (each order's auto compile with its measure hook
+    and the auto artifact's serving).  ``config="auto"`` at orders 1-2 (the measure hook
+    times each candidate's real ``apply_batched``), the auto artifact served
+    on the 256 x 256 grid beside the default one, the dataflow model's
+    Table IV rows and byte accounting at orders 1-3 beside the card's peak
+    memory of one served call, and a store round trip of an auto request."""
+    from repro_torch.core import pipeline as P
+    from repro_torch.core import trace
+    from repro_torch.core.autoconfig import resolve_config, result_as_dict
+    from repro_torch.core.config import DEFAULT_CONFIG
+    from repro_torch.core.executor import (buffered_peak_bytes,
+                                           buffered_total_bytes,
+                                           streaming_peak_bytes)
+    from repro_torch.core.regions import (region_hbm_bytes_per_block,
+                                          segment_hbm_bytes_per_block)
+    from repro_torch.kernels import common
+    from repro_torch.obs.metrics import counter
+    from repro_torch.obs.tracing import TRACER
+
+    t_phase = time.perf_counter()
+    base = DEFAULT_CONFIG.resolved()
+    x64 = coords[:cfg.batch]
+    # the auto path's own launches: each order's counts run from just before
+    # the auto compile (with its measure hook) to just after the auto
+    # artifact has served the grid and one chunk; the default artifact,
+    # the timings and everything after are outside these windows
+    launches = collections.Counter()
+    for order in (1, 2):
+        # the analytic search alone (the default compile before it is not
+        # timed), then the front door with the hook
+        default = P.compile_gradient(f, order, x64, device="cuda")
+        t0 = time.perf_counter()
+        analytic = resolve_config(default.graph, base=base)
+        t_analytic = time.perf_counter() - t0
+        log(f"[auto] order {order} analytic winner: "
+            f"{analytic.config.describe()}; {analytic.evaluated} candidates, "
+            f"{analytic.rejected} deadlock-rejected, predicted "
+            f"{analytic.predicted_row_cycles} row-cycles against the "
+            f"default's {analytic.baseline_row_cycles} (dataflow model); "
+            f"search {t_analytic:.2f} s")
+        TRACER.clear()
+        common.reset_launches()
+        with TRACER.enabled_scope():
+            cg = P.compile_gradient(f, order, x64, config="auto",
+                                    device="cuda")
+        outs = cg.apply_batched(coords)
+        rows = cg.config.chunk_blocks * cg.config.block
+        xc = coords[:rows].reshape(cg.config.chunk_blocks, cg.config.block,
+                                   -1)
+        per_chunk = launched_by(common.LAUNCHES, lambda: cg.apply_chunk(xc))
+        torch.cuda.synchronize()
+        window = collections.Counter(common.LAUNCHES)
+        launches += window
+        events = list(TRACER.events)
+        TRACER.clear()
+        search = [e for e in events if e.name == "compile.autoconfig"]
+        timed = [e for e in events
+                 if e.name == "compile.autoconfig.measure"]
+        for e in timed:
+            log(f"[auto] order {order} timed {e.args['config']}: "
+                f"{e.args['ms']:.4f} ms per {cfg.batch}-row apply_batched")
+        res = cg.autoconfig
+        if res is None or len(search) != 1 or not timed:
+            raise AssertionError(f"order {order}: the auto compile ran "
+                                 f"{len(search)} searches, timed "
+                                 f"{len(timed)} candidates")
+        if any(c.deadlocked for c in res.candidates if c.accepted):
+            raise AssertionError("autoconfig accepted a deadlocked config")
+        log(f"[auto] order {order} chosen: {res.config.describe()}; "
+            f"{res.evaluated} candidates, {res.rejected} deadlock-rejected, "
+            f"{len(timed)} timed; search with the measure hook "
+            f"{search[0].dur_ns / 1e9:.2f} s (timed part "
+            f"{sum(e.dur_ns for e in timed) / 1e9:.2f} s)")
+        for line in cg.describe().splitlines():
+            log(f"[auto] order {order} describe: {line}")
+
+        # the auto artifact served on the grid, beside the default
+        log(f"[launches] order {order} config='auto' (search with the "
+            f"measure hook, N={coords.shape[0]} served, one chunk): "
+            f"{dict(window)}")
+        errs = []
+        for o, w in zip(outs, want_main["fused", order]):
+            if tuple(o.shape) != tuple(w.shape) or \
+                    not bool(torch.isfinite(o).all()):
+                raise AssertionError(f"bad output {tuple(o.shape)}")
+            errs.append(scaled_err(o, w)[1])
+        same = all(torch.equal(a, b) for a, b in
+                   zip(outs, default.apply_batched(coords)))
+        log(f"[auto] order {order} served N={coords.shape[0]}: "
+            f"max_scaled_err {max(errs):.3e}; per {rows}-row chunk "
+            f"{dict(per_chunk)} (plan {dict(plan_launches(cg))}); "
+            f"torch.equal to the default artifact: {same}")
+        if max(errs) > 1e-4 or per_chunk != plan_launches(cg):
+            raise AssertionError(f"auto order {order}: err {max(errs):.3e}, "
+                                 f"launches {dict(per_chunk)}")
+        for label, art in (("auto", cg), ("default", default)):
+            log(f"[auto] order {order} {label} "
+                f"(block={art.config.block} "
+                f"chunk_blocks={art.config.chunk_blocks}): 4096 rows "
+                f"{reading(lambda: art.apply_batched(coords[:4096]), 4096)}"
+                f"; N={coords.shape[0]} "
+                + reading(lambda: art.apply_batched(coords),
+                          coords.shape[0]))
+
+    # blocks other than 8 on the serving path, against float64: every
+    # block the search may choose, at orders 1-2
+    for order in (1, 2):
+        for blk in (16, 32, 64):
+            art = P.compile_gradient(f, order, x64, device="cuda",
+                                     config=fused_cfg.replace(block=blk))
+            errs = [scaled_err(o, w)[1] for o, w in
+                    zip(art.apply_batched(coords), want_main["fused", order])]
+            log(f"[auto] order {order} block={blk}: max_scaled_err "
+                f"{max(errs):.3e}; N={coords.shape[0]} "
+                + reading(lambda: art.apply_batched(coords),
+                          coords.shape[0]))
+            if max(errs) > 1e-4:
+                raise AssertionError(f"block {blk} order {order}: err "
+                                     f"{max(errs):.3e}")
+
+    # paper Table IV (FIFO depths before / after the optimisation, in
+    # blocks of the dataflow model) and the memory accounting, beside the
+    # card's peak memory of one served 4,096-row call
+    for order in (1, 2, 3):
+        for label, conf in (("fused", fused_cfg), ("unfused", unfused_cfg)):
+            cg = P.compile_gradient(f, order, x64, config=conf,
+                                    device="cuda")
+            t0 = time.perf_counter()
+            s = cg.dataflow_summary()
+            t_sum = time.perf_counter() - t0
+            design = s["design"]
+            streamed = streaming_peak_bytes(cg.graph, design,
+                                            s["fifo"].depths_after,
+                                            plan=cg.plan)
+            rows = cg.config.chunk_blocks * cg.config.block
+            hbm = (region_hbm_bytes_per_block(cg.plan, cg.region_plan, rows)
+                   if cg.region_plan is not None else
+                   segment_hbm_bytes_per_block(cg.plan, rows))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            cg.apply_batched(coords[:4096])
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            log(f"[table4] order {order} {label}: {len(design.streams)} "
+                f"streams, sum of depths {s['sum_depths_before']} -> "
+                f"{s['sum_depths_after']} "
+                f"({s['depth_reduction'] * 100:.1f}% less), latency peak "
+                f"{s['latency_peak']}, before {s['latency_before']}, after "
+                f"{s['latency_after']} (dataflow model, block "
+                f"{cg.config.dataflow_block}); summary {t_sum:.2f} s")
+            log(f"[memory] order {order} {label}: model bytes at the trace "
+                f"batch of {cg.plan.batch} rows: buffered_total "
+                f"{buffered_total_bytes(cg.graph)}, buffered_peak "
+                f"{buffered_peak_bytes(cg.graph)}, streaming_peak "
+                f"{streamed}; modelled HBM traffic of one {rows}-row chunk "
+                f"{hbm}; "
+                f"the card, one 4096-row apply_batched: peak "
+                f"{peak} B allocated, {peak - held} B above the "
+                f"{held} B held before it")
+
+    # a store round trip of an auto request: no trace, no search
+    store_dir = ROOT / "build" / "chip_smoke_auto_store"
+    shutil.rmtree(store_dir, ignore_errors=True)
+    try:
+        P.clear_compile_cache()
+        put = P.compile_gradient(f, 1, x64, config="auto", store=store_dir,
+                                 device="cuda")
+        P.clear_compile_cache()
+        t0 = trace.TRACE_CALLS
+        s0 = counter("autoconfig_searches").value()
+        back = P.compile_gradient(f, 1, x64, config="auto", store=store_dir,
+                                  device="cuda")
+        traces = trace.TRACE_CALLS - t0
+        searches = counter("autoconfig_searches").value() - s0
+        same_record = result_as_dict(back.autoconfig) == \
+            result_as_dict(put.autoconfig)
+        same_out = all(torch.equal(a, b) for a, b in zip(
+            back.apply_batched(coords[:4096]),
+            put.apply_batched(coords[:4096])))
+        log(f"[auto] store round trip (order 1): provenance "
+            f"{back.provenance}, {traces} traces, {searches:.0f} searches, "
+            f"same result_as_dict: {same_record}, outputs torch.equal: "
+            f"{same_out}")
+        if traces or searches or not (same_record and same_out) or \
+                back.provenance != "store":
+            raise AssertionError("the auto store round trip re-traced, "
+                                 "re-searched or differs")
+    finally:
+        shutil.rmtree(store_dir, ignore_errors=True)
+    launches = dict(launches)
+    log(f"[launches] phase 8 (config='auto' at orders 1-2: the search with "
+        f"its measure hook and the auto artifact's serving): {launches}")
+    log(f"[auto] phase 8 took {time.perf_counter() - t_phase:.1f} s")
+    if not launches.get("region"):
+        raise AssertionError(f"phase 8 launched {launches}")
+    return launches
 
 
 if __name__ == "__main__":

@@ -10,6 +10,12 @@
   kernel for CUDA tensors and runs its plain version for CPU tensors; the
   ``interpret`` decision evaluates the unit node by node.
 
+``streaming_executor`` is the thin compile-or-hit wrapper over
+``core.pipeline.compile_from_graph``; ``buffered_peak_bytes``,
+``buffered_total_bytes`` and ``streaming_peak_bytes`` are the analytic
+memory accounting (the paper's Table I memory column: bytes of the
+model, not readings of the device).
+
 ``_eval_node`` keeps lax semantics (``broadcast_in_dim``, strided ``slice``,
 ``pad`` with lo/hi/interior), so it computes what the reference computes on
 the same graph.
@@ -17,11 +23,13 @@ the same graph.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.graph import ComputeGraph, Node
-from repro_torch.core.segment import SegmentPlan, classify_residents, _p
+from repro_torch.core.segment import (SegmentPlan, build_segment_plan,
+                                      classify_residents, _p)
 from repro_torch.kernels.common import fp32_strict
 
 
@@ -350,3 +358,117 @@ def region_operands(plan: SegmentPlan, region, env, res_env: ResidentEnv,
     out_info = tuple((g.nodes[o].shape[-1], g.nodes[o].dtype)
                      for o in region.outputs)
     return stream, row_ops, residents, out_info
+
+
+# per-graph compile cache for the thin wrapper below: repeat calls with the
+# same (graph, plan, HardwareConfig, device) reuse the CompiledGradient
+# artifact.  Keyed by object identity — the key holds the graph AND plan
+# objects themselves (SegmentPlan hashes by identity), never id() ints: a
+# cached entry keeps its plan alive, so a freed plan's recycled id can never
+# alias a different plan's artifact.  Mutating a graph after executing it
+# through this path is unsupported (go through
+# core.pipeline.compile_from_graph).
+_GRAPH_CACHE: dict[tuple, object] = {}
+
+
+def streaming_executor(g: ComputeGraph, block: int | None = None, *,
+                       plan: SegmentPlan | None = None,
+                       use_pallas: bool | None = None,
+                       dispatch_log: list | None = None,
+                       config=None, device=None):
+    """Returns f(*inputs) that executes the SegmentPlan as a block pipeline.
+
+    Thin wrapper over the compile-once / serve-many layer: the graph is
+    compiled into a ``core.pipeline.CompiledGradient`` on ``device`` (CUDA
+    unless the caller passes "cpu") — residents computed once — or fetched
+    from the per-graph cache, and the artifact's ``apply`` is returned.
+
+    Hardware parameters come from ``config`` (a ``HardwareConfig``); the
+    ``block`` / ``use_pallas`` kwargs are conveniences folded into it.
+    ``dispatch_log``, if given, receives one ``(id, kind, kernel)`` entry
+    per kernel invocation of a pass: with ``config.fuse_regions`` (the
+    default) and kernel dispatch on, a fused region logs a single
+    ``(region id, "FusedRegion", "region[...]")`` entry and every other
+    segment its ``(segment id, kind, kernel)``; with ``use_pallas=False``
+    the log is per-segment ``interpret`` entries."""
+    from repro_torch.core.config import as_hardware_config
+    from repro_torch.core.pipeline import compile_from_graph
+    from repro_torch.kernels.common import resolve_device
+    from repro_torch.obs.metrics import counter
+
+    device = resolve_device(device)
+    cfg = as_hardware_config(config, block=block,
+                             use_pallas=use_pallas).resolved()
+    key = (g, plan, cfg, device)
+    cg = _GRAPH_CACHE.get(key)
+    if cg is None:
+        counter("graph_cache_misses",
+                "streaming_executor per-graph cache misses").inc()
+        cg = compile_from_graph(g, config=cfg, plan=plan, device=device)
+        _GRAPH_CACHE[key] = cg
+    else:
+        counter("graph_cache_hits",
+                "streaming_executor per-graph cache hits").inc()
+    if dispatch_log is not None:
+        dispatch_log.extend(cg.dispatch)
+    return cg.apply
+
+
+# ---------------------------------------------------------------------------
+# analytic memory accounting (paper Table I "Memory" analogue)
+# ---------------------------------------------------------------------------
+
+def _nbytes(node: Node) -> int:
+    return node.size * np.dtype(node.dtype).itemsize
+
+
+def buffered_peak_bytes(g: ComputeGraph) -> int:
+    """Liveness-based peak memory of the buffered schedule (an OPTIMISTIC
+    baseline: real eager frameworks do not pack this tightly).  Parameters
+    (Const nodes) are never freed."""
+    order = g.topo_order()
+    last_use: dict[int, int] = {}
+    for t, nid in enumerate(order):
+        for i in g.nodes[nid].inputs:
+            last_use[i] = t
+    for o in g.outputs:
+        last_use[o] = len(order)
+    live = 0
+    peak = 0
+    for t, nid in enumerate(order):
+        live += _nbytes(g.nodes[nid])
+        peak = max(peak, live)
+        for i in g.nodes[nid].inputs:
+            if last_use.get(i) == t and g.nodes[i].op != "Const":
+                live -= _nbytes(g.nodes[i])
+    return peak
+
+
+def buffered_total_bytes(g: ComputeGraph) -> int:
+    """Sum of every tensor in the graph — the eager-framework analogue the
+    paper's CPU/GPU baselines exhibit (each kernel allocates its output;
+    intermediates are not liveness-packed within the op stream)."""
+    return sum(_nbytes(n) for n in g.nodes.values())
+
+
+def streaming_peak_bytes(g: ComputeGraph, design, depths: dict[int, int], *,
+                         plan: SegmentPlan | None = None) -> int:
+    """Residents + FIFO memory (depths x block bytes) — the dataflow memory.
+
+    Derived from the same SegmentPlan that executes and maps to FIFOs, so the
+    accounting sees exactly the segments that run.  Row-constant residents
+    (reverse-mode seeds and their derivatives) store ONE row — their content
+    is identical across the batch, so the dataflow design re-broadcasts a
+    single block."""
+    if plan is None:
+        plan = build_segment_plan(g)
+    resident_ids, rc = plan.resident, plan.rowconst
+    res = 0
+    for i in resident_ids:
+        n = g.nodes[i]
+        b = _nbytes(n)
+        if i in rc and n.shape and n.shape[0] > 1:
+            b //= n.shape[0]
+        res += b
+    fifo = design.fifo_bytes(depths)
+    return res + fifo

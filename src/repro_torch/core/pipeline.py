@@ -18,6 +18,13 @@ every kernel wrapper runs its plain PyTorch version.  Repeat compilations
 with the same ``(fn, order, trace shape, dtype, resolved config, device)``
 return the same artifact from an in-process cache; ``store=`` adds the
 artifact store as a second, on-disk level (``serve.store``).
+
+``config="auto"`` lets ``core.autoconfig`` pick the HardwareConfig with the
+dataflow latency oracle (the paper's automatic hardware-parameter
+configuration); on CUDA the analytic winner is then re-ranked by timing the
+candidates' real ``apply_batched`` on the card.  ``dataflow_summary`` maps
+the plan onto the paper's dataflow architecture and sizes its FIFOs
+(``core.dataflow``, ``core.fifo_opt``).
 """
 
 from __future__ import annotations
@@ -36,16 +43,22 @@ from repro_torch.core.segment import (INTERPRET, SegmentPlan,
                                       segment_dispatch, _p)
 from repro_torch.kernels.common import fp32_strict, resolve_device
 from repro_torch.obs.metrics import MetricsView, counter as _obs_counter
+from repro_torch.obs.tracing import TRACER
 
 
 class CompiledGradient:
     """Frozen compile-once / serve-many pipeline artifact.  Instances are
-    shared through the compile cache: treat them as immutable."""
+    shared through the compile cache: treat them as immutable.  Two
+    documented exceptions never change what the artifact computes: the
+    dataflow summaries are computed lazily and cached on the artifact,
+    keyed by their parameters; and ``autoconfig`` is a write-once metadata
+    slot — ``None`` unless a ``config="auto"`` request resolves to this
+    artifact's config, which attaches the search record."""
 
     def __init__(self, graph: ComputeGraph, plan: SegmentPlan, *,
                  config: HardwareConfig, residents: dict, dispatch: list,
                  device: torch.device, fn=None, order: int | None = None,
-                 region_plan=None):
+                 autoconfig=None, region_plan=None):
         self.graph = graph
         self.plan = plan
         self.config = config              # resolved HardwareConfig
@@ -54,17 +67,28 @@ class CompiledGradient:
         self.device = device
         self.fn = fn
         self.order = order
+        self.autoconfig = autoconfig      # AutoConfigResult when config="auto"
         self.region_plan = region_plan    # RegionPlan (None: per-segment)
         self.provenance = "trace"         # "trace" | "store" (set on restore)
         self.cache_hits = 0               # in-process hits served (metadata)
         self._signature = None            # lazy architecture signature
         self._stored_in: set[str] = set()  # store roots known to hold this
+        self._dataflow: dict[tuple, dict] = {}
         self._decisions = {
             s.id: (segment_dispatch(plan, s) if config.use_pallas
                    else INTERPRET) for s in plan.segments}
         self._streamed_outs = [o for o in graph.outputs
                                if o not in plan.resident]
         self._block_fn = self.resident_block_fn()
+
+    # the old scattered knobs, now views of the one config
+    @property
+    def block(self) -> int:
+        return self.config.block
+
+    @property
+    def use_pallas(self) -> bool:
+        return self.config.use_pallas
 
     # -- execution ---------------------------------------------------------
 
@@ -120,6 +144,15 @@ class CompiledGradient:
                     if self._streamed_outs else ())
         return tuple(self.residents[o] if o in plan.resident else next(vals)
                      for o in g.outputs)
+
+    def streamed_outputs(self) -> list[int]:
+        """Graph outputs served by the streaming path, in output order (the
+        rest are residents, read from ``resident_output``)."""
+        return list(self._streamed_outs)
+
+    def resident_output(self, o: int, n: int):
+        """A resident (const-derived) output broadcast to ``n`` rows."""
+        return self._resident_output(o, n)
 
     def apply_batched(self, coords):
         """Serve an arbitrary number of query rows.
@@ -177,6 +210,43 @@ class CompiledGradient:
             v = v[:1].expand((n,) + tuple(v.shape[1:]))
         return v
 
+    # -- the rest of the artifact ------------------------------------------
+
+    def dataflow_summary(self, *, dataflow_block: int | None = None,
+                         mm_parallel: int | None = None) -> dict:
+        """FIFO-optimized dataflow summary for this plan (lazy; the FIFO
+        search is the expensive part of the paper's compiler).
+
+        Defaults come from the artifact's HardwareConfig — ``dataflow_block``
+        from ``config.dataflow_block``, MM parallelism per segment from the
+        config's stamps.  Passing ``mm_parallel`` explicitly applies one
+        uniform factor instead (what the table sweeps do).  Summaries are
+        cached on the artifact keyed by those parameters.  The numbers are
+        the dataflow model's (block steps, FIFO depths in blocks), not
+        measurements of the card."""
+        cfg = self.config
+        db = dataflow_block if dataflow_block is not None else cfg.dataflow_block
+        key = (db, mm_parallel if mm_parallel is not None
+               else ("config", cfg.mm_parallel, cfg.mm_parallel_per_segment))
+        cached = self._dataflow.get(key)
+        if cached is None:
+            from repro_torch.core.dataflow import map_to_dataflow
+            from repro_torch.core.fifo_opt import optimize_fifo_depths
+            with TRACER.span("compile.dataflow_map", cat="compile",
+                             dataflow_block=db):
+                design = map_to_dataflow(
+                    self.graph, block=db, mm_parallel=mm_parallel,
+                    plan=self.plan,
+                    config=None if mm_parallel is not None else cfg,
+                    region_plan=None if mm_parallel is not None
+                    else self.region_plan)
+            with TRACER.span("compile.fifo_opt", cat="compile",
+                             streams=len(design.streams)):
+                res = optimize_fifo_depths(design, config=cfg)
+            cached = {"design": design, "fifo": res, **res.summary()}
+            self._dataflow[key] = cached
+        return cached
+
     @property
     def signature(self) -> str:
         """Weight-independent architecture signature (graph structure +
@@ -189,6 +259,26 @@ class CompiledGradient:
                                              self.config)
         return self._signature
 
+    def describe(self) -> str:
+        kernels = [k for _, _, k in self.dispatch if k != INTERPRET]
+        prov = self.provenance
+        if self.cache_hits:
+            prov += f" (+{self.cache_hits} in-process hits)"
+        lines = [f"CompiledGradient(order={self.order}, "
+                 f"config=[{self.config.describe()}]): "
+                 f"{len(self.graph.nodes)} nodes, "
+                 f"{len(self.plan.segments)} segments, "
+                 f"{len(self.residents)} residents, "
+                 f"{len(kernels)} kernel-dispatched units on {self.device}",
+                 f"  provenance: {prov}",
+                 f"  signature: {self.signature}"]
+        if self.autoconfig is not None:
+            lines.append(f"  {self.autoconfig.describe()}")
+        lines.append(self.plan.describe())
+        if self.region_plan is not None:
+            lines.append(self.region_plan.describe())
+        return "\n".join(lines)
+
 
 # ---------------------------------------------------------------------------
 # compilation
@@ -200,7 +290,8 @@ def compile_from_graph(g: ComputeGraph, *,
                        use_pallas: bool | None = None,
                        plan: SegmentPlan | None = None,
                        device=None, fn=None,
-                       order: int | None = None) -> CompiledGradient:
+                       order: int | None = None,
+                       autoconfig=None) -> CompiledGradient:
     """Compile an already-extracted, optimized ComputeGraph into a
     CompiledGradient on ``device`` (CUDA unless the caller passes "cpu")."""
     if not check_streamable(g):
@@ -245,7 +336,8 @@ def compile_from_graph(g: ComputeGraph, *,
 
     return CompiledGradient(g, plan, config=cfg, residents=residents,
                             dispatch=dispatch, device=device, fn=fn,
-                            order=order, region_plan=region_plan)
+                            order=order, autoconfig=autoconfig,
+                            region_plan=region_plan)
 
 
 _CACHE: dict[tuple, CompiledGradient] = {}
@@ -275,19 +367,31 @@ def _fn_key(fn):
 
 
 def compile_cache_info() -> dict:
-    """The compile cache's size, the monotonic tracer counter, and the
-    in-process and artifact-store hit/miss/put accounting."""
-    from repro_torch.core import trace
-    return {"size": len(_CACHE), "traces": trace.TRACE_CALLS,
+    """One view of every compile-layer cache: the compile_gradient artifact
+    cache, the per-graph cache behind ``executor.streaming_executor``, the
+    per-artifact keyed ``dataflow_summary`` caches, the monotonic tracer
+    counter, and the in-process and artifact-store hit/miss/put
+    accounting."""
+    from repro_torch.core import executor, trace
+    artifacts = {id(cg): cg for cg in _CACHE.values()}
+    artifacts.update((id(cg), cg) for cg in executor._GRAPH_CACHE.values())
+    return {"size": len(_CACHE),
+            "graph_cache_size": len(executor._GRAPH_CACHE),
+            "dataflow_summaries": sum(len(cg._dataflow)
+                                      for cg in artifacts.values()),
+            "traces": trace.TRACE_CALLS,
             **{k: _STATS[k] for k in _STATS}}
 
 
 def clear_compile_cache() -> None:
-    """Drop every cached artifact (``compile_gradient``'s and
-    ``compile_fit``'s) and reset the hit/miss accounting (the tracer counter
-    is monotonic by design: tests measure deltas)."""
+    """Drop every cached artifact (``compile_gradient``'s, ``compile_fit``'s
+    and the per-graph cache behind ``executor.streaming_executor``, and with
+    them every cached dataflow summary) and reset the hit/miss accounting
+    (the tracer counter is monotonic by design: tests measure deltas)."""
+    from repro_torch.core import executor
     _CACHE.clear()
     _FIT_CACHE.clear()
+    executor._GRAPH_CACHE.clear()
     for k in _STATS:
         _STATS[k] = 0
 
@@ -313,10 +417,11 @@ def _trace_graph(fn, order: int, trace_b: int, shape, dtype,
 
 
 def compile_gradient(fn, order: int, example_coords, *,
-                     config: HardwareConfig | None = None,
+                     config: HardwareConfig | str | None = None,
                      block: int | None = None,
                      use_pallas: bool | None = None,
                      store=None,
+                     base_config: HardwareConfig | None = None,
                      device=None) -> CompiledGradient:
     """The pipeline front door: compile-or-hit the compiler for the
     ``order``-th input gradients of INR ``fn`` (a torch callable on
@@ -324,21 +429,50 @@ def compile_gradient(fn, order: int, example_coords, *,
 
     ``example_coords`` only contributes shape and dtype; its batch dim is
     rounded up to a block multiple for the trace (``apply`` expects that
-    batch; ``apply_batched`` serves any N).  ``config`` is a
-    ``HardwareConfig`` or ``None`` (``DEFAULT_CONFIG``); ``block`` /
-    ``use_pallas`` override its fields.  ``device`` defaults to CUDA and
-    raises without it; pass ``"cpu"`` to run the plain versions.
+    batch; ``apply_batched`` serves any N).  ``device`` defaults to CUDA
+    and raises without it; pass ``"cpu"`` to run the plain versions.
+
+    ``config`` selects the hardware parameters:
+
+      * a ``HardwareConfig`` — used as given (``block`` / ``use_pallas``
+        override its fields);
+      * ``None`` — ``DEFAULT_CONFIG`` (with the same overrides);
+      * ``"auto"`` — ``core.autoconfig.resolve_config`` picks the config
+        with the dataflow latency oracle, rejecting deadlock-flagged
+        candidates; on CUDA the analytic winner's block, tile and
+        ``chunk_blocks`` variants are then re-ranked by timing the real
+        ``apply_batched`` on the card (``make_apply_batched_measure``); on
+        the CPU the search stays analytic and deterministic.  The record
+        rides on the artifact as ``cg.autoconfig``.  ``base_config`` (auto
+        mode only) seeds the search; every candidate inherits its
+        non-searched fields.
+
+    The cache is keyed on the RESOLVED config, so ``config="auto"`` shares
+    its entry with an explicit request for whatever config it resolved to.
 
     ``store`` (a ``serve.ArtifactStore`` or a directory path) makes this a
     three-level lookup: in-process cache -> store -> trace + compile +
     persist.  A store hit rebuilds the artifact from the persisted graph,
-    config and weights without a single tracer call."""
+    config and weights without a single tracer call (and, for an auto
+    request, without the search)."""
     device = resolve_device(device)
     shape = tuple(example_coords.shape)
     dtype = str(example_coords.dtype).removeprefix("torch.")
     if store is not None:
         from repro_torch.serve.store import as_store
         store = as_store(store)
+
+    if isinstance(config, str):
+        if config != "auto":
+            raise ValueError(f"config must be a HardwareConfig, None, or "
+                             f"'auto'; got {config!r}")
+        return _compile_auto(fn, order, shape, dtype, block=block,
+                             use_pallas=use_pallas, store=store,
+                             base_config=base_config, device=device)
+    if base_config is not None:
+        raise ValueError("base_config only seeds config='auto'; pass it as "
+                         "config= for an explicit request")
+
     cfg = as_hardware_config(config, block=block,
                              use_pallas=use_pallas).resolved()
     trace_b = shape[0] + (-shape[0]) % cfg.block
@@ -371,6 +505,77 @@ def compile_gradient(fn, order: int, example_coords, *,
     g = _trace_graph(fn, order, trace_b, shape, dtype, device)
     cg = compile_from_graph(g, config=cfg, device=device, fn=fn, order=order)
     _CACHE[key] = cg
+    if store is not None:
+        store.put(cg, request_key=rk)
+        cg._stored_in.add(store.root)
+        _STATS["store_puts"] += 1
+    return cg
+
+
+def _compile_auto(fn, order: int, shape, dtype, *, block=None,
+                  use_pallas=None, store=None, base_config=None,
+                  device) -> CompiledGradient:
+    """config="auto": trace once, let autoconfig pick the HardwareConfig,
+    compile with the winner, and cache under BOTH the auto request and the
+    resolved config (so explicit requests for the winner hit the same
+    artifact).  With a store, the auto request gets its own disk-index
+    binding — a replica restoring it skips the trace AND the search, and
+    the artifact carries the persisted AutoConfigResult."""
+    from repro_torch.core.autoconfig import (make_apply_batched_measure,
+                                             resolve_config)
+
+    base = as_hardware_config(base_config, block=block,
+                              use_pallas=use_pallas).resolved()
+    # round the trace batch to a multiple of 8 (every block candidate
+    # divides it at the default batch) so the search may pick any of them
+    trace_b = shape[0] + (-shape[0]) % 8
+    tshape = (trace_b,) + tuple(shape[1:])
+    auto_key = (_fn_key(fn), int(order), tshape, dtype, "auto", base, device)
+    hit = _CACHE.get(auto_key)
+    if hit is not None:
+        _STATS["hits"] += 1
+        hit.cache_hits += 1
+        return hit
+    _STATS["misses"] += 1
+
+    rk = None
+    if store is not None:
+        from repro_torch.serve.store import request_key
+        rk = request_key(fn, order, tshape, dtype, base, mode="auto")
+        cg = store.restore_request(rk, device=device)
+        if cg is not None:
+            _STATS["store_hits"] += 1
+            if cg.fn is None:
+                cg.fn = fn
+            _CACHE[auto_key] = cg
+            _CACHE[(_fn_key(fn), int(order), tshape, dtype, cg.config,
+                    device)] = cg
+            return cg
+        _STATS["store_misses"] += 1
+
+    with TRACER.span("compile", cat="compile", order=order, mode="auto"):
+        g = _trace_graph(fn, order, trace_b, shape, dtype, device)
+        plan = build_segment_plan(g)
+        # on CUDA the analytic winner is refined against real apply_batched
+        # timings on the card; on the CPU the search stays analytic —
+        # deterministic and cheap, what the tests rely on
+        measure = (make_apply_batched_measure(g, plan, device=device)
+                   if device.type == "cuda" else None)
+        result = resolve_config(g, plan, base=base, measure=measure)
+        cfg = result.config
+
+        resolved_key = (_fn_key(fn), int(order), tshape, dtype,
+                        cfg.clamped(trace_b), device)
+        cg = _CACHE.get(resolved_key)
+        if cg is None:
+            cg = compile_from_graph(g, config=cfg, plan=plan, device=device,
+                                    fn=fn, order=order, autoconfig=result)
+            _CACHE[resolved_key] = cg
+        elif cg.autoconfig is None:
+            # the search resolved to a config already compiled explicitly
+            # (e.g. the default); share the artifact and attach the record
+            cg.autoconfig = result
+    _CACHE[auto_key] = cg
     if store is not None:
         store.put(cg, request_key=rk)
         cg._stored_in.add(store.root)

@@ -663,6 +663,17 @@ def region_dispatch_table(plan: SegmentPlan,
     return out
 
 
+def region_row_cost(plan: SegmentPlan, region: FusedRegion,
+                    mm_parallel_for) -> int:
+    """Row-cycles one region charges per streamed row (the dataflow oracle's
+    per-op calibrated cost, summed over the region's steps) — see
+    ``dataflow.OP_ROW_COST``."""
+    from repro_torch.core.dataflow import segment_row_cost
+    return sum(segment_row_cost(plan, plan.segments[sid],
+                                mm_parallel_for(sid))
+               for sid in region.segments)
+
+
 # ---------------------------------------------------------------------------
 # gradient checkpoint cuts (the fit path, DESIGN.md §11): score
 # checkpoint-vs-buffer per execution unit with the SAME byte model the VMEM

@@ -15,14 +15,15 @@ the same architecture with different weights share one signature, and the
 weight payloads live in per-INR entries under it:
 
     <root>/index.json                 request-key -> {signature, weights}
-    <root>/<signature>/meta.json      order, config, plan record
+    <root>/<signature>/meta.json      order, config, plan record, autoconfig
     <root>/<signature>/graph.json     structural graph (no Const values)
     <root>/<signature>/weights/<id>/  one checkpoint dir per weight set
                                       (``checkpoint.ckpt``: manifest +
                                       per-leaf .npy with sha1 checksums)
 
-The port writes no ``source.py`` (it has no codegen yet) and no autoconfig
-record; entries the reference wrote load all the same, ignoring both.
+The port writes no ``source.py`` (it has no codegen yet); entries the
+reference wrote load all the same, ignoring it, and keep their autoconfig
+record.
 
 ``compile_gradient(..., store=...)`` is a three-level lookup: in-process
 cache -> this store (via ``index.json``, keyed by a cross-process
@@ -270,7 +271,8 @@ def request_key(fn, order: int, trace_shape, dtype: str,
                 config: HardwareConfig, *, mode: str = "explicit") -> str | None:
     """The disk-index key for a compile_gradient request: fn fingerprint +
     the same (order, block-rounded shape, dtype, resolved config) tuple the
-    in-process cache keys on."""
+    in-process cache keys on.  ``mode="auto"`` keys an autoconfig request
+    (config = the search's BASE, the resolved winner lives in the entry)."""
     fp = fn_fingerprint(fn)
     if fp is None:
         return None
@@ -411,12 +413,16 @@ class ArtifactStore:
 
     def _put_arch(self, cg, default_weights: str) -> str:
         """Write the per-signature architecture data (graph, config, plan
-        record) once; idempotent."""
+        record, autoconfig) once; idempotent."""
         signature = cg.signature
         entry = self._entry(signature)
         if self.has(signature):
             return signature
         os.makedirs(entry, exist_ok=True)
+        autoconfig = None
+        if cg.autoconfig is not None:
+            from repro_torch.core.autoconfig import result_as_dict
+            autoconfig = result_as_dict(cg.autoconfig)
         meta = {
             "format": FORMAT_VERSION,
             "signature": signature,
@@ -429,7 +435,7 @@ class ArtifactStore:
                              for s in cg.plan.segments],
                 "n_residents": len(cg.plan.resident),
             },
-            "autoconfig": None,
+            "autoconfig": autoconfig,
             "created": time.strftime("%Y-%m-%dT%H:%M:%S%z"),
         }
         _atomic_write(os.path.join(entry, "graph.json"),
@@ -524,7 +530,9 @@ class ArtifactStore:
         passes "cpu").  Rebuilds the graph from structure + weight payload
         and runs the BACK half of the compiler (``compile_from_graph``) —
         the tracer is never invoked.  The restored plan is verified against
-        the persisted plan record."""
+        the persisted plan record; a persisted autoconfig record rides on
+        the artifact again."""
+        from repro_torch.core.autoconfig import result_from_dict
         from repro_torch.core.pipeline import compile_from_graph
 
         meta = self.meta(signature)
@@ -542,6 +550,8 @@ class ArtifactStore:
             raise IOError(f"restored plan disagrees with persisted plan "
                           f"record for {signature} — store entry is stale "
                           f"or the planner changed incompatibly")
+        if meta.get("autoconfig"):
+            cg.autoconfig = result_from_dict(meta["autoconfig"])
         cg.provenance = "store"
         cg._signature = signature
         cg._stored_in.add(self.root)

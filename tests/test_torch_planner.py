@@ -130,6 +130,8 @@ def test_passes_match_reference(order):
 def test_hardware_config_resolves_without_jax():
     cfg = HardwareConfig()
     assert cfg.use_pallas is None
-    assert cfg.resolved().use_pallas is True
+    r = cfg.resolved()
+    assert r.use_pallas is True
+    assert r.resolved() is r                 # already concrete: no-op
     assert HardwareConfig(use_pallas=False).resolved().use_pallas is False
     assert HardwareConfig.from_dict(cfg.as_dict()) == cfg
