@@ -92,14 +92,29 @@ Phases (any failure exits non-zero; nothing is caught):
      beside ``torch.cuda.max_memory_allocated`` of one 4,096-row call; an
      auto request persisted and restored from an ArtifactStore with no
      trace and no search;
-  9. the launches of every kernel on each path, counted from 0 just before
+  9. filter banks and INR editing (the paper's benchmark) on phase 4's
+     SIREN at order 2: ``compile_bank`` with four INSP heads of the paper's
+     width (64 x 3 layers, seeded generator) and its BankReport (1
+     dispatch against 4); the merged region against its plain version at
+     R = 8 and 512 (<= 1e-4 scaled) with its cluster width C, shared
+     memory per CTA and device ms per launch; the 256 x 256 grid against a float64 evaluation of
+     each head over phase 4's float64 features (<= 1e-4 of max|oracle|),
+     every output torch.equal to its head's single-head bank, one 512-row
+     chunk launching each unit once; µs per row and busy share of the
+     bank beside the four single-head banks; the five-filter library bank
+     on the grid against float64; ``ServingEngine.register_bank`` with
+     bank and plain requests mixed (one bank group), and a fresh engine
+     restoring the bank from an ArtifactStore by signature (no tracer
+     call, outputs torch.equal);
+  10. the launches of every kernel on each path, counted from 0 just before
      the path and read just after it: phase 4 must launch region,
      fused_chain, stream_matmul and siren_layer, phase 5 region_stacked
      (stacked path) and region and fused_chain (per-lane path), phase 6
      region and region_bwd, phase 7 flash_attention (LM serving) and
-     ssd_scan (the kernel library's entry point), phase 8 region; one
-     JSON line of per-kernel numbers;
-  10. the last line: {"ok": true, "device": {...}}.
+     ssd_scan (the kernel library's entry point), phase 8 region, phase 9
+     region and fused_chain (the bank path); one JSON line of per-kernel
+     numbers;
+  11. the last line: {"ok": true, "device": {...}}.
 
 Times: ``ms`` is the device time of one call (torch.profiler, the sum of
 the kernel records per call; for a plain version, every kernel it
@@ -328,16 +343,17 @@ def main() -> int:
         kernel read far below its CUDA-event time).  Each session starts
         with spin kernels that take that loss and are not counted; a
         session that kept none of them may have lost a measured record and
-        is run again."""
+        is run again, with 16 times the spin kernels (late in a run the
+        profiler has lost more than 16 leading records)."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         fn()
         torch.cuda.synchronize()
-        for _ in range(3):
+        for attempt in range(3):
             try:
                 with profile(activities=[ProfilerActivity.CPU,
                                          ProfilerActivity.CUDA]) as prof:
-                    for _ in range(16):
+                    for _ in range(16 ** (attempt + 1)):
                         torch.cuda._sleep(1000)
                     for _ in range(iters):
                         fn()
@@ -870,14 +886,20 @@ def main() -> int:
                                      unfused_cfg, want_main, scaled_err,
                                      reading)
 
-    # -- 9. launches ---------------------------------------------------------
+    # -- 9. filter banks and INR editing --------------------------------------
+    launches_bank = bank_phase(log, torch, dev, cfg, f, coords, fused_cfg,
+                               want_main["fused", 2], scaled_err, device_ms,
+                               reading)
+
+    # -- 10. launches --------------------------------------------------------
     # ``launches`` counts the path a kernel was ported for (phase 4's for
     # PR 11's kernels, phase 5's for region_stacked, phase 6's for
     # region_bwd, phase 7's for flash_attention and ssd_scan);
     # ``launches_by_path`` gives every path's own count.
     paths = {"compile_gradient": launches_main, "multi_inr": launches_multi,
              "fit": launches_fit, "lm_serve": launches_lm,
-             "kernel_ops": launches_ops, "compile_auto": launches_auto}
+             "kernel_ops": launches_ops, "compile_auto": launches_auto,
+             "bank": launches_bank}
     home = {"region_stacked": "multi_inr", "region_bwd": "fit",
             "flash_attention": "lm_serve", "ssd_scan": "kernel_ops"}
     for name, rec in kernels.items():
@@ -1929,6 +1951,179 @@ def autoconfig_phase(log, torch, cfg, f, coords, fused_cfg, unfused_cfg,
     log(f"[auto] phase 8 took {time.perf_counter() - t_phase:.1f} s")
     if not launches.get("region"):
         raise AssertionError(f"phase 8 launched {launches}")
+    return launches
+
+
+def bank_phase(log, torch, dev, cfg, f, coords, fused_cfg, want, scaled_err,
+               device_ms, reading):
+    """Phase 9, filter banks and INR editing (the paper's benchmark) on the
+    card; returns the launches of the bank path (the INSP bank compiled,
+    served on the grid and on one chunk, then the filter library's bank
+    compiled and served).  ``want`` is phase 4's float64 order-2 oracle on
+    ``coords``: the feature matrix every head reads."""
+    from repro_torch.configs.siren import InspConfig
+    from repro_torch.core import pipeline as P
+    from repro_torch.core import trace
+    from repro_torch.core.executor import region_operands
+    from repro_torch.inr.filters import filter_bank, filter_head
+    from repro_torch.inr.gradnet import num_features
+    from repro_torch.inr.insp import insp_apply, insp_head, insp_init
+    from repro_torch.kernels import common
+    from repro_torch.kernels.region import (plan_region, region_call,
+                                           region_call_plain, sm_count)
+    from repro_torch.serve import ArtifactStore, BankArtifact, ServingEngine
+
+    t_phase = time.perf_counter()
+    order, n = 2, coords.shape[0]
+    x64 = coords[:cfg.batch]
+    icfg = InspConfig()
+    nf = num_features(cfg.in_features, cfg.out_features, order)
+    gen = torch.Generator().manual_seed(SEED + 9)
+    psis = [insp_init(icfg, nf, cfg.out_features, gen, device=dev)
+            for _ in range(4)]
+    heads = [insp_head(p) for p in psis]
+    feats64 = torch.cat([o.reshape(n, -1) for o in want], -1)
+    names = ["identity", "blur", "edge", "laplacian", "sharpen"]
+
+    def held(outs, oracle, label):
+        errs = []
+        for o, w in zip(outs, oracle):
+            if tuple(o.shape) != tuple(w.shape) or \
+                    not bool(torch.isfinite(o).all()):
+                raise AssertionError(f"{label}: bad output {tuple(o.shape)}")
+            errs.append(scaled_err(o, w)[1])
+        if max(errs) > 1e-4:
+            raise AssertionError(f"{label}: scaled err {max(errs):.3e}")
+        return max(errs)
+
+    # the bank path, counted: the INSP bank compiled, the grid and one
+    # chunk served, then the filter library compiled and the grid served
+    common.reset_launches()
+    t0 = time.perf_counter()
+    bank = P.compile_bank(f, heads, order, x64, config=fused_cfg,
+                          device=dev)
+    t_compile = time.perf_counter() - t0
+    outs = bank.apply_batched(coords)
+    rows = bank.config.chunk_blocks * bank.config.block
+    xc = coords[:rows].reshape(bank.config.chunk_blocks, bank.config.block,
+                               -1)
+    per_chunk = launched_by(common.LAUNCHES,
+                            lambda: bank.cg.apply_chunk(xc))
+    library = filter_bank(f, names, x64, config=fused_cfg, device=dev)
+    lib_outs = library.apply_batched(coords)
+    torch.cuda.synchronize()
+    launches = dict(common.LAUNCHES)
+
+    r = bank.report
+    log(f"[bank] INSP bank (SIREN {cfg.hidden_features} x "
+        f"{cfg.hidden_layers}, 4 heads {icfg.hidden} x {icfg.layers}, order "
+        f"{order}): compiled in {t_compile:.2f} s; {r.describe()}")
+    log(f"[bank] {bank.cg.region_plan.describe().splitlines()[0]}; "
+        f"dispatch {[k for _, _, k in bank.dispatch]}")
+    if (r.dispatches_bank, r.dispatches_loop) != (1, 4) or \
+            not r.nodes_bank < r.nodes_loop:
+        raise AssertionError(f"bank report {r}")
+
+    # the merged region against its plain version at R = 8 and 512
+    plan = bank.plan
+    (kind, region), = bank.cg.region_plan.units()
+    errs = []
+    for R in (8, 512):
+        st, rws, res, out_info = region_operands(
+            plan, region, {plan.inputs[0]: coords[3000:3000 + R]},
+            bank.cg.residents, R, plan.batch)
+        got = region_call(region.spec, st, rws, res, out_info)
+        ref = region_call_plain(region.spec, st, rws, res, out_info)
+        torch.cuda.synchronize()
+        errs += [scaled_err(a, b)[1] for a, b in zip(got, ref)]
+        prog = plan_region(region.spec, tuple(a.shape[1] for a in st),
+                           tuple(a.shape[1] for a in rws),
+                           tuple(tuple(a.shape) for a in res), R, 1,
+                           sm_count(0))
+        t = device_ms(lambda: region_call(region.spec, st, rws, res,
+                                          out_info), 20)
+        log(f"[bank] merged region R={R}: {len(region.spec.steps)} steps, "
+            f"{len(region.outputs)} outputs, C={prog.cluster}, "
+            f"{prog.smem_bytes} B of shared memory per CTA "
+            f"({prog.describe()}); {t} ms/launch on the device; scaled err "
+            f"against region_call_plain {max(errs):.3e}")
+    if max(errs) > 1e-4:
+        raise AssertionError(f"merged region: scaled err {max(errs):.3e}")
+
+    # the grid against float64, head by head, and bit for bit against each
+    # head's single-head bank
+    oracle = [insp_apply([{k: v.double() for k, v in p.items()}
+                          for p in psi], feats64) for psi in psis]
+    err = held(outs, oracle, "INSP bank")
+    solos = [P.compile_bank(f, [h], order, x64, config=fused_cfg,
+                            device=dev) for h in heads]
+    same = [torch.equal(o, s.apply_batched(coords)[0])
+            for o, s in zip(outs, solos)]
+    log(f"[bank] grid {n} rows: max scaled err {err:.3e} against float64; "
+        f"outputs torch.equal to the single-head banks: {same}; one "
+        f"{rows}-row chunk launched {dict(per_chunk)} (the plan's units "
+        f"{dict(plan_launches(bank.cg))})")
+    if not all(same) or per_chunk != plan_launches(bank.cg):
+        raise AssertionError("the bank differs from its single-head banks "
+                             "or a chunk launched other than its units")
+    log(f"[bank] {n} rows: bank {reading(lambda: bank.apply_batched(coords), n)}; "
+        f"four single-head banks "
+        f"{reading(lambda: [s.apply_batched(coords) for s in solos], n)}")
+
+    # the filter library against float64 of its closed forms
+    lib_oracle = [filter_head(nm, cfg.in_features, cfg.out_features)(feats64)
+                  for nm in names]
+    err = held(lib_outs, lib_oracle, "filter library")
+    log(f"[bank] filter library {names}: units "
+        f"{[k for _, _, k in library.cg.dispatch]}; grid max scaled err "
+        f"{err:.3e} against float64; "
+        f"{reading(lambda: library.apply_batched(coords), n)}")
+
+    # the engine: bank and plain requests mixed (one bank group), then a
+    # fresh engine restoring the bank from a store by signature
+    store_dir = ROOT / "build" / "chip_smoke_bank_store"
+    shutil.rmtree(store_dir, ignore_errors=True)
+    try:
+        ids = [f"insp{j}" for j in range(4)]
+        eng = ServingEngine(ArtifactStore(str(store_dir)), device=dev)
+        sig = eng.register_bank(ids, BankArtifact(bank, ids))
+        plain = P.compile_gradient(f, order, x64, config=fused_cfg,
+                                   device=dev)
+        eng.register("siren", plain)
+        parts = [coords[:1000], coords[1000:1500], coords[2000:2700],
+                 coords[5000:5013]]
+        res = eng.serve([("insp1", parts[0]), ("siren", parts[1]),
+                         ("insp0", parts[2]), ("insp1", parts[3])])
+        full = bank.apply_batched(torch.cat([parts[0], parts[2], parts[3]]))
+        ok = (torch.equal(res[0][0], full[1][:1000])
+              and torch.equal(res[2][0], full[0][1000:1700])
+              and torch.equal(res[3][0], full[1][1700:1713])
+              and all(torch.equal(a, b) for a, b in
+                      zip(res[1], plain.apply_batched(parts[1]))))
+        log(f"[bank] engine: 4 requests (3 bank, 1 plain), stats groups "
+            f"{eng.stats['groups']}, bank_groups "
+            f"{eng.stats['bank_groups']}; outputs torch.equal: {ok}")
+        if not ok or eng.stats["bank_groups"] != 1:
+            raise AssertionError("the engine's bank routing differs")
+        traces = trace.TRACE_CALLS
+        eng2 = ServingEngine(ArtifactStore(str(store_dir)), device=dev)
+        eng2.register_bank(ids, signature=sig)
+        back = eng2.serve([(i, coords[:4096]) for i in ids])
+        ok = all(torch.equal(b[0], o[:4096]) for b, o in zip(back, outs))
+        log(f"[bank] store restore by signature: {trace.TRACE_CALLS - traces} "
+            f"traces, {eng2.stats['restores']} restores, outputs "
+            f"torch.equal: {ok}")
+        if trace.TRACE_CALLS != traces or not ok or \
+                eng2.stats["restores"] != 1:
+            raise AssertionError("the bank's store restore re-traced or "
+                                 "differs")
+    finally:
+        shutil.rmtree(store_dir, ignore_errors=True)
+    log(f"[launches] phase 9 (compile_bank -> apply_batched, the filter "
+        f"library's bank): {launches}")
+    log(f"[bank] phase 9 took {time.perf_counter() - t_phase:.1f} s")
+    if not (launches.get("region") and launches.get("fused_chain")):
+        raise AssertionError(f"phase 9 launched {launches}")
     return launches
 
 

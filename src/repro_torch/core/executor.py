@@ -303,7 +303,9 @@ def _run_segment(plan: SegmentPlan, seg, kernel: str, env,
         extras = [val(e) for e in spec.extras]
         return fused_chain(x, spec.program, extras)
 
-    # reference fallback: interpret the segment node by node
+    # reference fallback: interpret the segment node by node.  Its output
+    # may be a view (a Slice of a filter bank's feature matrix); the kernels
+    # that consume it take contiguous operands
     local: dict[int, torch.Tensor] = {}
     node_set = set(seg.nodes)
     for nid in seg.nodes:
@@ -311,7 +313,7 @@ def _run_segment(plan: SegmentPlan, seg, kernel: str, env,
         args = [local[i] if i in node_set else val(i) for i in n.inputs]
         local[nid] = _eval_node(n, args, block_b=rows,
                                 device=args[0].device if args else None)
-    return local[seg.output]
+    return local[seg.output].contiguous()
 
 
 def _run_region(plan: SegmentPlan, region, env, res_env: ResidentEnv,

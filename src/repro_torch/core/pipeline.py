@@ -19,6 +19,10 @@ with the same ``(fn, order, trace shape, dtype, resolved config, device)``
 return the same artifact from an in-process cache; ``store=`` adds the
 artifact store as a second, on-disk level (``serve.store``).
 
+``compile_bank`` compiles a filter bank: F heads over the same gradient
+features of one INR, merged into one multi-output graph whose shared prefix
+is computed once (DESIGN.md §9).
+
 ``config="auto"`` lets ``core.autoconfig`` pick the HardwareConfig with the
 dataflow latency oracle (the paper's automatic hardware-parameter
 configuration); on CUDA the analytic winner is then re-ranked by timing the
@@ -28,6 +32,8 @@ the plan onto the paper's dataflow architecture and sizes its FIFOs
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
@@ -384,12 +390,14 @@ def compile_cache_info() -> dict:
 
 
 def clear_compile_cache() -> None:
-    """Drop every cached artifact (``compile_gradient``'s, ``compile_fit``'s
-    and the per-graph cache behind ``executor.streaming_executor``, and with
-    them every cached dataflow summary) and reset the hit/miss accounting
-    (the tracer counter is monotonic by design: tests measure deltas)."""
+    """Drop every cached artifact (``compile_gradient``'s,
+    ``compile_bank``'s, ``compile_fit``'s and the per-graph cache behind
+    ``executor.streaming_executor``, and with them every cached dataflow
+    summary) and reset the hit/miss accounting (the tracer counter is
+    monotonic by design: tests measure deltas)."""
     from repro_torch.core import executor
     _CACHE.clear()
+    _BANK_CACHE.clear()
     _FIT_CACHE.clear()
     executor._GRAPH_CACHE.clear()
     for k in _STATS:
@@ -512,6 +520,18 @@ def compile_gradient(fn, order: int, example_coords, *,
     return cg
 
 
+def _auto_search(g, plan, base, device):
+    """Resolve config="auto" for graph ``g``: on CUDA the analytic winner
+    is refined against real apply_batched timings on the card; on the CPU
+    the search stays analytic (deterministic and cheap, what the tests
+    rely on)."""
+    from repro_torch.core.autoconfig import (make_apply_batched_measure,
+                                             resolve_config)
+    measure = (make_apply_batched_measure(g, plan, device=device)
+               if device.type == "cuda" else None)
+    return resolve_config(g, plan, base=base, measure=measure)
+
+
 def _compile_auto(fn, order: int, shape, dtype, *, block=None,
                   use_pallas=None, store=None, base_config=None,
                   device) -> CompiledGradient:
@@ -521,9 +541,6 @@ def _compile_auto(fn, order: int, shape, dtype, *, block=None,
     artifact).  With a store, the auto request gets its own disk-index
     binding — a replica restoring it skips the trace AND the search, and
     the artifact carries the persisted AutoConfigResult."""
-    from repro_torch.core.autoconfig import (make_apply_batched_measure,
-                                             resolve_config)
-
     base = as_hardware_config(base_config, block=block,
                               use_pallas=use_pallas).resolved()
     # round the trace batch to a multiple of 8 (every block candidate
@@ -556,12 +573,7 @@ def _compile_auto(fn, order: int, shape, dtype, *, block=None,
     with TRACER.span("compile", cat="compile", order=order, mode="auto"):
         g = _trace_graph(fn, order, trace_b, shape, dtype, device)
         plan = build_segment_plan(g)
-        # on CUDA the analytic winner is refined against real apply_batched
-        # timings on the card; on the CPU the search stays analytic —
-        # deterministic and cheap, what the tests rely on
-        measure = (make_apply_batched_measure(g, plan, device=device)
-                   if device.type == "cuda" else None)
-        result = resolve_config(g, plan, base=base, measure=measure)
+        result = _auto_search(g, plan, base, device)
         cfg = result.config
 
         resolved_key = (_fn_key(fn), int(order), tshape, dtype,
@@ -581,6 +593,288 @@ def _compile_auto(fn, order: int, shape, dtype, *, block=None,
         cg._stored_in.add(store.root)
         _STATS["store_puts"] += 1
     return cg
+
+
+# ---------------------------------------------------------------------------
+# the filter-bank compiler (DESIGN.md §9): F filters, one pipeline
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class BankReport:
+    """Compile-time accounting of the bank against the per-filter loop it
+    replaces; every field is a deterministic compiler output (no timing).
+
+    The "loop" numbers are the SUM over per-filter plans at the same
+    HardwareConfig: F separate compiles, each re-deriving the shared
+    gradient-feature prefix.  The bank merges the filter graphs, hash-conses
+    the prefix to one computation and serves every filter output from one
+    multi-sink region pipeline."""
+    n_heads: int
+    nodes_bank: int
+    nodes_loop: int
+    dispatches_bank: int
+    dispatches_loop: int
+    hbm_block_bank: int
+    hbm_block_loop: int
+    row_cycles_bank: int
+    row_cycles_loop: int
+
+    def describe(self) -> str:
+        def x(a, b):
+            return f"{b / max(a, 1):.1f}x"
+        return (f"BankReport({self.n_heads} heads): "
+                f"nodes {self.nodes_bank} vs loop {self.nodes_loop} "
+                f"({x(self.nodes_bank, self.nodes_loop)}), "
+                f"dispatches {self.dispatches_bank} vs "
+                f"{self.dispatches_loop} "
+                f"({x(self.dispatches_bank, self.dispatches_loop)}), "
+                f"hbm/block {self.hbm_block_bank} vs {self.hbm_block_loop} "
+                f"({x(self.hbm_block_bank, self.hbm_block_loop)}), "
+                f"row-cycles {self.row_cycles_bank} vs "
+                f"{self.row_cycles_loop}")
+
+
+class CompiledBank:
+    """F filter pipelines compiled as ONE multi-output artifact.
+
+    Wraps the ``CompiledGradient`` of the MERGED graph (serving, store
+    persistence and dataflow summaries come from it unchanged) plus the
+    bank's bookkeeping: head count and order, and the compile-time
+    ``BankReport`` (None when restored from a store, where the per-filter
+    graphs were never traced).  Output ``j`` of every serving call is
+    filter ``j``'s output, in the order the heads were given."""
+
+    def __init__(self, cg: CompiledGradient, *, n_heads: int, order: int,
+                 report: BankReport | None = None, fn=None, heads=None):
+        self.cg = cg
+        self.n_heads = n_heads
+        self.order = order
+        self.report = report
+        self.fn = fn
+        self.heads = tuple(heads) if heads is not None else None
+
+    @property
+    def graph(self) -> ComputeGraph:
+        return self.cg.graph
+
+    @property
+    def plan(self) -> SegmentPlan:
+        return self.cg.plan
+
+    @property
+    def config(self) -> HardwareConfig:
+        return self.cg.config
+
+    @property
+    def region_plan(self):
+        return self.cg.region_plan
+
+    @property
+    def dispatch(self):
+        return self.cg.dispatch
+
+    @property
+    def signature(self) -> str:
+        return self.cg.signature
+
+    def apply(self, coords):
+        return self.cg.apply(coords)
+
+    def apply_batched(self, coords):
+        """Serve any N rows; returns a tuple of F tensors, one per filter."""
+        return self.cg.apply_batched(coords)
+
+    def describe(self) -> str:
+        lines = [f"CompiledBank({self.n_heads} heads, order={self.order})"]
+        if self.report is not None:
+            lines.append("  " + self.report.describe())
+        lines.append(self.cg.describe())
+        return "\n".join(lines)
+
+
+_BANK_CACHE: dict[tuple, CompiledBank] = {}
+
+
+def _trace_filter_graph(fn, head, order: int, trace_b: int, shape, dtype,
+                        device) -> ComputeGraph:
+    """Extract + optimize the graph of ONE filter: ``head`` applied to the
+    order-th gradient feature matrix of ``fn`` (the INSP computation,
+    DESIGN.md §9).  The column layout is ``gradnet.feature_vector``'s."""
+    from repro_torch.core.passes import optimize
+    from repro_torch.core.trace import extract_graph
+    from repro_torch.inr.gradnet import paper_gradients
+
+    dt = torch_dtype(dtype)
+    example = torch.zeros((trace_b,) + tuple(shape[1:]), dtype=dt,
+                          device=device)
+    with torch.no_grad():
+        out_features = fn(example).shape[-1]
+    gfn = paper_gradients(fn, order, out_features, shape[-1],
+                          batch=trace_b, device=device, dtype=dt)
+
+    def filter_fn(x):
+        outs = gfn(x)
+        return head(torch.cat([o.reshape(o.shape[0], -1) for o in outs],
+                              -1))
+
+    g = extract_graph(filter_fn, example)
+    optimize(g)
+    return g
+
+
+def _bank_report(per_head, merged: ComputeGraph,
+                 cg: CompiledGradient) -> BankReport:
+    """Deterministic bank-vs-loop accounting at the bank's resolved config.
+    The loop columns sum per-filter plans compiled at the SAME config, so
+    the comparison isolates graph sharing from the choice of config."""
+    from repro_torch.core.autoconfig import predicted_latency
+    from repro_torch.core.regions import (build_region_plan,
+                                          region_dispatch_table,
+                                          region_hbm_bytes_per_block)
+    cfg = cg.config
+    d_loop = h_loop = c_loop = n_loop = 0
+    for g in per_head:
+        plan = build_segment_plan(g, config=cfg)
+        rp = build_region_plan(plan, cfg)
+        d_loop += len(region_dispatch_table(plan, rp))
+        h_loop += region_hbm_bytes_per_block(plan, rp, cfg.block)
+        c_loop += predicted_latency(g, cfg, plan=plan)
+        n_loop += len(g.nodes)
+    rp_bank = cg.region_plan
+    if rp_bank is None:
+        rp_bank = build_region_plan(cg.plan, cfg)
+    return BankReport(
+        n_heads=len(per_head),
+        nodes_bank=len(merged.nodes), nodes_loop=n_loop,
+        dispatches_bank=len(region_dispatch_table(cg.plan, rp_bank)),
+        dispatches_loop=d_loop,
+        hbm_block_bank=region_hbm_bytes_per_block(cg.plan, rp_bank,
+                                                  cfg.block),
+        hbm_block_loop=h_loop,
+        row_cycles_bank=predicted_latency(merged, cfg, plan=cg.plan),
+        row_cycles_loop=c_loop)
+
+
+def compile_bank(fn, heads, order: int, example_coords, *,
+                 config: HardwareConfig | str | None = None,
+                 block: int | None = None,
+                 use_pallas: bool | None = None,
+                 store=None,
+                 base_config: HardwareConfig | None = None,
+                 device=None) -> CompiledBank:
+    """Compile a FILTER BANK: every ``head`` applied to the same order-th
+    gradient features of INR ``fn``, served from ONE merged pipeline on
+    ``device`` (CUDA unless the caller passes "cpu").
+
+    Each filter's graph is traced on its own (the head over the
+    ``gradnet.feature_vector`` feature matrix), grafted into one
+    multi-output graph (``graph.merge_graphs``) and hash-consed
+    (``passes.dedupe_common_subtrees``), so the shared gradient-feature
+    prefix collapses to one computation feeding every head.  The merged
+    graph compiles through ``compile_from_graph``: the region scheduler
+    fuses the prefix and the head branches into multi-sink regions, so one
+    pass emits all F filter outputs per chunk.
+
+    ``config`` follows ``compile_gradient``: a ``HardwareConfig``, ``None``
+    (defaults), or ``"auto"`` (the search runs over the MERGED graph,
+    timing candidates on CUDA; ``base_config`` seeds it).  Each head must
+    trace to exactly one output tensor.  Repeat calls with the same (fn,
+    heads, order, coords shape, config, device) hit the in-process bank
+    cache; ``store`` adds the disk level under the merged graph's
+    architecture signature, the request bound through
+    ``serve.store.bank_request_key``.
+
+    Returns a ``CompiledBank``; ``apply_batched(coords)`` yields a tuple of
+    F tensors in head order, equal to serving each filter through its own
+    single-head bank."""
+    heads = tuple(heads)
+    if not heads:
+        raise ValueError("compile_bank needs at least one head")
+    device = resolve_device(device)
+    shape = tuple(example_coords.shape)
+    dtype = str(example_coords.dtype).removeprefix("torch.")
+    if store is not None:
+        from repro_torch.serve.store import as_store
+        store = as_store(store)
+
+    auto = isinstance(config, str)
+    if auto and config != "auto":
+        raise ValueError(f"config must be a HardwareConfig, None, or "
+                         f"'auto'; got {config!r}")
+    head_keys = tuple(_fn_key(h) for h in heads)
+    if auto:
+        base = as_hardware_config(base_config, block=block,
+                                  use_pallas=use_pallas).resolved()
+        trace_b = shape[0] + (-shape[0]) % 8
+        key = (_fn_key(fn), head_keys, int(order),
+               (trace_b,) + shape[1:], dtype, "auto", base, device)
+        key_cfg = base
+    else:
+        if base_config is not None:
+            raise ValueError("base_config only seeds config='auto'; pass it "
+                             "as config= for an explicit request")
+        cfg = as_hardware_config(config, block=block,
+                                 use_pallas=use_pallas).resolved()
+        trace_b = shape[0] + (-shape[0]) % cfg.block
+        key_cfg = cfg.clamped(trace_b)
+        key = (_fn_key(fn), head_keys, int(order),
+               (trace_b,) + shape[1:], dtype, key_cfg, device)
+    hit = _BANK_CACHE.get(key)
+    if hit is not None:
+        _STATS["hits"] += 1
+        hit.cg.cache_hits += 1
+        return hit
+    _STATS["misses"] += 1
+
+    rk = None
+    if store is not None:
+        from repro_torch.serve.store import bank_request_key
+        rk = bank_request_key(fn, heads, order,
+                              (trace_b,) + tuple(shape[1:]), dtype, key_cfg,
+                              mode="auto" if auto else "explicit")
+        cg = store.restore_request(rk, device=device)
+        if cg is not None:
+            _STATS["store_hits"] += 1
+            bank = CompiledBank(cg, n_heads=len(heads), order=order,
+                                fn=fn, heads=heads)
+            _BANK_CACHE[key] = bank
+            return bank
+        _STATS["store_misses"] += 1
+
+    with TRACER.span("compile.bank", cat="compile", order=order,
+                     heads=len(heads)):
+        per_head = [_trace_filter_graph(fn, h, order, trace_b, shape, dtype,
+                                        device) for h in heads]
+        for j, gh in enumerate(per_head):
+            if len(gh.outputs) != 1:
+                raise ValueError(
+                    f"bank head {j} traced to {len(gh.outputs)} outputs; "
+                    f"each filter head must return exactly one tensor")
+        from repro_torch.core.graph import merge_graphs
+        from repro_torch.core.passes import optimize
+        with TRACER.span("compile.passes", cat="compile"):
+            merged, _ = merge_graphs(per_head)
+            optimize(merged)    # dedupe_common_subtrees collapses the prefix
+
+        if auto:
+            plan = build_segment_plan(merged)
+            autoconfig = _auto_search(merged, plan, base, device)
+            cg = compile_from_graph(merged, config=autoconfig.config,
+                                    plan=plan, device=device, order=order,
+                                    autoconfig=autoconfig)
+        else:
+            cg = compile_from_graph(merged, config=cfg, device=device,
+                                    order=order)
+
+    bank = CompiledBank(cg, n_heads=len(heads), order=order,
+                        report=_bank_report(per_head, merged, cg),
+                        fn=fn, heads=heads)
+    _BANK_CACHE[key] = bank
+    if store is not None:
+        store.put(cg, request_key=rk)
+        cg._stored_in.add(store.root)
+        _STATS["store_puts"] += 1
+    return bank
 
 
 # compile_fit artifacts, keyed (CompiledGradient identity, Objective,

@@ -13,9 +13,20 @@ the reference's graph shapes:
   * implicit broadcasts become explicit ``Broadcast`` nodes (a bias ``[N]``
     goes through ``Broadcast (N,) -> (1, N)``, ``broadcast_dimensions=(1,)``),
     so the planner recognizes it as a bias;
-  * ``detach`` / ``alias`` / ``lift_fresh_copy`` / ``clone`` map to their
-    operand without a node (the passes never remove an ``Identity``, and a
-    chain holding one could not be fused).
+  * ``detach`` / ``alias`` / ``lift_fresh_copy`` / ``clone``, a ``view``
+    that keeps its operand's shape and a ``slice`` over a whole axis map to
+    their operand without a node (the passes never remove an ``Identity``,
+    and a chain holding one could not be fused; ``lax.reshape`` and
+    ``lax.slice`` make no node for them either);
+  * ``cat`` becomes ``Concat`` and a ``slice`` of part of an axis a
+    ``Slice`` over every axis, as ``jnp.concatenate`` and basic indexing
+    give the reference (a filter bank's feature matrix and its heads);
+  * ``relu`` becomes ``Maximum(x, 0)``, the graph ``jax.nn.relu`` gives;
+  * the fused backward ops ``tanh_backward`` and ``sigmoid_backward``
+    decompose into the IR's elementwise ops (``_BACKWARD``).  A ReLU's
+    backward (``threshold_backward``) raises: the reference's compiler
+    cannot compile a ReLU gradient either (its graph holds ``Gt`` and
+    ``Select``, and its codegen has no ``Gt``).
 """
 
 from __future__ import annotations
@@ -38,6 +49,8 @@ PRIM_MAP = {
 }
 _BINARY = {"Mul", "Add", "Sub", "Div", "Maximum", "Minimum", "Select"}
 _PASSTHROUGH = {"detach", "alias", "lift_fresh_copy", "clone"}
+# backward ops that the reference's compiler cannot compile either
+_UNSUPPORTED = {"threshold_backward", "zeros_like"}
 
 # monotonic tracer-invocation counter (tests assert deltas)
 TRACE_CALLS = 0
@@ -135,8 +148,29 @@ def _convert(g, node, meta, operand, broadcast_to_rank) -> int:
                        tuple(range(len(shape) - rank, len(shape)))),
                       ("shape", shape)))
     if name in ("view", "reshape", "_unsafe_view"):
-        return g.add("Reshape", shape, dt, (operand(node.args[0], dt),),
-                     (("new_sizes", shape),))
+        src = operand(node.args[0], dt)
+        if g.nodes[src].shape == shape:
+            return src
+        return g.add("Reshape", shape, dt, (src,), (("new_sizes", shape),))
+    if name == "cat":
+        ins = tuple(operand(a, dt) for a in node.args[0])
+        dim = node.args[1] if len(node.args) > 1 else node.kwargs.get("dim", 0)
+        return g.add("Concat", shape, dt, ins,
+                     (("dimension", int(dim) % len(shape)),))
+    if name == "slice":
+        return _slice(g, node, shape, dt, operand)
+    if name == "relu":
+        return g.add("Maximum", shape, dt, (operand(node.args[0], dt),
+                                            operand(0.0, dt)))
+    if name in _BACKWARD:
+        grad, y = (operand(a, dt) for a in node.args[:2])
+        return _BACKWARD[name](g, shape, dt, grad, y, lambda v:
+                               operand(v, dt))
+    if name in _UNSUPPORTED:
+        raise NotImplementedError(
+            f"extract_graph: {node.target} (a ReLU's gradient) is not "
+            f"supported; the reference's compile_gradient cannot compile a "
+            f"ReLU gradient either (codegen: Gt)")
     op = PRIM_MAP.get(name)
     if op is None:
         raise NotImplementedError(f"extract_graph: no IR op for {node.target}")
@@ -144,3 +178,46 @@ def _convert(g, node, meta, operand, broadcast_to_rank) -> int:
     if op in _BINARY:
         ins = [broadcast_to_rank(i, len(shape)) for i in ins]
     return g.add(op, shape, dt, tuple(ins))
+
+
+def _slice(g, node, shape, dt, operand) -> int:
+    """``aten.slice.Tensor(x, dim, start, end, step)``: the operand itself
+    over a whole axis, else a ``Slice`` over every axis (``end`` may be
+    ``sys.maxsize``: it is clamped to the axis)."""
+    src = operand(node.args[0], dt)
+    in_shape = g.nodes[src].shape
+    dim, start, end, step = (list(node.args[1:]) + [None] * 4)[:4]
+    dim = int(dim or 0) % len(in_shape)
+    size = in_shape[dim]
+    start = 0 if start is None else int(start)
+    end = size if end is None else int(end)
+    start = min(max(start + size if start < 0 else start, 0), size)
+    end = min(max(end + size if end < 0 else end, start), size)
+    step = 1 if step is None else int(step)
+    if (start, end, step) == (0, size, 1):
+        return src
+    starts = tuple(start if d == dim else 0 for d in range(len(in_shape)))
+    limits = tuple(end if d == dim else n for d, n in enumerate(in_shape))
+    strides = tuple(step if d == dim else 1 for d in range(len(in_shape)))
+    return g.add("Slice", shape, dt, (src,),
+                 (("start_indices", starts), ("limit_indices", limits),
+                  ("strides", strides)))
+
+
+def _tanh_backward(g, shape, dt, grad, y, const) -> int:
+    """``grad * (1 - y*y)`` (y = tanh(x))."""
+    yy = g.add("Mul", shape, dt, (y, y))
+    return g.add("Mul", shape, dt,
+                 (grad, g.add("Sub", shape, dt, (const(1.0), yy))))
+
+
+def _sigmoid_backward(g, shape, dt, grad, y, const) -> int:
+    """``grad * y * (1 - y)`` (y = sigmoid(x))."""
+    one_minus = g.add("Sub", shape, dt, (const(1.0), y))
+    return g.add("Mul", shape, dt,
+                 (grad, g.add("Mul", shape, dt, (y, one_minus))))
+
+
+# fused backward op -> its decomposition into the IR's elementwise ops
+_BACKWARD = {"tanh_backward": _tanh_backward,
+             "sigmoid_backward": _sigmoid_backward}

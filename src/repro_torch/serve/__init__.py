@@ -8,14 +8,17 @@
                     plan, different weights) through ONE compiled artifact,
                     residents stacked on a leading [K] axis, served by the
                     stacked region kernel where the plan is all regions;
+  * ``bank``      — BankArtifact: a compiled filter bank (one merged
+                    multi-output artifact) bound to its filter names;
   * ``engine``    — ServingEngine: the synchronous request-level front
                     door — (inr_id, coords) queries grouped by artifact and
-                    padded through ``apply_batched``.
+                    padded through ``apply_batched``, filter requests
+                    grouped by bank.
 
-Not ported yet: the async engine and filter banks (ROADMAP Queue 1 items 7
-and 8).
+Not ported yet: the async engine (ROADMAP Queue 1 item 7).
 """
 
+from repro_torch.serve.bank import BankArtifact
 from repro_torch.serve.engine import ServingEngine
 from repro_torch.serve.multi_inr import (MultiINRArtifact, bind_weights,
                                          const_payload, pad_rows)
@@ -23,7 +26,7 @@ from repro_torch.serve.store import (ArtifactStore, arch_signature,
                                      fn_fingerprint)
 
 __all__ = [
-    "ArtifactStore", "arch_signature", "fn_fingerprint",
+    "ArtifactStore", "arch_signature", "fn_fingerprint", "BankArtifact",
     "MultiINRArtifact", "bind_weights", "const_payload", "pad_rows",
     "ServingEngine",
 ]

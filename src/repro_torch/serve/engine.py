@@ -14,13 +14,17 @@ rows padded to a common block-multiple length — edge rows replicated,
 padding never reaches a caller).  Where the plan is all fused regions, a
 group's K INRs run through the stacked region kernel, one launch per
 region, and otherwise through the per-lane path (both give the per-INR
-results; the reference's engine takes its vmap path).  Restored artifacts
-and multi-INR stacks are cached in-process behind bounded LRU caches, so
-steady-state serving touches neither the tracer nor the disk.
+results; the reference's engine takes its vmap path).  Filter-bank routes
+(``register_bank`` + ``serve.bank.BankArtifact``, DESIGN.md §9) are a third
+grouping: requests naming filters of one bank run as ONE pass of the
+merged multi-output graph, each request reading its row slice of its
+filter's output.  Restored artifacts and multi-INR stacks are cached
+in-process behind bounded LRU caches, so steady-state serving touches
+neither the tracer nor the disk.
 
-Not ported yet: filter-bank routes (``register_bank``, ROADMAP Queue 1 item
-8), row and K-axis sharding and ``shard_chunking`` (item 12), and the async
-engine (item 7).  Their stats keys stay, at zero.
+Not ported yet: row and K-axis sharding and ``shard_chunking`` (ROADMAP
+Queue 1 item 12), and the async engine (item 7).  Their stats keys stay,
+at zero.
 
 Bounded caches.  ``_payloads`` (weight payloads, frequency-ranked) and
 ``_multi`` (stacked multi-INR artifacts) are bounded (``payload_cache`` /
@@ -182,6 +186,9 @@ class ServingEngine:
         self._base_wid: dict[str, str] = {}             # sig -> base weight id
         self._payloads: _FreqCache = _FreqCache(payload_cache)  # (sig, wid)
         self._multi: _LRU = _LRU(multi_cache)           # (sig, wids) -> stack
+        self._banks: dict[str, object] = {}             # sig -> BankArtifact
+        self._bank_routes: dict[str, tuple[str, int]] = {}  # fid -> (sig, j)
+        self._bank_filters: dict[str, tuple[str, ...]] = {}  # sig -> fids
         self.stats = _engine_stats(extra={
             "warm_hits": ("serve_warm_hits",
                           "payload hits in the frequency-ranked warm cache"),
@@ -219,8 +226,48 @@ class ServingEngine:
 
     def register_bank(self, filter_ids, bank=None, *,
                       signature: str | None = None) -> str:
-        raise NotImplementedError(
-            "filter-bank serving is not ported yet (ROADMAP Queue 1 item 8)")
+        """Route every id in ``filter_ids`` to one output of a filter bank.
+        With ``bank`` (a BankArtifact, CompiledBank, or the merged
+        CompiledGradient), the artifact is persisted to the store (when one
+        is attached) and kept in-process; signature-only registration
+        restores lazily from the store on first serve.  Filter ``j`` serves
+        output ``j`` of the merged graph."""
+        from repro_torch.serve.bank import BankArtifact
+        filter_ids = tuple(filter_ids)
+        if bank is not None:
+            art = (bank if isinstance(bank, BankArtifact)
+                   else BankArtifact(bank, filter_ids))
+            if art.filter_ids != filter_ids:
+                raise ValueError("filter_ids disagree with the artifact's")
+            sig = (self.store.put(art.cg) if self.store is not None
+                   else art.signature)
+            self._banks[sig] = art
+        else:
+            if signature is None:
+                raise ValueError("register_bank needs a bank or a signature")
+            if self.store is None:
+                raise ValueError("signature-only registration needs a store")
+            sig = signature
+        clash = [f for f in filter_ids if f in self._routes]
+        if clash:
+            raise ValueError(f"already registered as INR routes: {clash}")
+        self._bank_filters[sig] = filter_ids
+        for j, fid in enumerate(filter_ids):
+            self._bank_routes[fid] = (sig, j)
+        return sig
+
+    def _bank(self, sig: str):
+        art = self._banks.get(sig)
+        if art is None:
+            from repro_torch.serve.bank import BankArtifact
+            if self.store is None:
+                raise KeyError(f"unknown bank signature {sig} and no store")
+            art = BankArtifact.from_store(self.store, sig,
+                                          self._bank_filters[sig],
+                                          device=self.device)
+            self._banks[sig] = art
+            self.stats["restores"] += 1
+        return art
 
     # -- artifact / payload resolution (in-process, then store) ------------
 
@@ -277,11 +324,18 @@ class ServingEngine:
         results: list = [None] * len(requests)
 
         # group rows by inr_id (concatenating multiple requests per INR),
-        # then inr_ids by signature — one artifact execution per signature
+        # then inr_ids by signature — one artifact execution per signature;
+        # filter-bank requests group separately by bank signature
         per_inr: "OrderedDict[str, list]" = OrderedDict()
+        bank_groups: "OrderedDict[str, list]" = OrderedDict()
         with TRACER.span("serve.group", cat="serve",
                          requests=len(requests)):
             for k, (inr_id, coords) in enumerate(requests):
+                if inr_id in self._bank_routes:
+                    sig, j = self._bank_routes[inr_id]
+                    bank_groups.setdefault(sig, []).append(
+                        (k, j, torch.as_tensor(coords)))
+                    continue
                 if inr_id not in self._routes:
                     raise KeyError(f"unregistered inr_id {inr_id!r}")
                 per_inr.setdefault(inr_id, []).append(
@@ -319,6 +373,34 @@ class ServingEngine:
                         results[k] = tuple(o[row:row + n]
                                            for o in outs[inr_id])
                         row += n
+
+        # a bank group runs ONE pass of the merged graph over the union of
+        # its requests' rows — every filter's output materializes in that
+        # pass, and request k for filter j reads its row slice of output j
+        for sig, items in bank_groups.items():
+            self.stats["groups"] += 1
+            self.stats["bank_groups"] += 1
+            t0 = time.perf_counter()
+            with TRACER.span("serve.pad", cat="serve", sig=sig[:12]):
+                coords = (torch.cat([c for _, _, c in items])
+                          if len(items) > 1 else items[0][2])
+            self.stats["host_group_s"] += time.perf_counter() - t0
+            bank = self._bank(sig)
+            self.stats["rows"] += int(coords.shape[0])
+            self.stats["padded_rows"] += \
+                (-int(coords.shape[0])) % bank.cg.config.block
+            t0 = time.perf_counter()
+            with TRACER.span("serve.dispatch", cat="serve", sig=sig[:12],
+                             bank=True):
+                outs = bank.apply_batched(coords)
+                _synchronize({sig: outs})
+            self.stats["device_exec_s"] += time.perf_counter() - t0
+            with TRACER.span("serve.unpad", cat="serve", sig=sig[:12]):
+                row = 0
+                for k, j, c in items:
+                    n = int(c.shape[0])
+                    results[k] = (outs[j][row:row + n],)
+                    row += n
         if requests:
             _LAT_BATCH.observe(time.perf_counter() - t_batch,
                                engine=self.stats.labels["engine"])
@@ -357,8 +439,10 @@ class ServingEngine:
 
     def describe(self) -> str:
         st = self.stats
-        lines = [f"ServingEngine: {len(self._routes)} INRs over "
-                 f"{len(self._artifacts)} in-process artifacts "
+        lines = [f"ServingEngine: {len(self._routes)} INRs + "
+                 f"{len(self._bank_routes)} bank filters over "
+                 f"{len(self._artifacts) + len(self._banks)} "
+                 f"in-process artifacts "
                  f"({len(self._multi)}/{self._multi.cap} multi-INR stacks, "
                  f"{len(self._payloads)}/{self._payloads.cap} payloads), "
                  f"store={'yes' if self.store is not None else 'no'}, "
@@ -369,4 +453,7 @@ class ServingEngine:
         for inr_id in sorted(self._routes):
             sig, wid = self._routes[inr_id]
             lines.append(f"  {inr_id} -> {sig} / {wid}")
+        for fid in sorted(self._bank_routes):
+            sig, j = self._bank_routes[fid]
+            lines.append(f"  {fid} -> bank {sig} [out {j}]")
         return "\n".join(lines)

@@ -281,6 +281,23 @@ def request_key(fn, order: int, trace_shape, dtype: str,
     return hashlib.sha1(payload.encode()).hexdigest()
 
 
+def bank_request_key(fn, heads, order: int, trace_shape, dtype: str,
+                     config: HardwareConfig, *,
+                     mode: str = "explicit") -> str | None:
+    """The disk-index key for a ``compile_bank`` request: the INR fn's
+    fingerprint plus one fingerprint PER HEAD (head closures hold the filter
+    weights, tensors included, which ``fn_fingerprint`` hashes), the
+    gradient order, trace shape/dtype, and the resolved config.  None when
+    any participant has no stable cross-process fingerprint — the disk level
+    is then skipped."""
+    fps = [fn_fingerprint(fn)] + [fn_fingerprint(h) for h in heads]
+    if any(fp is None for fp in fps):
+        return None
+    payload = repr(("bank", fps, int(order), tuple(trace_shape), str(dtype),
+                    mode, sorted(config.as_dict().items())))
+    return hashlib.sha1(payload.encode()).hexdigest()
+
+
 # ---------------------------------------------------------------------------
 # graph (de)serialization — structure in JSON, Const values in checkpoints
 # ---------------------------------------------------------------------------

@@ -217,7 +217,8 @@ def test_engine_unported_options_raise():
         ServingEngine(sharding=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 12"):
         ServingEngine(shard_chunking=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # filter banks are ported: a bank route needs a bank or a signature
+    with pytest.raises(ValueError, match="a bank or a signature"):
         ServingEngine(device="cpu").register_bank(["f0"])
     with pytest.raises(ValueError):
         ServingEngine(device="cpu").register("a")
