@@ -106,15 +106,34 @@ Phases (any failure exits non-zero; nothing is caught):
      bank and plain requests mixed (one bank group), and a fresh engine
      restoring the bank from an ArtifactStore by signature (no tracer
      call, outputs torch.equal);
-  10. the launches of every kernel on each path, counted from 0 just before
+  10. the async serving engine, drift telemetry and codegen on phase 4's
+     SIREN, phase 5's K = 8 fleet and phase 9's INSP bank: a mixed stream
+     of 80 requests (1-3,000 rows, 120,697 in all, seeded numpy; the
+     fleet at order 2, the SIREN at orders 1 and 3, the four filters)
+     through ``AsyncServingEngine.serve_async`` with
+     ``torch.cuda.set_sync_debug_mode("error")`` (no host sync), every
+     output torch.equal to sync ``serve`` and within 1e-4 of float64; µs
+     per row and busy share of both; half the stream submitted before the
+     drain (chunks dispatched early), torch.equal again; max_inflight,
+     host_unpad_s and the queue-wait and request-latency percentiles; the
+     stream's wall with the tracer on and off, min of 30 interleaved
+     pairs (each pair's order alternated), within 5% + 5 ms;
+     ``drift_report`` at orders 1-2 fused and order 1 unfused, with the
+     analytic row costs and with ``results/torch_op_row_cost.json``
+     (per-unit device ms and drift, min FIFO headroom >= 0); codegen's
+     exec-loaded module at orders 1-2 within 1e-5 of the executor; the
+     row-cost calibration at rows=4096;
+  11. the launches of every kernel on each path, counted from 0 just before
      the path and read just after it: phase 4 must launch region,
      fused_chain, stream_matmul and siren_layer, phase 5 region_stacked
      (stacked path) and region and fused_chain (per-lane path), phase 6
      region and region_bwd, phase 7 flash_attention (LM serving) and
      ssd_scan (the kernel library's entry point), phase 8 region, phase 9
-     region and fused_chain (the bank path); one JSON line of per-kernel
-     numbers;
-  11. the last line: {"ok": true, "device": {...}}.
+     region and fused_chain (the bank path), phase 10 region,
+     region_stacked and fused_chain (``async_serve``: the counted
+     ``serve_async``) and region, fused_chain, stream_matmul and
+     siren_layer (``drift``); one JSON line of per-kernel numbers;
+  12. the last line: {"ok": true, "device": {...}}.
 
 Times: ``ms`` is the device time of one call (torch.profiler, the sum of
 the kernel records per call; for a plain version, every kernel it
@@ -144,6 +163,8 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
 SEED = 0
+# on/off pairs of the phase-10 telemetry overhead check
+TELEMETRY_PAIRS = 30
 # phase 7: attention checks (label, (B, Sq, H, KH, D), Sk, dtype, window),
 # the first at the served model's prefill shape; ssd_scan shapes [BH, NC, P,
 # N], the first mamba2-2.7b's (B = 2, S = 4,096, chunk 128); the served
@@ -868,7 +889,7 @@ def main() -> int:
                                  f"{max(errs):.3e}, launches {dict(got)}")
 
     # -- 5. multi-INR serving ------------------------------------------------
-    launches_multi = multi_inr_phase(
+    launches_multi, fleet = multi_inr_phase(
         log, torch, dev, cfg, f, params, coords, fused_cfg, oracle,
         scaled_err, device_ms, timing, record, reading)
 
@@ -887,11 +908,16 @@ def main() -> int:
                                      reading)
 
     # -- 9. filter banks and INR editing --------------------------------------
-    launches_bank = bank_phase(log, torch, dev, cfg, f, coords, fused_cfg,
-                               want_main["fused", 2], scaled_err, device_ms,
-                               reading)
+    launches_bank, bank, psis = bank_phase(
+        log, torch, dev, cfg, f, coords, fused_cfg, want_main["fused", 2],
+        scaled_err, device_ms, reading)
 
-    # -- 10. launches --------------------------------------------------------
+    # -- 10. async serving, drift telemetry, codegen --------------------------
+    launches_async, launches_drift = async_phase(
+        log, torch, dev, cfg, f, params, fleet, bank, psis, coords,
+        fused_cfg, unfused_cfg, oracle, scaled_err, reading)
+
+    # -- 11. launches --------------------------------------------------------
     # ``launches`` counts the path a kernel was ported for (phase 4's for
     # PR 11's kernels, phase 5's for region_stacked, phase 6's for
     # region_bwd, phase 7's for flash_attention and ssd_scan);
@@ -899,7 +925,8 @@ def main() -> int:
     paths = {"compile_gradient": launches_main, "multi_inr": launches_multi,
              "fit": launches_fit, "lm_serve": launches_lm,
              "kernel_ops": launches_ops, "compile_auto": launches_auto,
-             "bank": launches_bank}
+             "bank": launches_bank, "async_serve": launches_async,
+             "drift": launches_drift}
     home = {"region_stacked": "multi_inr", "region_bwd": "fit",
             "flash_attention": "lm_serve", "ssd_scan": "kernel_ops"}
     for name, rec in kernels.items():
@@ -923,7 +950,8 @@ def main() -> int:
 def multi_inr_phase(log, torch, dev, cfg, f, params, coords, fused_cfg,
                     oracle, scaled_err, device_ms, timing, record, reading):
     """Phase 5; returns the launches made while it drove the multi-INR
-    paths (the kernel checks before it are not counted)."""
+    paths (the kernel checks before it are not counted) and the K weight
+    sets of its fleet (lane 0 is ``params``)."""
     from repro_torch.core import trace
     from repro_torch.core.pipeline import compile_gradient
     from repro_torch.inr.siren import siren_fn, siren_init
@@ -1207,7 +1235,7 @@ def multi_inr_phase(log, torch, dev, cfg, f, params, coords, fused_cfg,
             f"{reading(fn, K * N_LANE3)} (over K·N rows)")
     log("[multi] per-lane order 3: chunk-wide lanes torch.equal to the "
         "per-block walk")
-    return launches
+    return launches, weights
 
 
 def fit_phase(log, torch, dev, cfg, f, params, coords, fused_cfg, tiled_cfg,
@@ -1959,7 +1987,7 @@ def bank_phase(log, torch, dev, cfg, f, coords, fused_cfg, want, scaled_err,
     """Phase 9, filter banks and INR editing (the paper's benchmark) on the
     card; returns the launches of the bank path (the INSP bank compiled,
     served on the grid and on one chunk, then the filter library's bank
-    compiled and served).  ``want`` is phase 4's float64 order-2 oracle on
+    compiled and served), the INSP bank and its four heads' weights.  ``want`` is phase 4's float64 order-2 oracle on
     ``coords``: the feature matrix every head reads."""
     from repro_torch.configs.siren import InspConfig
     from repro_torch.core import pipeline as P
@@ -2124,7 +2152,280 @@ def bank_phase(log, torch, dev, cfg, f, coords, fused_cfg, want, scaled_err,
     log(f"[bank] phase 9 took {time.perf_counter() - t_phase:.1f} s")
     if not (launches.get("region") and launches.get("fused_chain")):
         raise AssertionError(f"phase 9 launched {launches}")
-    return launches
+    return launches, bank, psis
+
+
+def async_phase(log, torch, dev, cfg, f, params, fleet, bank, psis, coords,
+                fused_cfg, unfused_cfg, oracle, scaled_err, reading):
+    """Phase 10: the async serving engine, drift telemetry and codegen on
+    phase 4's SIREN, phase 5's fleet (``fleet``: its K weight sets, lane 0
+    ``params``) and phase 9's INSP bank (``bank``, its heads' ``psis``).
+    Returns the launches of the async engine's counted run and of the drift
+    reports."""
+    import copy
+    import gc
+    import importlib.util
+
+    import numpy as np
+
+    from repro_torch.core import codegen, dataflow
+    from repro_torch.core.pipeline import compile_gradient
+    from repro_torch.inr.insp import insp_apply
+    from repro_torch.kernels import common
+    from repro_torch.obs import TRACER, REGISTRY, build_perf_model, \
+        drift_report
+    from repro_torch.serve import (ArtifactStore, AsyncServingEngine,
+                                   BankArtifact, ServingEngine, bind_weights)
+
+    t_phase = time.perf_counter()
+    x64 = coords[:cfg.batch]
+    cgs = {o: compile_gradient(f, o, x64, config=fused_cfg, device=dev)
+           for o in (1, 2, 3)}
+    fleet_ids = [f"fleet{k}" for k in range(len(fleet))]
+    bank_ids = [f"insp{j}" for j in range(len(psis))]
+    targets = fleet_ids + ["siren1", "siren3"] + bank_ids
+
+    # the stream: ~10^5 rows in requests of 1-3,000 rows, every target at
+    # least once, made from a seed; the coordinates live on the card
+    rng = np.random.default_rng(SEED + 10)
+    n_req = 80
+    sizes = rng.integers(1, 3001, n_req)
+    who = np.concatenate([rng.permutation(len(targets)),
+                          rng.integers(0, len(targets),
+                                       n_req - len(targets))])
+    gen = torch.Generator().manual_seed(SEED + 10)
+    rows = (torch.rand(int(sizes.sum()), 2, generator=gen) * 2 - 1).to(dev)
+    stream, at = [], 0
+    for n, t in zip(sizes.tolist(), who.tolist()):
+        stream.append((targets[t], rows[at:at + n]))
+        at += n
+    total = at
+
+    store_dir = ROOT / "build" / "chip_smoke_async_store"
+    shutil.rmtree(store_dir, ignore_errors=True)
+    try:
+        store = ArtifactStore(str(store_dir))
+        base = cgs[2]
+
+        def build(engine):
+            engine.register(fleet_ids[0], base)
+            for k in range(1, len(fleet)):
+                if not store.has(base.signature, fleet_ids[k]):
+                    store.put_weights(base.signature, fleet_ids[k],
+                                      bind_weights(base, params, fleet[k]))
+                engine.register(fleet_ids[k], signature=base.signature,
+                                weight_id=fleet_ids[k])
+            engine.register("siren1", cgs[1])
+            engine.register("siren3", cgs[3])
+            engine.register_bank(bank_ids, BankArtifact(bank, bank_ids))
+            return engine
+
+        sync = build(ServingEngine(store, device=dev))
+        asyn = build(AsyncServingEngine(store, device=dev))
+        # a first pass of each uploads every launch shape's program and
+        # builds the resident row blocks (one-time host copies)
+        want = sync.serve(stream)
+        asyn.serve_async(stream)
+        torch.cuda.synchronize()
+
+        # the async path, counted, with any host sync raising
+        common.reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = asyn.serve_async(stream)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        launches = dict(common.LAUNCHES)
+        same = all(len(w) == len(g) and all(torch.equal(a, b)
+                                            for a, b in zip(w, g))
+                   for w, g in zip(want, got))
+        log(f"[async] stream: {n_req} requests, {total} rows over "
+            f"{len(targets)} targets (fleet K={len(fleet)} order 2, SIREN "
+            f"orders 1 and 3, {len(bank_ids)} bank filters); serve_async "
+            f"under set_sync_debug_mode('error'): no host sync; outputs "
+            f"torch.equal to sync serve: {same}; launches {launches}")
+        if not same:
+            raise AssertionError("serve_async differs from sync serve")
+        need = ["region", "region_stacked", "fused_chain"]
+        if not all(launches.get(k) for k in need):
+            raise AssertionError(f"async path launched {launches}, needs "
+                                 f"{need}")
+
+        # every target's rows against its float64 oracle
+        by_target = collections.defaultdict(list)
+        for i, (t, _) in enumerate(stream):
+            by_target[t].append(i)
+        worst = {}
+        for t, idx in by_target.items():
+            x = torch.cat([stream[i][1] for i in idx])
+            outs = [torch.cat(col) for col in zip(*(got[i] for i in idx))]
+            if t.startswith("fleet"):
+                ref = oracle(x, 2, weights=fleet[int(t[5:])])
+            elif t.startswith("siren"):
+                ref = oracle(x, int(t[5:]))
+            else:
+                feats = torch.cat([o.reshape(x.shape[0], -1)
+                                   for o in oracle(x, 2)], -1)
+                psi = [{k: v.double() for k, v in p.items()}
+                       for p in psis[int(t[4:])]]
+                ref = [insp_apply(psi, feats)]
+            if [tuple(o.shape) for o in outs] != \
+                    [tuple(r.shape) for r in ref]:
+                raise AssertionError(f"{t}: output shapes differ")
+            worst[t] = max(scaled_err(o, r)[1] for o, r in zip(outs, ref))
+        log(f"[async] max scaled err against float64 by target: "
+            + ", ".join(f"{t} {e:.2e}" for t, e in worst.items()))
+        if max(worst.values()) > 1e-4:
+            raise AssertionError(f"async outputs: scaled err "
+                                 f"{max(worst.values()):.3e} > 1e-4")
+
+        log(f"[async] {total} rows: sync serve "
+            f"{reading(lambda: sync.serve(stream), total)}; serve_async "
+            f"{reading(lambda: asyn.serve_async(stream), total)}")
+
+        # part of the stream submitted, full chunks dispatched before the
+        # drain, then the rest
+        def dispatched():
+            st = asyn.stats
+            return (st["async_chunks"] + st["async_multi_chunks"]
+                    + st["bank_groups"])
+        half = len(stream) // 2
+        d0 = dispatched()
+        for t, x in stream[:half]:
+            asyn.submit(t, x)
+        early = dispatched() - d0
+        for t, x in stream[half:]:
+            asyn.submit(t, x)
+        late = asyn.drain()
+        same = all(all(torch.equal(a, b) for a, b in zip(w, g))
+                   for w, g in zip(want, late))
+        log(f"[async] submit/drain: {early} chunks dispatched before the "
+            f"drain from the first {half} requests; outputs torch.equal to "
+            f"sync serve: {same}")
+        if not (same and early):
+            raise AssertionError("submit/drain differs or dispatched "
+                                 "nothing before the drain")
+
+        st, label = asyn.stats, asyn.stats.labels["engine"]
+        lat = {name: REGISTRY.get(name).summary(engine=label)
+               for name in ("serve_queue_wait_latency_s",
+                            "serve_request_latency_s")}
+        log(f"[async] engine: max_inflight {st['max_inflight']} (inflight "
+            f"{asyn.inflight}), host_unpad_s {st['host_unpad_s']:.4f}, "
+            f"chunks {st['async_chunks']}, blocks {st['async_blocks']}, "
+            f"multi-chunks {st['async_multi_chunks']}, bank groups "
+            f"{st['bank_groups']}, admissions {st['admissions']}, evictions "
+            f"{st['evictions']}; "
+            + "; ".join(f"{n} p50 {v['p50'] * 1e3:.3f} ms p95 "
+                        f"{v['p95'] * 1e3:.3f} ms p99 {v['p99'] * 1e3:.3f} "
+                        f"ms over {v['count']}" for n, v in lat.items()))
+        if not 1 <= st["max_inflight"] <= asyn.inflight:
+            raise AssertionError(f"max_inflight {st['max_inflight']}")
+
+        # telemetry overhead: serve_async with the tracer on and off, each
+        # round timed with the garbage collector off after a collection
+        # (as timeit does), so a collection lands in neither. A round's
+        # host wall on a shared host drifts by 10-20% for seconds at a
+        # time, more than the bound, so the min is taken over
+        # TELEMETRY_PAIRS pairs and each pair alternates which setting runs
+        # first
+        on, off = [], []
+        for r in range(TELEMETRY_PAIRS):
+            pair = ((False, off), (True, on))
+            for enabled, acc in (pair if r % 2 == 0 else pair[::-1]):
+                TRACER.enable() if enabled else TRACER.disable()
+                gc.collect()
+                gc.disable()
+                try:
+                    t0 = time.perf_counter()
+                    asyn.serve_async(stream)
+                    acc.append(time.perf_counter() - t0)
+                finally:
+                    gc.enable()
+        spans = len(TRACER.events)
+        TRACER.disable()
+        TRACER.clear()
+        t_on, t_off = min(on), min(off)
+        log(f"[async] telemetry: serve_async wall {t_on * 1e3:.2f} ms with "
+            f"the tracer on ({spans} spans in {TELEMETRY_PAIRS} rounds) vs "
+            f"{t_off * 1e3:.2f} ms off, min of {TELEMETRY_PAIRS} interleaved "
+            f"pairs (bound: 5% + 5 ms); rounds on "
+            + " ".join(f"{t * 1e3:.1f}" for t in on) + " ms, off "
+            + " ".join(f"{t * 1e3:.1f}" for t in off) + " ms")
+        if t_on > t_off * 1.05 + 0.005:
+            raise AssertionError(f"telemetry overhead {t_on / t_off:.3f}x")
+    finally:
+        shutil.rmtree(store_dir, ignore_errors=True)
+
+    # drift: each unit of one block timed with CUDA events, analytic row
+    # costs, then the card's calibrated ones (results/torch_op_row_cost.json)
+    arts = [("fused order 1", cgs[1]), ("fused order 2", cgs[2]),
+            ("unfused order 1", compile_gradient(f, 1, x64,
+                                                 config=unfused_cfg,
+                                                 device=dev))]
+    xblk = coords[3000:3000 + fused_cfg.block]
+    common.reset_launches()
+
+    def report(label, cg, costs):
+        rep = drift_report(cg, xblk, iters=7, warmup=2)
+        units = ", ".join(f"{u.name} {u.measured_s * 1e3:.4f} ms drift "
+                          f"{u.drift:.2f}" for u in rep.units)
+        log(f"[drift] {label} ({costs} row costs): {len(rep.units)} units "
+            f"on {rep.meta['backend']}: {units}; max drift "
+            f"{rep.max_drift:.2f}, min FIFO headroom {rep.min_headroom}")
+        if rep.min_headroom < 0:
+            raise AssertionError(f"{label}: FIFO headroom "
+                                 f"{rep.min_headroom}")
+
+    for label, cg in arts:
+        report(label, cg, "analytic")
+    try:
+        table = dataflow.load_op_row_cost(ROOT / "results" /
+                                          "torch_op_row_cost.json")
+        mm_per_k = dataflow.MM_ROW_COST_PER_K
+        for label, cg in arts:
+            cal = copy.copy(cg)
+            cal.perf_model = build_perf_model(cg.plan, cg.region_plan,
+                                              cg.config)
+            report(label, cal, "calibrated")
+    finally:
+        dataflow.reset_op_row_cost()
+    torch.cuda.synchronize()
+    launches_drift = dict(common.LAUNCHES)
+    log(f"[drift] calibrated table {table}, mm per K {mm_per_k:.4g}; "
+        f"launches {launches_drift}")
+    if not all(launches_drift.get(k) for k in
+               ("region", "fused_chain", "stream_matmul", "siren_layer")):
+        raise AssertionError(f"drift launched {launches_drift}")
+
+    # codegen: the emitted torch module on the card against the executor
+    for order in (1, 2):
+        cg = cgs[order]
+        run, _ = codegen.load_generated(cg.source)
+        x = coords[:cg.plan.batch]
+        out = run(codegen.graph_consts(cg.graph, cg.plan, device=dev), x)
+        err = max(scaled_err(a, b)[1] for a, b in zip(out, cg.apply(x)))
+        log(f"[codegen] order {order}: {len(cg.source.splitlines())} lines, "
+            f"exec-loaded on the card, {len(out)} outputs within "
+            f"{err:.2e} (scaled) of the executor")
+        if err > 1e-5:
+            raise AssertionError(f"codegen order {order}: scaled err "
+                                 f"{err:.3e}")
+
+    # the calibration itself, as scripts/torch_row_cost_calibrate.py runs it
+    spec = importlib.util.spec_from_file_location(
+        "torch_row_cost_calibrate",
+        ROOT / "scripts" / "torch_row_cost_calibrate.py")
+    calib = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(calib)
+    res = calib.calibrate(rows=4096)
+    log(f"[calibrate] rows=4096: {res['op_row_cost']}, mm per K "
+        f"{res['mm_row_cost_per_k']:.4g}, host-to-device "
+        f"{res['xshard_row_cost']} (Add {res['meta']['unit_s_per_row'] * 1e9:.3f} "
+        f"ns/row); analytic {dataflow._ANALYTIC_OP_ROW_COST}")
+    log(f"[async] phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    return launches, launches_drift
 
 
 if __name__ == "__main__":

@@ -66,8 +66,9 @@ from repro_torch.core.segment import (BUFFERING, BUFFERING_OPS, FUSED_MM_ACT,
 # The paper's HLS kernels are pipelined at II=1 per element for elementwise
 # streams; transcendentals (sin/cos/exp/...) occupy the deeper VPU pipeline,
 # which the reference measured at ~2x an add/mul on its TPU interpret + jnp
-# microbenchmarks (no H100 calibration exists yet).  MM emits one output
-# row every
+# microbenchmarks; the card's own table is
+# ``results/torch_op_row_cost.json`` (``scripts/torch_row_cost_calibrate.py``,
+# loaded only through ``load_op_row_cost``).  MM emits one output row every
 # ``ceil(K / parallelism)`` cycles (the paper's DSP initiation interval).
 # Ops missing from the table cost 1.  Buffering moves are charged 1 per row.
 # ---------------------------------------------------------------------------

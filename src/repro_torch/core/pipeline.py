@@ -63,14 +63,17 @@ class CompiledGradient:
 
     def __init__(self, graph: ComputeGraph, plan: SegmentPlan, *,
                  config: HardwareConfig, residents: dict, dispatch: list,
-                 device: torch.device, fn=None, order: int | None = None,
-                 autoconfig=None, region_plan=None):
+                 device: torch.device, source: str | None = None, fn=None,
+                 order: int | None = None, autoconfig=None,
+                 region_plan=None):
         self.graph = graph
         self.plan = plan
         self.config = config              # resolved HardwareConfig
         self.residents = ResidentEnv(residents)  # node id -> tensor
         self.dispatch = dispatch          # one (id, kind, kernel) per kernel
         self.device = device
+        self.source = source              # codegen.emit_python's module
+        self.perf_model: list[dict] = []  # obs.drift.build_perf_model
         self.fn = fn
         self.order = order
         self.autoconfig = autoconfig      # AutoConfigResult when config="auto"
@@ -295,18 +298,25 @@ def compile_from_graph(g: ComputeGraph, *,
                        block: int | None = None,
                        use_pallas: bool | None = None,
                        plan: SegmentPlan | None = None,
+                       emit_source: bool = True,
                        device=None, fn=None,
                        order: int | None = None,
                        autoconfig=None) -> CompiledGradient:
     """Compile an already-extracted, optimized ComputeGraph into a
-    CompiledGradient on ``device`` (CUDA unless the caller passes "cpu")."""
+    CompiledGradient on ``device`` (CUDA unless the caller passes "cpu").
+    The plan is built once (or taken as given) and drives the executor, the
+    emitted source (``emit_source``: ``core.codegen.emit_python``, kept as
+    ``cg.source``) and the dataflow summary alike; the oracle's per-unit
+    predictions ride on the artifact as ``cg.perf_model``."""
     if not check_streamable(g):
         raise ValueError("graph is not batch-streamable")
     device = resolve_device(device)
     cfg = as_hardware_config(config, block=block,
                              use_pallas=use_pallas).resolved()
     if plan is None:
-        plan = build_segment_plan(g, config=cfg)
+        with TRACER.span("compile.segment_plan", cat="compile") as sp:
+            plan = build_segment_plan(g, config=cfg)
+            sp.set(segments=len(plan.segments))
     B = plan.batch
     cfg = cfg.clamped(B)
     if B % cfg.block != 0:
@@ -318,7 +328,9 @@ def compile_from_graph(g: ComputeGraph, *,
     region_plan = None
     if cfg.fuse_regions:
         from repro_torch.core.regions import build_region_plan
-        region_plan = build_region_plan(plan, cfg)
+        with TRACER.span("compile.region_plan", cat="compile") as sp:
+            region_plan = build_region_plan(plan, cfg)
+            sp.set(regions=len(region_plan.regions))
 
     if not cfg.use_pallas:
         dispatch = [(s.id, s.kind, INTERPRET) for s in plan.segments]
@@ -331,19 +343,31 @@ def compile_from_graph(g: ComputeGraph, *,
     # residents once, on the device: the paper's on-chip tensors
     fp32_strict()
     residents: dict[int, torch.Tensor] = {}
-    for nid in plan.resident_order():
-        n = g.nodes[nid]
-        if n.op == "Const":
-            residents[nid] = const_tensor(n, device)
-        else:
-            residents[nid] = _eval_node(n, [residents[i] for i in n.inputs],
-                                        device=device)
-    residents = {k: v.contiguous() for k, v in residents.items()}
+    with TRACER.span("compile.residents", cat="compile"):
+        for nid in plan.resident_order():
+            n = g.nodes[nid]
+            if n.op == "Const":
+                residents[nid] = const_tensor(n, device)
+            else:
+                residents[nid] = _eval_node(
+                    n, [residents[i] for i in n.inputs], device=device)
+        residents = {k: v.contiguous() for k, v in residents.items()}
 
-    return CompiledGradient(g, plan, config=cfg, residents=residents,
-                            dispatch=dispatch, device=device, fn=fn,
-                            order=order, autoconfig=autoconfig,
-                            region_plan=region_plan)
+    source = None
+    if emit_source:
+        from repro_torch.core import codegen
+        with TRACER.span("compile.codegen", cat="compile"):
+            source = codegen.emit_python(g, plan=plan, config=cfg,
+                                         region_plan=region_plan)
+    cg = CompiledGradient(g, plan, config=cfg, residents=residents,
+                          dispatch=dispatch, device=device, source=source,
+                          fn=fn, order=order, autoconfig=autoconfig,
+                          region_plan=region_plan)
+    # the oracle's per-unit predictions, recorded on the artifact so a
+    # DriftReport can compare them against measured time (obs.drift)
+    from repro_torch.obs.drift import build_perf_model
+    cg.perf_model = build_perf_model(plan, region_plan, cfg)
+    return cg
 
 
 _CACHE: dict[tuple, CompiledGradient] = {}
@@ -419,8 +443,12 @@ def _trace_graph(fn, order: int, trace_b: int, shape, dtype,
         out_features = fn(example).shape[-1]
     gfn = paper_gradients(fn, order, out_features, shape[-1],
                           batch=trace_b, device=device, dtype=dt)
-    g = extract_graph(gfn, example)
-    optimize(g)
+    with TRACER.span("compile.trace", cat="compile", order=order,
+                     trace_b=trace_b):
+        g = extract_graph(gfn, example)
+    with TRACER.span("compile.passes", cat="compile") as sp:
+        optimize(g)
+        sp.set(nodes=len(g.nodes))
     return g
 
 
@@ -510,8 +538,11 @@ def compile_gradient(fn, order: int, example_coords, *,
             return cg
         _STATS["store_misses"] += 1
 
-    g = _trace_graph(fn, order, trace_b, shape, dtype, device)
-    cg = compile_from_graph(g, config=cfg, device=device, fn=fn, order=order)
+    with TRACER.span("compile", cat="compile", order=order,
+                     mode="explicit"):
+        g = _trace_graph(fn, order, trace_b, shape, dtype, device)
+        cg = compile_from_graph(g, config=cfg, device=device, fn=fn,
+                                order=order)
     _CACHE[key] = cg
     if store is not None:
         store.put(cg, request_key=rk)
@@ -572,7 +603,8 @@ def _compile_auto(fn, order: int, shape, dtype, *, block=None,
 
     with TRACER.span("compile", cat="compile", order=order, mode="auto"):
         g = _trace_graph(fn, order, trace_b, shape, dtype, device)
-        plan = build_segment_plan(g)
+        with TRACER.span("compile.segment_plan", cat="compile"):
+            plan = build_segment_plan(g)
         result = _auto_search(g, plan, base, device)
         cfg = result.config
 

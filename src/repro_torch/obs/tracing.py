@@ -1,5 +1,7 @@
 """The port's own copy of ``repro.obs.tracing`` (the port imports nothing of
-the JAX package); keep the two in step.
+the JAX package); keep the two in step. Here ``span()`` returns a plain
+context-manager object rather than a generator one: the same events, at
+a fraction of the cost on the serving path.
 
 Nestable span tracing with Chrome/Perfetto trace-event export.
 
@@ -10,7 +12,7 @@ kernel can be spanned from Python; device time shows up as the duration
 of the host span that blocks on it.
 
 The tracer is OFF by default.  When disabled, ``span()`` costs one
-attribute read and yields a shared null object — cheap enough to leave
+attribute read and returns a shared null context manager — cheap enough to leave
 in every hot path (the obs benchmark gates total overhead at ≤5%).
 When enabled, each span records ``perf_counter_ns`` start/duration plus
 free-form args, and ``export_chrome()`` emits the standard trace-event
@@ -45,10 +47,16 @@ class SpanEvent:
 
 
 class _NullSpan:
-    """What ``span()`` yields when tracing is disabled (and also when
-    enabled — the yielded handle only matters for ``set``)."""
+    """What ``span()`` returns when tracing is disabled: a context manager
+    that records nothing and yields itself."""
 
     __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        return None
 
     def set(self, **kw) -> None:
         pass
@@ -58,10 +66,30 @@ _NULL = _NullSpan()
 
 
 class _LiveSpan:
-    __slots__ = ("args",)
+    """One open span: a context manager that records its SpanEvent on exit,
+    exception or not. A plain class rather than a generator-based context
+    manager, so a span costs a few attribute stores on the serving path."""
 
-    def __init__(self, args: dict):
+    __slots__ = ("tracer", "name", "cat", "tid", "args", "t0")
+
+    def __init__(self, tracer, name: str, cat: str, tid: int, args: dict):
+        self.tracer = tracer
+        self.name = name
+        self.cat = cat
+        self.tid = tid
         self.args = args
+
+    def __enter__(self):
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        dur = time.perf_counter_ns() - self.t0
+        tracer = self.tracer
+        with tracer._lock:
+            tracer.events.append(
+                SpanEvent(self.name, self.cat, self.t0, dur, self.tid,
+                          self.args))
 
     def set(self, **kw) -> None:
         """Attach args discovered while the span is open (e.g. the number
@@ -103,21 +131,12 @@ class Tracer:
 
     # -- recording ---------------------------------------------------------
 
-    @contextmanager
     def span(self, name: str, cat: str = "obs", tid: int = 0, **args):
+        """A context manager timing its body; it yields a handle whose
+        ``set`` adds args while the span is open."""
         if not self.enabled:
-            yield _NULL
-            return
-        live_args = dict(args)
-        t0 = time.perf_counter_ns()
-        try:
-            yield _LiveSpan(live_args)
-        finally:
-            dur = time.perf_counter_ns() - t0
-            with self._lock:
-                self.events.append(
-                    SpanEvent(name=name, cat=cat, ts_ns=t0, dur_ns=dur,
-                              tid=tid, args=live_args))
+            return _NULL
+        return _LiveSpan(self, name, cat, tid, args)
 
     def instant(self, name: str, cat: str = "obs", tid: int = 0, **args):
         """Zero-duration marker (renders as a tick on the timeline)."""

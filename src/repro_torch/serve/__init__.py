@@ -13,11 +13,16 @@
   * ``engine``    — ServingEngine: the synchronous request-level front
                     door — (inr_id, coords) queries grouped by artifact and
                     padded through ``apply_batched``, filter requests
-                    grouped by bank.
+                    grouped by bank;
+  * ``async_engine`` — AsyncServingEngine: the same front door with
+                    double-buffered dispatch and continuous batching
+                    (``submit`` / ``drain`` / ``serve_async``), results
+                    ``torch.equal`` to ``serve``.
 
-Not ported yet: the async engine (ROADMAP Queue 1 item 7).
+Not ported yet: row and K-axis sharding (ROADMAP Queue 1 item 12).
 """
 
+from repro_torch.serve.async_engine import AsyncServingEngine
 from repro_torch.serve.bank import BankArtifact
 from repro_torch.serve.engine import ServingEngine
 from repro_torch.serve.multi_inr import (MultiINRArtifact, bind_weights,
@@ -28,5 +33,5 @@ from repro_torch.serve.store import (ArtifactStore, arch_signature,
 __all__ = [
     "ArtifactStore", "arch_signature", "fn_fingerprint", "BankArtifact",
     "MultiINRArtifact", "bind_weights", "const_payload", "pad_rows",
-    "ServingEngine",
+    "ServingEngine", "AsyncServingEngine",
 ]

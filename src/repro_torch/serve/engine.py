@@ -23,8 +23,8 @@ in-process behind bounded LRU caches, so steady-state serving touches
 neither the tracer nor the disk.
 
 Not ported yet: row and K-axis sharding and ``shard_chunking`` (ROADMAP
-Queue 1 item 12), and the async engine (item 7).  Their stats keys stay,
-at zero.
+Queue 1 item 12).  Their stats keys stay, at zero.  The asynchronous,
+continuously batched engine is ``serve.async_engine.AsyncServingEngine``.
 
 Bounded caches.  ``_payloads`` (weight payloads, frequency-ranked) and
 ``_multi`` (stacked multi-INR artifacts) are bounded (``payload_cache`` /
@@ -223,6 +223,9 @@ class ServingEngine:
                 raise KeyError(f"store has no weights {wid!r} under {sig}")
         self._routes[inr_id] = (sig, wid)
         return sig, wid
+
+    def registered(self) -> list[str]:
+        return sorted(self._routes)
 
     def register_bank(self, filter_ids, bank=None, *,
                       signature: str | None = None) -> str:

@@ -173,6 +173,12 @@ class MultiINRArtifact:
     def n_inrs(self) -> int:
         return len(self.inr_ids)
 
+    @property
+    def k_sharded(self) -> bool:
+        """Whether the K axis is sharded over devices: never, until K-axis
+        sharding is ported (ROADMAP Queue 1 item 12)."""
+        return False
+
     def streamed_outputs(self) -> list[int]:
         return [o for o in self.base.graph.outputs
                 if o not in self.base.plan.resident]
@@ -295,7 +301,7 @@ class MultiINRArtifact:
                              f"{self.n_inrs}")
         if n == 0:
             return tuple(
-                self._resident_output(o, 0) if o in base.plan.resident
+                self.resident_output(o, 0) if o in base.plan.resident
                 else torch.zeros((K, 0) + tuple(base.graph.nodes[o].shape[1:]),
                                  dtype=torch_dtype(base.graph.nodes[o].dtype),
                                  device=self.device)
@@ -305,10 +311,11 @@ class MultiINRArtifact:
             edge = coords[:, -1:].expand((K, pad) + tuple(coords.shape[2:]))
             coords = torch.cat([coords, edge], dim=1)
         streamed = iter(o[:, :n] for o in self._serve(coords))
-        return tuple(self._resident_output(o, n) if o in base.plan.resident
+        return tuple(self.resident_output(o, n) if o in base.plan.resident
                      else next(streamed) for o in base.graph.outputs)
 
-    def _resident_output(self, o: int, n: int):
+    def resident_output(self, o: int, n: int):
+        """Resident output ``o`` of every lane for ``n`` rows: [K, ...]."""
         v = self.residents[o]                # [K, ...]
         B = self.base.plan.batch
         if (o in self.base.plan.rowconst and v.dim() > 1

@@ -17,13 +17,16 @@ weight payloads live in per-INR entries under it:
     <root>/index.json                 request-key -> {signature, weights}
     <root>/<signature>/meta.json      order, config, plan record, autoconfig
     <root>/<signature>/graph.json     structural graph (no Const values)
+    <root>/<signature>/source.py      the codegen module (inspection only)
     <root>/<signature>/weights/<id>/  one checkpoint dir per weight set
                                       (``checkpoint.ckpt``: manifest +
                                       per-leaf .npy with sha1 checksums)
 
-The port writes no ``source.py`` (it has no codegen yet); entries the
-reference wrote load all the same, ignoring it, and keep their autoconfig
-record.
+``source.py`` is ``cg.source``, the torch module ``core.codegen`` emits;
+a restore does not re-emit it but attaches the persisted text.  Entries the
+reference wrote carry a JAX ``source.py``: the port restores them all the
+same (with their autoconfig record), never execs that file, and leaves
+their ``cg.source`` at None.
 
 ``compile_gradient(..., store=...)`` is a three-level lookup: in-process
 cache -> this store (via ``index.json``, keyed by a cross-process
@@ -50,6 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import ckpt
+from repro_torch.core.codegen import SOURCE_HEADER
 from repro_torch.core.config import HardwareConfig
 from repro_torch.core.graph import ComputeGraph, Node
 from repro_torch.obs.metrics import MetricsView, counter as _obs_counter
@@ -430,7 +434,7 @@ class ArtifactStore:
 
     def _put_arch(self, cg, default_weights: str) -> str:
         """Write the per-signature architecture data (graph, config, plan
-        record, autoconfig) once; idempotent."""
+        record, autoconfig, source) once; idempotent."""
         signature = cg.signature
         entry = self._entry(signature)
         if self.has(signature):
@@ -457,6 +461,8 @@ class ArtifactStore:
         }
         _atomic_write(os.path.join(entry, "graph.json"),
                       json.dumps(graph_to_json(cg.graph)) + "\n")
+        if cg.source is not None:
+            _atomic_write(os.path.join(entry, "source.py"), cg.source)
         _atomic_write(os.path.join(entry, "meta.json"),
                       json.dumps(meta, indent=1) + "\n")
         self.stats["puts"] += 1
@@ -548,7 +554,8 @@ class ArtifactStore:
         and runs the BACK half of the compiler (``compile_from_graph``) —
         the tracer is never invoked.  The restored plan is verified against
         the persisted plan record; a persisted autoconfig record rides on
-        the artifact again."""
+        the artifact again, and so does the persisted codegen source (not
+        re-emitted) when the port wrote it."""
         from repro_torch.core.autoconfig import result_from_dict
         from repro_torch.core.pipeline import compile_from_graph
 
@@ -561,12 +568,18 @@ class ArtifactStore:
         g = graph_from_json(self._graph_doc(signature), consts)
         cfg = HardwareConfig.from_dict(meta["config"])
         cg = compile_from_graph(g, config=cfg, order=meta["order"],
-                                device=device)
+                                emit_source=False, device=device)
         got = [[s.kind, list(s.nodes)] for s in cg.plan.segments]
         if got != meta["plan"]["segments"]:
             raise IOError(f"restored plan disagrees with persisted plan "
                           f"record for {signature} — store entry is stale "
                           f"or the planner changed incompatibly")
+        src = os.path.join(self._entry(signature), "source.py")
+        if os.path.isfile(src):
+            with open(src) as f:
+                text = f.read()
+            if text.startswith(SOURCE_HEADER):   # not the reference's JAX
+                cg.source = text
         if meta.get("autoconfig"):
             cg.autoconfig = result_from_dict(meta["autoconfig"])
         cg.provenance = "store"
