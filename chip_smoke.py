@@ -72,13 +72,30 @@ Phases (any failure exits non-zero; nothing is caught):
      within 1e-5 of max|oracle|, bf16 at most twice the plain version's
      error; the host time of encoding the bf16 kernel's TMA tensor maps;
      ssd_scan against its plain version (<= 1e-6 scaled) at the mamba2-2.7b
-     shape and a ragged one, then through ``kernels/ops.py``; qwen3-8b at
+     and jamba-v0.1-52b prefill shapes and a ragged one, with device ms and
+     bound at each, then through ``kernels/ops.py``; qwen3-8b at
      full width: 4 layers in fp32, the kernel prefill against the "flash"
      prefill (last logits and caches <= 1e-4 scaled) and one decode step
      against the kernel forward's argmax; then all 36 layers served in
      bf16 (B = 2, S = 4,096): prefill through the kernel (36 launches per
      prefill), 16 greedy decode steps (no launch), the "flash" prefill's
      logits beside the kernel's;
+  7e. the SSM, MoE and hybrid families: one mamba layer's ssd_chunked at
+     mamba2-2.7b's widths (B = 1, S = 1,024, fp32) against a float64
+     step-by-step recurrence (<= 1e-4 scaled, one ssd_scan launch);
+     mamba2-2.7b (4 layers) and deepseek-moe-16b (2 layers) at full width
+     in fp32 (B = 1, S = 512): the prefill on the card against the same
+     weights and tokens through the same entry points on the CPU (last
+     logits and every cache leaf <= 1e-4 scaled), one decode step against
+     the forward's argmax where it leads by 1e-3 (the MoE model with a
+     capacity that drops nothing, since its capacity follows the token
+     count); then, counted, mamba2-2.7b (64 layers), deepseek-moe-16b (28)
+     and one period of jamba-v0.1-52b (8 of 32 layers) served in bf16 (B =
+     2, S = 4,096; weights drawn in bf16, one model at a time): prefill ms,
+     tokens/s, 16 greedy decode steps, busy share, device time by kernel
+     class, GB of weights, launches per prefill (ssd_scan 64 / 0 / 7,
+     flash_attention 0 / 28 / 1; none in decode), the "flash" prefill's
+     logits beside the kernel's for the two with attention;
   8. the paper's compiler half on phase 4's SIREN: ``compile_gradient(...,
      config="auto")`` at orders 1-2 with the measure hook (each candidate's
      real ``apply_batched`` timed on the card; the analytic winner, every
@@ -128,7 +145,8 @@ Phases (any failure exits non-zero; nothing is caught):
      fused_chain, stream_matmul and siren_layer, phase 5 region_stacked
      (stacked path) and region and fused_chain (per-lane path), phase 6
      region and region_bwd, phase 7 flash_attention (LM serving) and
-     ssd_scan (the kernel library's entry point), phase 8 region, phase 9
+     ssd_scan (the kernel library's entry point), phase 7e ssd_scan and
+     flash_attention (``lm_families``), phase 8 region, phase 9
      region and fused_chain (the bank path), phase 10 region,
      region_stacked and fused_chain (``async_serve``: the counted
      ``serve_async``) and region, fused_chain, stream_matmul and
@@ -167,7 +185,7 @@ SEED = 0
 TELEMETRY_PAIRS = 30
 # phase 7: attention checks (label, (B, Sq, H, KH, D), Sk, dtype, window),
 # the first at the served model's prefill shape; ssd_scan shapes [BH, NC, P,
-# N], the first mamba2-2.7b's (B = 2, S = 4,096, chunk 128); the served
+# N], mamba2-2.7b's and jamba's (B = 2, S = 4,096, chunk 128); the served
 # model, its fp32 check's depth and length, its length, its decode steps
 ATTN_CASES = [("qwen3-8b prefill", (2, 4096, 32, 8, 128), 4096, "bfloat16", 0),
               ("gemma3-4b local layer", (1, 3000, 8, 4, 256), 3000,
@@ -177,9 +195,19 @@ ATTN_CASES = [("qwen3-8b prefill", (2, 4096, 32, 8, 128), 4096, "bfloat16", 0),
               ("phi3 MHA", (1, 2048, 32, 32, 96), 2048, "bfloat16", 0),
               ("q shorter than k", (2, 100, 32, 8, 128), 1000, "float32", 0),
               ("phi3-like MHA", (1, 2048, 32, 32, 96), 2048, "float32", 0)]
-SCAN_SHAPES = [(160, 32, 64, 128), (3, 5, 7, 9)]
+SCAN_SHAPES = [(160, 32, 64, 128), (256, 32, 64, 16), (3, 5, 7, 9)]
 LM_ARCH, LM_F32_LAYERS, LM_F32_SEQ, LM_SEQ, LM_STEPS = \
     "qwen3-8b", 4, 1024, 4096, 16
+# phase 7e, the SSM, MoE and hybrid families: the full-width ssd_chunked
+# check's (B, S); the fp32 card-against-CPU models (arch, layers), their
+# batch and length; the served bf16 models (arch, layers), their batch,
+# length and decode steps (jamba: one period of its 32 layers)
+FAM_SSD = (1, 1024)
+FAM_F32 = [("mamba2-2.7b", 4), ("deepseek-moe-16b", 2)]
+FAM_F32_BATCH, FAM_F32_SEQ = 1, 512
+FAM_SERVED = [("mamba2-2.7b", 64), ("deepseek-moe-16b", 28),
+              ("jamba-v0.1-52b", 8)]
+FAM_BATCH, FAM_SEQ, FAM_STEPS = 2, 4096, 16
 
 
 def log(*a):
@@ -901,6 +929,8 @@ def main() -> int:
     # -- 7. LM serving --------------------------------------------------------
     launches_ops, launches_lm = lm_phase(log, torch, dev, scaled_err,
                                          device_ms, timing, record)
+    launches_families = lm_families_phase(log, torch, dev, scaled_err,
+                                          device_ms)
 
     # -- 8. the compiler half: config="auto", the dataflow model -------------
     launches_auto = autoconfig_phase(log, torch, cfg, f, coords, fused_cfg,
@@ -920,15 +950,17 @@ def main() -> int:
     # -- 11. launches --------------------------------------------------------
     # ``launches`` counts the path a kernel was ported for (phase 4's for
     # PR 11's kernels, phase 5's for region_stacked, phase 6's for
-    # region_bwd, phase 7's for flash_attention and ssd_scan);
-    # ``launches_by_path`` gives every path's own count.
+    # region_bwd, phase 7's qwen3 serving for flash_attention, phase 7e's
+    # SSM / MoE / hybrid serving for ssd_scan); ``launches_by_path`` gives
+    # every path's own count.
     paths = {"compile_gradient": launches_main, "multi_inr": launches_multi,
              "fit": launches_fit, "lm_serve": launches_lm,
+             "lm_families": launches_families,
              "kernel_ops": launches_ops, "compile_auto": launches_auto,
              "bank": launches_bank, "async_serve": launches_async,
              "drift": launches_drift}
     home = {"region_stacked": "multi_inr", "region_bwd": "fit",
-            "flash_attention": "lm_serve", "ssd_scan": "kernel_ops"}
+            "flash_attention": "lm_serve", "ssd_scan": "lm_families"}
     for name, rec in kernels.items():
         rec["launches_by_path"] = {p: c.get(name, 0) for p, c in paths.items()}
         rec["launches"] = rec["launches_by_path"][
@@ -1494,14 +1526,18 @@ def attention_flops(B, Sq, Sk, H, D, *, causal, window):
 
 def kernel_classes(times):
     """Device ms by class of kernel name: the port's attention kernels
-    (fa_tc_kernel for bf16, fa_fwd_kernel for fp32), library GEMMs (cuBLAS
+    (fa_tc_kernel for bf16, fa_fwd_kernel for fp32), its scan kernel
+    (ssd_scan_kernel), library GEMMs (cuBLAS
     names them gemm*, gemv* or nvjet*), and everything else (norms, rope,
     casts, copies)."""
-    out = {"flash_attention": 0.0, "gemm": 0.0, "other": 0.0}
+    out = {"flash_attention": 0.0, "ssd_scan": 0.0, "gemm": 0.0,
+           "other": 0.0}
     for key, ms in times.items():
         low = key.lower()
         if "fa_tc_kernel" in key or "fa_fwd_kernel" in key:
             out["flash_attention"] += ms
+        elif "ssd_scan_kernel" in key:
+            out["ssd_scan"] += ms
         elif any(w in low for w in ("gemm", "gemv", "nvjet", "cutlass",
                                     "xmma", "sm90_")):
             out["gemm"] += ms
@@ -1620,8 +1656,12 @@ def lm_phase(log, torch, dev, scaled_err, device_ms, timing, record):
         got, want = ssd_scan(st, dec), ssd_scan_plain(st, dec)
         torch.cuda.synchronize()
         scan_errs.append(scaled_err(got, want))
+        b_ms, b_by = bound_ms(4 * (2 * st.numel() + dec.numel()),
+                              2 * st.numel(), FP32_FLOPS_PER_S)
         log(f"[lm] ssd_scan {shape}: scaled err {scan_errs[-1][1]:.3e}, "
-            f"torch.equal {torch.equal(got, want)}")
+            f"torch.equal {torch.equal(got, want)}; "
+            f"{device_ms(lambda: ssd_scan(st, dec))} ms/launch on the "
+            f"device, bound {b_ms:.6f} ms by {b_by}")
         if scan_errs[-1][1] > 1e-6:
             raise AssertionError(f"ssd_scan {shape} disagrees")
         inputs.append((st, dec))
@@ -1778,6 +1818,252 @@ def lm_phase(log, torch, dev, scaled_err, device_ms, timing, record):
     if not launches_lm.get("flash_attention"):
         raise AssertionError(f"LM serving launched {launches_lm}")
     return launches_ops, launches_lm
+
+
+def lm_families_phase(log, torch, dev, scaled_err, device_ms):
+    """Phase 7e, the SSM, MoE and hybrid families; returns the launches of
+    their bf16 serving, counted from 0 just before it (the checks before
+    it are not counted)."""
+    import dataclasses
+    import functools
+    import math
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import common
+    from repro_torch.launch.steps import (HParams, build_prefill_step,
+                                          build_serve_step)
+    from repro_torch.models import layers, zoo
+    from repro_torch.models.template import (count_template_params,
+                                             init_params, tree_leaves,
+                                             tree_map)
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    rng = np.random.default_rng(SEED + 11)
+
+    def flat(tree, prefix=""):
+        if isinstance(tree, dict):
+            return {k: v for key, sub in tree.items()
+                    for k, v in flat(sub, f"{prefix}{key}/").items()}
+        return {prefix[:-1]: tree}
+
+    def pad(cache, n):
+        """The attention caches (k, v leaves) padded by n positions."""
+        return {g: {k: (torch.nn.functional.pad(a, (0, 0, 0, 0, 0, n))
+                        if k in ("k", "v") else a) for k, a in sub.items()}
+                for g, sub in cache.items()}
+
+    def mixers(cfg):
+        """(attention layers, mamba layers) of a config."""
+        if cfg.family == "ssm":
+            return 0, cfg.n_layers
+        if cfg.family == "hybrid":
+            n_attn = sum(cfg.is_attn_layer(i) for i in range(cfg.n_layers))
+            return n_attn, cfg.n_layers - n_attn
+        return cfg.n_layers, 0
+
+    # -- 7e-1. a full-width mamba layer's ssd_chunked against float64 -------
+    cfg = get_config("mamba2-2.7b")
+    (b, s), h, p, n = FAM_SSD, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    xh = torch.randn((b, s, h, p), generator=gen, device=dev)
+    # dt log-uniform in [1e-3, 1e-2] and A from the ssm_a rule: a chunk's
+    # decay exp(128 dt a) spans e^-20 to e^-0.13, so the inter-chunk term
+    # carries weight
+    dt = torch.exp(math.log(1e-3) + math.log(10.0) * torch.rand(
+        (b, s, h), generator=gen, device=dev))
+    a_log = torch.log(1.0 + 15.0 * torch.rand((h,), generator=gen,
+                                              device=dev))
+    Bm = torch.randn((b, s, n), generator=gen, device=dev)
+    Cm = torch.randn((b, s, n), generator=gen, device=dev)
+    got = launched_by(common.LAUNCHES, lambda: layers.ssd_chunked(
+        xh, dt, a_log, Bm, Cm, cfg.ssm_chunk))
+    y = layers.ssd_chunked(xh, dt, a_log, Bm, Cm, cfg.ssm_chunk)
+    a = -torch.exp(a_log.double())
+    state = torch.zeros((b, h, p, n), dtype=torch.float64, device=dev)
+    want = torch.empty((b, s, h, p), dtype=torch.float64, device=dev)
+    for t in range(s):
+        dt_t = dt[:, t].double()
+        state = state * torch.exp(dt_t * a)[..., None, None] + (
+            dt_t[..., None, None] * xh[:, t, :, :, None].double()
+            * Bm[:, t, None, None, :].double())
+        want[:, t] = torch.einsum("bhpn,bn->bhp", state, Cm[:, t].double())
+    err = scaled_err(y, want)
+    log(f"[lm] ssd_chunked at mamba2-2.7b's widths (h {h}, p {p}, n {n}, "
+        f"chunk {cfg.ssm_chunk}), B={b} S={s}, fp32 on the card: scaled err "
+        f"against a float64 step-by-step recurrence {err[1]:.3e} (<= 1e-4); "
+        f"launches {dict(got)}")
+    if err[1] > 1e-4 or got != collections.Counter(ssd_scan=1):
+        raise AssertionError(f"ssd_chunked: err {err[1]:.3e}, launches "
+                             f"{dict(got)}")
+    del xh, dt, Bm, Cm, y, want, state
+
+    # -- 7e-2. fp32, full width, reduced depth: the card against the CPU ----
+    B, S = FAM_F32_BATCH, FAM_F32_SEQ
+    for arch, depth in FAM_F32:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), n_layers=depth,
+                                  compute_dtype="float32")
+        params = init_params(zoo.model_template(cfg), SEED, device=dev)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                             (B, S + 1))).to(dev)
+        hp = HParams()
+        logits, cache = build_prefill_step(cfg, hp)(params,
+                                                    {"tokens": toks[:, :S]})
+        cpu = tree_map(lambda t: t.cpu(), params)
+        logits_c, cache_c = build_prefill_step(cfg, hp)(
+            cpu, {"tokens": toks[:, :S].cpu()})
+        errs = {"logits": scaled_err(logits.cpu(), logits_c)[1]}
+        cache_c = flat(cache_c)
+        for k, t in flat(cache).items():
+            errs[k] = scaled_err(t.cpu(), cache_c[k])[1]
+        del cpu, cache_c, logits_c
+        # an MoE layer's capacity follows its token count, so the forward
+        # over S + 1 may drop pairs that prefill and decode keep: the MoE
+        # model's decode check runs all three with a capacity that drops
+        # nothing
+        moe_ffn = layers.moe_ffn
+        if cfg.n_experts:
+            layers.moe_ffn = functools.partial(moe_ffn, capacity_factor=100.0)
+        try:
+            with torch.no_grad():
+                full, _ = zoo.forward(cfg, params, {"tokens": toks},
+                                      attn_impl="pallas")
+                if cfg.n_experts:
+                    _, cache = zoo.prefill(cfg, params,
+                                           {"tokens": toks[:, :S]},
+                                           attn_impl="pallas")
+            tok, _ = build_serve_step(cfg, hp)(params, pad(cache, 8),
+                                               toks[:, S], S)
+        finally:
+            layers.moe_ffn = moe_ffn
+        last = full[:, -1].float()
+        top = last.topk(2, dim=-1).values
+        rows = (top[:, 0] - top[:, 1]) / last.abs().max() > 1e-3
+        match = bool((tok.long() == last.argmax(-1))[rows].all())
+        log(f"[lm] {arch} fp32, full width, {depth} layers, B={B} S={S}: "
+            f"prefill on the card against the CPU (plain versions), scaled "
+            f"err {', '.join(f'{k} {v:.3e}' for k, v in errs.items())}; "
+            f"decode at pos {S}: token {tok.tolist()} vs forward argmax "
+            f"{last.argmax(-1).tolist()}, {int(rows.sum())} of {B} rows "
+            f"compared (lead > 1e-3 scaled)"
+            + (", capacity_factor 100 for the decode check"
+               if cfg.n_experts else "")
+            + f"; {time.perf_counter() - t0:.1f} s")
+        if max(errs.values()) > 1e-4 or not match:
+            raise AssertionError(f"{arch} fp32: the card disagrees")
+        del params, logits, cache, full, last
+        torch.cuda.empty_cache()
+
+    # -- 7e-3. bf16 served at full width, counted ---------------------------
+    common.reset_launches()
+    hp = HParams()
+    B, S, STEPS = FAM_BATCH, FAM_SEQ, FAM_STEPS
+    for arch, depth in FAM_SERVED:
+        t0 = time.perf_counter()
+        full_cfg = get_config(arch)
+        cfg = dataclasses.replace(full_cfg, n_layers=depth)
+        n_attn, n_mamba = mixers(cfg)
+        params = init_params(zoo.model_template(cfg), SEED, device=dev,
+                             dtype=hp.serve_dtype)
+        torch.cuda.empty_cache()
+        nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+        size = f"{nbytes / 1e9:.2f} GB of weights"
+        if depth != full_cfg.n_layers:
+            full_bytes = 2 * count_template_params(
+                zoo.model_template(full_cfg))
+            size += (f" ({depth} of {full_cfg.n_layers} layers: the whole "
+                     f"model's {full_bytes / 1e9:.1f} GB of bf16 weights do "
+                     f"not fit one 80 GB card)")
+        batch = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (B, S))).to(dev)}
+        prefill = build_prefill_step(cfg, hp)
+        walls = []
+        want = +collections.Counter(flash_attention=n_attn, ssd_scan=n_mamba)
+        for _ in range(2):                      # the first call warms up
+            before = collections.Counter(common.LAUNCHES)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits, cache = prefill(params, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+            got = collections.Counter(common.LAUNCHES) - before
+            if got != want:
+                raise AssertionError(f"{arch} bf16 prefill launched "
+                                     f"{dict(got)}, want {dict(want)}")
+        pre_kernels = device_ms(lambda: prefill(params, batch), 1,
+                                by_kernel=True)
+        pre_dev = sum(pre_kernels.values()) if pre_kernels else None
+        shapes = {k: tuple(t.shape) for k, t in flat(
+            zoo.init_cache(cfg, B, S, abstract=True)).items()}
+        if not bool(torch.isfinite(logits).all()) or {
+                k: tuple(t.shape) for k, t in flat(cache).items()} != shapes:
+            raise AssertionError(f"{arch} bf16 prefill: non-finite logits "
+                                 f"or a cache of the wrong layout")
+        serve = build_serve_step(cfg, hp)
+        dcache = pad(cache, STEPS)
+        del cache
+        tok = logits.argmax(-1)
+        out = []
+        before = collections.Counter(common.LAUNCHES)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i in range(STEPS):
+            tok, _ = serve(params, dcache, tok, S + i)
+            out.append(tok)
+        torch.cuda.synchronize()
+        dec_wall = time.perf_counter() - t1
+        if collections.Counter(common.LAUNCHES) != before:
+            raise AssertionError(f"{arch} decode launched a kernel")
+        toks_out = torch.stack(out, 1)
+        if not bool(((toks_out >= 0) & (toks_out < cfg.vocab_size)).all()):
+            raise AssertionError(f"{arch} decode tokens out of range: "
+                                 f"{toks_out}")
+        step_kernels = device_ms(lambda: serve(params, dcache, tok,
+                                               S + STEPS - 1), 1,
+                                 by_kernel=True)
+        step_dev = sum(step_kernels.values()) if step_kernels else None
+        del dcache
+        flash = ""
+        if n_attn:
+            logits_f, _ = build_prefill_step(cfg, HParams("flash"))(params,
+                                                                    batch)
+            if not bool(torch.isfinite(logits_f).all()):
+                raise AssertionError(f"{arch} bf16 flash prefill: non-finite "
+                                     f"logits")
+            flash = (f"; kernel against flash prefill: last logits scaled "
+                     f"diff {scaled_err(logits, logits_f)[1]:.3e}")
+            del logits_f
+        pre_ms, dec_ms = walls[-1] * 1e3, dec_wall * 1e3 / STEPS
+
+        def busy(dev_ms, wall_ms):
+            return f"{dev_ms / wall_ms:.3f}" if dev_ms else "not measured"
+        log(f"[lm] {arch} bf16, {depth} layers, B={B} S={S}, {size}: "
+            f"prefill {pre_ms:.1f} ms ({B * S / walls[-1]:.0f} tokens/s; "
+            f"first call {walls[0] * 1e3:.1f} ms), device {pre_dev} ms (busy "
+            f"{busy(pre_dev, pre_ms)}); decode {STEPS} steps {dec_ms:.2f} "
+            f"ms/step, device {step_dev} ms/step (busy "
+            f"{busy(step_dev, dec_ms)}); launches per prefill: "
+            f"flash_attention {n_attn}, ssd_scan {n_mamba}, 0 in decode"
+            f"{flash}; tokens {toks_out[:, :8].tolist()}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        for label, times in (("prefill", pre_kernels), ("decode step",
+                                                        step_kernels)):
+            if times:
+                top = sorted(times.items(), key=lambda kv: -kv[1])[:4]
+                log(f"[lm] {arch}: device time of one {label} by kernel "
+                    f"class: {kernel_classes(times)}; top kernels "
+                    f"{[(k[:60], round(v, 3)) for k, v in top]}")
+        del params, logits, batch
+        torch.cuda.empty_cache()
+    launches = dict(common.LAUNCHES)
+    log(f"[launches] phase 7e (SSM, MoE and hybrid LM serving): {launches}")
+    log(f"[lm] phase 7e took {time.perf_counter() - t_phase:.1f} s")
+    if not launches.get("ssd_scan") or not launches.get("flash_attention"):
+        raise AssertionError(f"SSM / MoE / hybrid serving launched "
+                             f"{launches}")
+    return launches
 
 
 def autoconfig_phase(log, torch, cfg, f, coords, fused_cfg, unfused_cfg,

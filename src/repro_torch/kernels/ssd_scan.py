@@ -7,8 +7,9 @@ chunk_decay: [BH, NC]; prev: [BH, NC, P, N] float32.
 
 ``ssd_scan_plain`` is the port of ``repro/kernels/ref.py::ssd_scan``; CPU
 tensors take it.  On CUDA tensors the wrapper launches the kernel or
-raises.  No model of the port calls it yet; ``kernels/ops.py`` is its entry
-point, as in the reference.
+raises.  ``models/layers.py::ssd_chunked`` calls it for the inter-chunk
+recurrence of every mamba layer's prefill (mamba2, jamba); ``kernels/ops.py``
+exports it, as in the reference.
 """
 
 from __future__ import annotations

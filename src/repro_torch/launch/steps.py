@@ -1,10 +1,13 @@
-"""Step builders, serving subset: prefill and decode steps for the dense
-stack, and the serving parameters.
+"""Step builders, serving subset: prefill and decode steps for every
+ported family (dense, audio, MoE, SSM, hybrid; ``models/zoo.py``), and the
+serving parameters.
 
 Port of the serving half of ``repro.launch.steps``.  The steps close over
 (ModelConfig, HParams) and run eagerly on the device their parameters live
-on.  Training steps, shardings and the dry run are not ported yet (ROADMAP
-Queue 1 item 13).
+on: on the card a prefill launches the attention kernel in every attention
+layer and the ``ssd_scan`` kernel in every mamba layer.  Training steps,
+shardings and the dry run are not ported yet (ROADMAP Queue 1 items 13e,
+13f and 12).
 """
 
 from __future__ import annotations
@@ -47,8 +50,10 @@ def build_serve_step(cfg: ModelConfig, hp: HParams):
 
 
 def serving_params(cfg: ModelConfig, hp: HParams, params) -> dict:
-    """``params`` with every float32 leaf cast to ``hp.serve_dtype``: the
-    concrete counterpart of the reference's ``serving_params_struct``."""
+    """``params`` with every float32 leaf cast to ``hp.serve_dtype`` (the
+    SSM's ``a_log``, ``d`` and ``dt_bias`` too): the concrete counterpart
+    of the reference's ``serving_params_struct``.  ``init_params(...,
+    dtype=hp.serve_dtype)`` draws the same tree without a float32 copy."""
     dt = getattr(torch, hp.serve_dtype)
     return tree_map(lambda a: a.to(dt) if a.dtype == torch.float32 else a,
                     params)

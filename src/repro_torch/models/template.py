@@ -15,7 +15,7 @@ across (``models/zoo.py::params_from_jax``) instead of seeding both.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 
@@ -61,34 +61,42 @@ def _init_leaf(spec: ParamSpec, gen: torch.Generator,
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=dtype, device=device)
     kw = {"generator": gen, "dtype": torch.float32, "device": gen.device}
+    # in place: a stacked expert leaf is tens of GB in float32
     if spec.init == "ssm_a":
         # A_log init: log of uniform [1, 16) as in mamba2
-        u = torch.rand(spec.shape, **kw) * 15.0 + 1.0
-        return torch.log(u).to(device=device, dtype=dtype)
+        u = torch.rand(spec.shape, **kw).mul_(15.0).add_(1.0)
+        return u.log_().to(device=device, dtype=dtype)
     if spec.init == "normal":
         fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
         std = spec.scale / math.sqrt(max(fan_in, 1))
-        return (torch.randn(spec.shape, **kw) * std).to(device=device,
-                                                        dtype=dtype)
+        return torch.randn(spec.shape, **kw).mul_(std).to(device=device,
+                                                          dtype=dtype)
     if spec.init == "scaled":
-        return (torch.randn(spec.shape, **kw) * spec.scale).to(device=device,
-                                                               dtype=dtype)
+        return torch.randn(spec.shape, **kw).mul_(spec.scale).to(
+            device=device, dtype=dtype)
     raise ValueError(spec.init)
 
 
-def init_params(template, seed_or_generator, device=None) -> dict:
+def init_params(template, seed_or_generator, device=None,
+                dtype=None) -> dict:
     """Draw every leaf of ``template`` in key order.
 
     ``seed_or_generator``: an int seeds a new generator on the target
     device (so the draw happens there); a ``torch.Generator`` draws on its
     own device and the leaves are moved to ``device``.  ``device=None``
-    means CUDA (``kernels/common.py::resolve_device``)."""
+    means CUDA (``kernels/common.py::resolve_device``).  ``dtype`` (a
+    name): each float32 leaf is cast to it as it is drawn, the same values
+    as casting the float32 tree afterwards (``launch.steps.serving_params``)
+    without holding a float32 copy of the whole tree."""
     device = resolve_device(device)
     if isinstance(seed_or_generator, torch.Generator):
         gen = seed_or_generator
     else:
         gen = torch.Generator(device=device).manual_seed(
             int(seed_or_generator))
+    if dtype is not None:
+        template = tree_map(lambda s: replace(s, dtype=dtype)
+                            if s.dtype == "float32" else s, template)
     return tree_map(lambda s: _init_leaf(s, gen, device), template)
 
 
