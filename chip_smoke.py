@@ -66,8 +66,9 @@ Phases (any failure exits non-zero; nothing is caught):
   7. LM serving: flash_attention against its plain version and a float64
      evaluation (sliced over heads) at the qwen3-8b prefill shape (bf16,
      causal), a gemma3-4b local layer (bf16, window 1,024, ragged length),
-     musicgen-medium (bf16, D = 64) and phi3 (bf16, D = 96), so that every
-     head dim of the bf16 tensor-core kernel runs, then q shorter than k
+     musicgen-medium (bf16, D = 64), phi3 (bf16, D = 96) and the reduced
+     configs' D = 16 (bf16, window 8), so that every head dim of the bf16
+     tensor-core kernel runs, then q shorter than k
      (fp32) and a phi3-like MHA (fp32, D = 96) on the SIMT kernel: fp32
      within 1e-5 of max|oracle|, bf16 at most twice the plain version's
      error; the host time of encoding the bf16 kernel's TMA tensor maps;
@@ -95,7 +96,14 @@ Phases (any failure exits non-zero; nothing is caught):
      tokens/s, 16 greedy decode steps, busy share, device time by kernel
      class, GB of weights, launches per prefill (ssd_scan 64 / 0 / 7,
      flash_attention 0 / 28 / 1; none in decode), the "flash" prefill's
-     logits beside the kernel's for the two with attention;
+     logits beside the kernel's for the two with attention; the VLM
+     llama-3.2-vision-90b: one period (5 layers) in fp32 (B = 1, S = 512,
+     1,600 image embeddings, the cross gates opened to 0.5), the kernel
+     prefill against the "flash" prefill (last logits and every cache leaf
+     <= 1e-4 scaled) and a decode step against the forward's argmax, then
+     4 of its 20 periods served in bf16 like the others (B = 2, S = 4,096,
+     1,600 seeded image embeddings; flash_attention 16 per prefill, 0 in
+     decode; the cross layers run the blockwise plain attention);
   8. the paper's compiler half on phase 4's SIREN: ``compile_gradient(...,
      config="auto")`` at orders 1-2 with the measure hook (each candidate's
      real ``apply_batched`` timed on the card; the analytic winner, every
@@ -140,7 +148,28 @@ Phases (any failure exits non-zero; nothing is caught):
      (per-unit device ms and drift, min FIFO headroom >= 0); codegen's
      exec-loaded module at orders 1-2 within 1e-5 of the executor; the
      row-cost calibration at rows=4096;
-  11. the launches of every kernel on each path, counted from 0 just before
+  11. LM training: the attention backward (``csrc/flash_attention_bwd.cu``)
+     against its plain version (the port of flash_cvjp._bwd_impl) and a
+     float64 dense torch.autograd oracle at qwen3-8b's training shape (q
+     [1, 4,096, 32, 128], bf16; fp32 at 1,024), a gemma3-4b local layer
+     (D = 256, window, bf16 and fp32), musicgen-medium (D = 64, bf16),
+     phi3 (D = 96, fp32) and the reduced configs' D = 16 (bf16 and fp32,
+     window 8), so that every head dim runs (fp32 within 1e-4
+     of max|oracle|, bf16 at most 1.5x the plain version's error), the
+     forward kernels' log-sum-exp against the plain one, the backward's
+     device ms beside SDPA's autograd backward; the ssd_scan backward at
+     mamba2-2.7b's
+     training shape [80, 32, 64, 128] and a ragged one (dstates
+     torch.equal to plain, <= 1e-5 of float64); then, counted, 5 AdamW
+     steps through ``launch/train.py::train_loop`` at full width (qwen3-8b
+     cut to 4 layers, mamba2-2.7b to 8; B = 1, S = 4,096, remat "dots",
+     cast_once, the zipf pipeline): ms, tokens/s, loss and grad norm per
+     step (finite), peak memory, launches per step (at least one forward
+     and one backward launch per attention or mamba layer); then fp32
+     gradients, every leaf within 1e-4 scaled: qwen3-8b (1 layer, S =
+     1,024) kernel path against the blockwise "flash" autodiff on the
+     card, mamba2-2.7b (2 layers, S = 512) card against the CPU;
+  12. the launches of every kernel on each path, counted from 0 just before
      the path and read just after it: phase 4 must launch region,
      fused_chain, stream_matmul and siren_layer, phase 5 region_stacked
      (stacked path) and region and fused_chain (per-lane path), phase 6
@@ -150,8 +179,10 @@ Phases (any failure exits non-zero; nothing is caught):
      region and fused_chain (the bank path), phase 10 region,
      region_stacked and fused_chain (``async_serve``: the counted
      ``serve_async``) and region, fused_chain, stream_matmul and
-     siren_layer (``drift``); one JSON line of per-kernel numbers;
-  12. the last line: {"ok": true, "device": {...}}.
+     siren_layer (``drift``), phase 11 flash_attention,
+     flash_attention_bwd, ssd_scan and ssd_scan_bwd (``train``); one JSON
+     line of per-kernel numbers;
+  13. the last line: {"ok": true, "device": {...}}.
 
 Times: ``ms`` is the device time of one call (torch.profiler, the sum of
 the kernel records per call; for a plain version, every kernel it
@@ -193,6 +224,8 @@ ATTN_CASES = [("qwen3-8b prefill", (2, 4096, 32, 8, 128), 4096, "bfloat16", 0),
               ("musicgen-medium MHA", (2, 2048, 24, 24, 64), 2048,
                "bfloat16", 0),
               ("phi3 MHA", (1, 2048, 32, 32, 96), 2048, "bfloat16", 0),
+              ("reduced configs' D = 16", (2, 300, 4, 2, 16), 300,
+               "bfloat16", 8),
               ("q shorter than k", (2, 100, 32, 8, 128), 1000, "float32", 0),
               ("phi3-like MHA", (1, 2048, 32, 32, 96), 2048, "float32", 0)]
 SCAN_SHAPES = [(160, 32, 64, 128), (256, 32, 64, 16), (3, 5, 7, 9)]
@@ -206,8 +239,34 @@ FAM_SSD = (1, 1024)
 FAM_F32 = [("mamba2-2.7b", 4), ("deepseek-moe-16b", 2)]
 FAM_F32_BATCH, FAM_F32_SEQ = 1, 512
 FAM_SERVED = [("mamba2-2.7b", 64), ("deepseek-moe-16b", 28),
-              ("jamba-v0.1-52b", 8)]
+              ("jamba-v0.1-52b", 8), ("llama-3.2-vision-90b", 20)]
 FAM_BATCH, FAM_SEQ, FAM_STEPS = 2, 4096, 16
+# the VLM's fp32 kernel-against-flash check: its layers (one period), batch
+# and length
+VLM_F32_LAYERS, VLM_F32_BATCH, VLM_F32_SEQ = 5, 1, 512
+# phase 11, training: the attention backward's checks (label, (B, Sq, H, KH,
+# D), dtype, window), the first at qwen3-8b's training shape; ssd_scan's
+# backward at mamba2-2.7b's training shape (B = 1, S = 4,096) and a ragged
+# one; the models trained through train_loop (arch, layers), their batch,
+# length and steps; the fp32 gradient checks (arch, layers, length)
+TRAIN_ATTN_CASES = [("qwen3-8b train", (1, 4096, 32, 8, 128), "bfloat16", 0),
+                    ("qwen3-8b train fp32", (1, 1024, 32, 8, 128), "float32",
+                     0),
+                    ("gemma3-4b local layer", (1, 3000, 8, 4, 256),
+                     "bfloat16", 1024),
+                    ("gemma3-4b local layer fp32", (1, 1000, 8, 4, 256),
+                     "float32", 256),
+                    ("musicgen-medium MHA", (1, 1024, 24, 24, 64),
+                     "bfloat16", 0),
+                    ("phi3 MHA fp32", (1, 512, 32, 32, 96), "float32", 0),
+                    ("reduced configs' D = 16", (2, 300, 4, 2, 16),
+                     "bfloat16", 8),
+                    ("reduced configs' D = 16 fp32", (2, 300, 4, 2, 16),
+                     "float32", 8)]
+TRAIN_SCAN_SHAPES = [(80, 32, 64, 128), (3, 5, 7, 9)]
+TRAIN_MODELS = [("qwen3-8b", 4), ("mamba2-2.7b", 8)]
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 1, 4096, 5
+TRAIN_GRAD_CHECKS = [("qwen3-8b", 1, 1024), ("mamba2-2.7b", 2, 512)]
 
 
 def log(*a):
@@ -255,7 +314,7 @@ def build_report(log, common):
     lib = common.load_library()
     log("[build] flash_attention_tc dynamic shared memory (bytes) by head "
         "dim: " + ", ".join(f"{d}: {lib.rt_flash_attention_tc_smem(d)}"
-                            for d in (64, 96, 128, 256)))
+                            for d in (16, 64, 96, 128, 256)))
     cuobjdump = Path(common._nvcc()).with_name("cuobjdump")
     if not cuobjdump.exists():
         log("[build] SASS tensor-core instruction counts: not available "
@@ -288,6 +347,10 @@ def build_report(log, common):
             log(f"[build] SASS {pretty[fn]}: LDGSTS {c['LDGSTS']}, UBLKCP "
                 f"{c['UBLKCP']}, UTMALDG {c['UTMALDG']}, LDL {c['LDL']}, "
                 f"FFMA {c['FFMA']}")
+        elif "fa_bwd_" in fn or "ssd_scan_bwd_kernel" in fn:
+            # the backward kernels: SIMT FMAs, and any local-memory traffic
+            log(f"[build] SASS {pretty[fn]}: FFMA {c['FFMA']}, LDL "
+                f"{c['LDL']}, STL {c['STL']}")
         elif fn.startswith("_Z18fused_chain_kernel"):
             # the tile's cp.async staging and any local-memory traffic
             log(f"[build] SASS {pretty[fn]}: LDGSTS {c['LDGSTS']}, LDL "
@@ -466,11 +529,15 @@ def main() -> int:
         return "; ".join(out)
 
     def record(name, source, replaces, errs, t_k, t_p, nbytes, flops,
-               library_ms=None, peak_flops_per_s=FP32_FLOPS_PER_S):
+               library_ms=None, peak_flops_per_s=FP32_FLOPS_PER_S,
+               pallas=True):
+        """``pallas=False``: a kernel with no Pallas counterpart, whose
+        ``replaces`` names the reference's XLA code it stands for."""
         b, by = bound_ms(nbytes, flops, peak_flops_per_s)
         kernels[name] = {
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": 0,
+            "replaces": replaces, "pallas_counterpart": pallas,
+            "launches": 0,
             "max_abs_err": max(e for e, _ in errs),
             "ms": t_k[0], "plain_ms": t_p[0], "bound_ms": b, "bound_by": by,
             "library_ms": library_ms,
@@ -947,20 +1014,26 @@ def main() -> int:
         log, torch, dev, cfg, f, params, fleet, bank, psis, coords,
         fused_cfg, unfused_cfg, oracle, scaled_err, reading)
 
-    # -- 11. launches --------------------------------------------------------
+    # -- 11. LM training ------------------------------------------------------
+    launches_train = train_phase(log, torch, dev, scaled_err, device_ms,
+                                 timing, record)
+
+    # -- 12. launches --------------------------------------------------------
     # ``launches`` counts the path a kernel was ported for (phase 4's for
     # PR 11's kernels, phase 5's for region_stacked, phase 6's for
     # region_bwd, phase 7's qwen3 serving for flash_attention, phase 7e's
-    # SSM / MoE / hybrid serving for ssd_scan); ``launches_by_path`` gives
-    # every path's own count.
+    # SSM / MoE / hybrid / VLM serving for ssd_scan, phase 11's training for
+    # the two backward kernels); ``launches_by_path`` gives every path's own
+    # count.
     paths = {"compile_gradient": launches_main, "multi_inr": launches_multi,
              "fit": launches_fit, "lm_serve": launches_lm,
              "lm_families": launches_families,
              "kernel_ops": launches_ops, "compile_auto": launches_auto,
              "bank": launches_bank, "async_serve": launches_async,
-             "drift": launches_drift}
+             "drift": launches_drift, "train": launches_train}
     home = {"region_stacked": "multi_inr", "region_bwd": "fit",
-            "flash_attention": "lm_serve", "ssd_scan": "lm_families"}
+            "flash_attention": "lm_serve", "ssd_scan": "lm_families",
+            "flash_attention_bwd": "train", "ssd_scan_bwd": "train"}
     for name, rec in kernels.items():
         rec["launches_by_path"] = {p: c.get(name, 0) for p, c in paths.items()}
         rec["launches"] = rec["launches_by_path"][
@@ -1526,16 +1599,21 @@ def attention_flops(B, Sq, Sk, H, D, *, causal, window):
 
 def kernel_classes(times):
     """Device ms by class of kernel name: the port's attention kernels
-    (fa_tc_kernel for bf16, fa_fwd_kernel for fp32), its scan kernel
-    (ssd_scan_kernel), library GEMMs (cuBLAS
+    (fa_tc_kernel for bf16, fa_fwd_kernel for fp32; fa_bwd_dq_kernel and
+    fa_bwd_dkv_kernel, the backward), its scan kernels (ssd_scan_kernel,
+    ssd_scan_bwd_kernel), library GEMMs (cuBLAS
     names them gemm*, gemv* or nvjet*), and everything else (norms, rope,
     casts, copies)."""
-    out = {"flash_attention": 0.0, "ssd_scan": 0.0, "gemm": 0.0,
-           "other": 0.0}
+    out = {"flash_attention": 0.0, "flash_attention_bwd": 0.0,
+           "ssd_scan": 0.0, "ssd_scan_bwd": 0.0, "gemm": 0.0, "other": 0.0}
     for key, ms in times.items():
         low = key.lower()
         if "fa_tc_kernel" in key or "fa_fwd_kernel" in key:
             out["flash_attention"] += ms
+        elif "fa_bwd_" in key:
+            out["flash_attention_bwd"] += ms
+        elif "ssd_scan_bwd_kernel" in key:
+            out["ssd_scan_bwd"] += ms
         elif "ssd_scan_kernel" in key:
             out["ssd_scan"] += ms
         elif any(w in low for w in ("gemm", "gemv", "nvjet", "cutlass",
@@ -1856,13 +1934,21 @@ def lm_families_phase(log, torch, dev, scaled_err, device_ms):
                 for g, sub in cache.items()}
 
     def mixers(cfg):
-        """(attention layers, mamba layers) of a config."""
+        """(self-attention layers, mamba layers) of a config; a VLM's
+        cross layers run the blockwise plain attention."""
         if cfg.family == "ssm":
             return 0, cfg.n_layers
         if cfg.family == "hybrid":
             n_attn = sum(cfg.is_attn_layer(i) for i in range(cfg.n_layers))
             return n_attn, cfg.n_layers - n_attn
+        if cfg.family == "vlm":
+            return cfg.n_layers - cfg.n_layers // cfg.cross_attn_period, 0
         return cfg.n_layers, 0
+
+    def images(cfg, B, gen_dtype):
+        """Seeded image embeddings [B, n_image_tokens, d_model]."""
+        return torch.randn((B, cfg.n_image_tokens, cfg.d_model),
+                           generator=gen, device=dev).to(gen_dtype)
 
     # -- 7e-1. a full-width mamba layer's ssd_chunked against float64 -------
     cfg = get_config("mamba2-2.7b")
@@ -1956,6 +2042,50 @@ def lm_families_phase(log, torch, dev, scaled_err, device_ms):
         del params, logits, cache, full, last
         torch.cuda.empty_cache()
 
+    # -- 7e-2b. the VLM, one period in fp32: kernel against "flash" --------
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("llama-3.2-vision-90b"),
+                              n_layers=VLM_F32_LAYERS,
+                              compute_dtype="float32")
+    B, S = VLM_F32_BATCH, VLM_F32_SEQ
+    params = init_params(zoo.model_template(cfg), SEED, device=dev)
+    # the cross layers' tanh gate starts at 0; open it so the image counts
+    params["periods"]["cross"]["gate"].fill_(0.5)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (B, S + 1))).to(dev)
+    image = images(cfg, B, torch.float32)
+    batch = {"tokens": toks[:, :S], "image_embeds": image}
+    logits, cache = build_prefill_step(cfg, HParams())(params, batch)
+    logits_f, cache_f = build_prefill_step(cfg, HParams("flash"))(params,
+                                                                  batch)
+    errs = {"logits": scaled_err(logits, logits_f)[1]}
+    cache_f = flat(cache_f)
+    for k, t in flat(cache).items():
+        errs[k] = scaled_err(t, cache_f[k])[1]
+    del cache_f, logits_f
+    with torch.no_grad():
+        full, _ = zoo.forward(cfg, params, {"tokens": toks,
+                                            "image_embeds": image},
+                              attn_impl="pallas")
+    tok, _ = build_serve_step(cfg, HParams())(params, pad(cache, 8),
+                                              toks[:, S], S)
+    last = full[:, -1].float()
+    top = last.topk(2, dim=-1).values
+    rows = (top[:, 0] - top[:, 1]) / last.abs().max() > 1e-3
+    match = bool((tok.long() == last.argmax(-1))[rows].all())
+    log(f"[lm] llama-3.2-vision-90b fp32, full width, {cfg.n_layers} layers "
+        f"(one period, gate 0.5), B={B} S={S}, {cfg.n_image_tokens} image "
+        f"embeddings: kernel prefill against flash prefill, scaled err "
+        f"{', '.join(f'{k} {v:.3e}' for k, v in errs.items())}; decode at "
+        f"pos {S}: token {tok.tolist()} vs forward argmax "
+        f"{last.argmax(-1).tolist()}, {int(rows.sum())} of {B} rows "
+        f"compared (lead > 1e-3 scaled); {time.perf_counter() - t0:.1f} s")
+    if max(errs.values()) > 1e-4 or not match:
+        raise AssertionError("llama-3.2-vision-90b fp32: the kernel path "
+                             "disagrees")
+    del params, logits, cache, full, last, image, batch
+    torch.cuda.empty_cache()
+
     # -- 7e-3. bf16 served at full width, counted ---------------------------
     common.reset_launches()
     hp = HParams()
@@ -1978,6 +2108,8 @@ def lm_families_phase(log, torch, dev, scaled_err, device_ms):
                      f"not fit one 80 GB card)")
         batch = {"tokens": torch.from_numpy(rng.integers(
             0, cfg.vocab_size, (B, S))).to(dev)}
+        if cfg.family == "vlm":
+            batch["image_embeds"] = images(cfg, B, torch.bfloat16)
         prefill = build_prefill_step(cfg, hp)
         walls = []
         want = +collections.Counter(flash_attention=n_attn, ssd_scan=n_mamba)
@@ -2058,12 +2190,292 @@ def lm_families_phase(log, torch, dev, scaled_err, device_ms):
         del params, logits, batch
         torch.cuda.empty_cache()
     launches = dict(common.LAUNCHES)
-    log(f"[launches] phase 7e (SSM, MoE and hybrid LM serving): {launches}")
+    log(f"[launches] phase 7e (SSM, MoE, hybrid and VLM serving): "
+        f"{launches}")
     log(f"[lm] phase 7e took {time.perf_counter() - t_phase:.1f} s")
     if not launches.get("ssd_scan") or not launches.get("flash_attention"):
         raise AssertionError(f"SSM / MoE / hybrid serving launched "
                              f"{launches}")
     return launches
+
+
+def attention_grad64(torch, q, k, v, dout, causal, window):
+    """float64 (dq, dk, dv) of attention on the (rounded) inputs by dense
+    torch.autograd, one q head at a time (an [Sq, Sk] float64 score matrix
+    at once)."""
+    import math
+    B, Sq, H, D = q.shape
+    Sk, G = k.shape[1], H // k.shape[2]
+    dev = q.device
+    q_pos = (Sk - Sq) + torch.arange(Sq, device=dev)
+    k_pos = torch.arange(Sk, device=dev)
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= q_pos[:, None] >= k_pos[None, :]
+    if window > 0:
+        mask &= (q_pos[:, None] - k_pos[None, :]) < window
+    dq = torch.empty(q.shape, dtype=torch.float64, device=dev)
+    dk = torch.zeros(k.shape, dtype=torch.float64, device=dev)
+    dv = torch.zeros(v.shape, dtype=torch.float64, device=dev)
+    for h in range(H):
+        qh = q[:, :, h].double().requires_grad_()
+        kh = k[:, :, h // G].double().requires_grad_()
+        vh = v[:, :, h // G].double().requires_grad_()
+        s = torch.where(mask, qh @ kh.transpose(1, 2) / math.sqrt(D),
+                        -math.inf)
+        o = torch.softmax(s, -1) @ vh
+        gq, gk, gv = torch.autograd.grad(o, (qh, kh, vh),
+                                         dout[:, :, h].double())
+        dq[:, :, h] = gq
+        dk[:, :, h // G] += gk
+        dv[:, :, h // G] += gv
+    return dq, dk, dv
+
+
+def train_phase(log, torch, dev, scaled_err, device_ms, timing, record):
+    """Phase 11, LM training; returns the launches of the steps through
+    ``train_loop``, counted from 0 just before them (the kernel checks
+    before them and the gradient checks after are not counted)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.kernels import common
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as scan
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import zoo
+    from repro_torch.models.template import (count_template_params,
+                                             init_params, tree_map)
+    from repro_torch.optim import adam
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+
+    # -- 11a. the attention backward against plain and float64 -------------
+    errs, timed = [], None
+    for label, (B, Sq, H, KH, D), dt, window in TRAIN_ATTN_CASES:
+        dt = getattr(torch, dt)
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
+                   for shape in ((B, Sq, H, D), (B, Sq, KH, D),
+                                 (B, Sq, KH, D)))
+        dout = torch.randn((B, Sq, H, D), generator=gen, device=dev).to(dt)
+        out, lse = fa._forward(q, k, v, True, window, True)
+        _, lse_p = fa.flash_attention_plain(q, k, v, window=window,
+                                            return_lse=True)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, dout, window=window)
+        plain = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                             window=window)
+        exact = attention_grad64(torch, q, k, v, dout, True, window)
+        torch.cuda.synchronize()
+        lse_err = float((lse - lse_p.float()).abs().max())
+        parts = []
+        ok = lse_err <= 1e-3
+        for name, g, p, e in zip(("dq", "dk", "dv"), got, plain, exact):
+            if g.dtype != dt or g.shape != e.shape or \
+                    not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"flash_attention_bwd {label}: bad "
+                                     f"{name} {g.dtype} {tuple(g.shape)}")
+            k_err, k_scaled = scaled_err(g, e)
+            p_err, p_scaled = scaled_err(p, e)
+            vs_plain = scaled_err(g, p)
+            errs.append(vs_plain)
+            parts.append(f"{name} against float64 {k_err:.3e} (scaled "
+                         f"{k_scaled:.3e}), plain {p_err:.3e} (scaled "
+                         f"{p_scaled:.3e}), against plain {vs_plain[0]:.3e}")
+            if dt == torch.float32:
+                ok = ok and k_scaled <= 1e-4 and vs_plain[1] <= 1e-4
+            else:
+                ok = ok and k_err <= 1.5 * p_err
+        rule = ("fp32: <= 1e-4 of max|oracle|" if dt == torch.float32 else
+                "bf16: at most 1.5x the plain version's error")
+        t = device_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout,
+                                                     window=window), 3)
+        log(f"[train] flash_attention_bwd {label}: q {tuple(q.shape)} k "
+            f"{tuple(k.shape)} {str(dt)[6:]} window {window}: lse against "
+            f"plain {lse_err:.3e}; {'; '.join(parts)}; {t} ms/launch on the "
+            f"device; {rule}")
+        if not ok:
+            raise AssertionError(f"flash_attention_bwd {label} disagrees "
+                                 f"({rule})")
+        if timed is None:
+            timed = (q, k, v, out, lse, dout, window)
+        del got, plain, exact
+    q, k, v, out, lse, dout, window = timed
+    B, Sq, H, D = q.shape
+    # SDPA's autograd backward at the same shape: the library yardstick
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    ot = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    dt_ = dout.transpose(1, 2)
+    lib_ms = timing(lambda: torch.autograd.grad(ot, (qt, kt, vt), dt_,
+                                                retain_graph=True), 5, 10)[0]
+    nbytes = q.element_size() * 2 * (2 * q.numel() + 2 * k.numel()
+                                     + dout.numel()) + 4 * lse.numel()
+    record("flash_attention_bwd",
+           "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+           "src/repro/models/flash_cvjp.py:98", errs,
+           timing(lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout),
+                  3, 5),
+           timing(lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse,
+                                                       dout), 2, 2),
+           nbytes, 2.5 * attention_flops(B, Sq, Sq, H, D, causal=True,
+                                          window=0),
+           library_ms=lib_ms, peak_flops_per_s=BF16_FLOPS_PER_S,
+           pallas=False)
+    del q, k, v, out, lse, dout, timed, qt, kt, vt, ot, dt_
+    torch.cuda.empty_cache()
+
+    # -- 11b. the ssd_scan backward against plain and float64 --------------
+    scan_errs, first = [], None
+    for shape in TRAIN_SCAN_SHAPES:
+        st = torch.randn(shape, generator=gen, device=dev)
+        dec = 1.0 - torch.rand(shape[:2], generator=gen, device=dev)
+        dprev = torch.randn(shape, generator=gen, device=dev)
+        prev = scan.ssd_scan(st, dec)
+        got = scan.ssd_scan_bwd(dprev, prev, dec)
+        plain = scan.ssd_scan_bwd_plain(dprev, prev, dec)
+        # float64: the reverse recurrence on the same inputs
+        g = torch.zeros((shape[0], *shape[2:]), dtype=torch.float64,
+                        device=dev)
+        want_s = torch.empty(shape, dtype=torch.float64, device=dev)
+        want_d = torch.empty(shape[:2], dtype=torch.float64, device=dev)
+        for c in reversed(range(shape[1])):
+            if c + 1 < shape[1]:
+                g = dprev[:, c + 1].double() + dec[:, c + 1, None,
+                                                   None].double() * g
+            want_s[:, c] = g
+            want_d[:, c] = (g * prev[:, c].double()).sum((1, 2))
+        torch.cuda.synchronize()
+        e = [scaled_err(got[0], want_s), scaled_err(got[1], want_d)]
+        scan_errs += [scaled_err(got[0], plain[0]),
+                      scaled_err(got[1], plain[1])]
+        b_ms, b_by = bound_ms(4 * (3 * st.numel() + 2 * dec.numel()),
+                              4 * st.numel(), FP32_FLOPS_PER_S)
+        log(f"[train] ssd_scan_bwd {shape}: dstates torch.equal to plain "
+            f"{torch.equal(got[0], plain[0])}, ddecay against plain "
+            f"{scan_errs[-1][1]:.3e} (scaled); against float64 dstates "
+            f"{e[0][1]:.3e}, ddecay {e[1][1]:.3e} (scaled, <= 1e-5); "
+            f"{device_ms(lambda: scan.ssd_scan_bwd(dprev, prev, dec))} "
+            f"ms/launch on the device, bound {b_ms:.6f} ms by {b_by}")
+        if max(x[1] for x in e) > 1e-5 or scan_errs[-1][1] > 1e-5 or \
+                not torch.equal(got[0], plain[0]):
+            raise AssertionError(f"ssd_scan_bwd {shape} disagrees")
+        if first is None:
+            first = (st, dec, dprev, prev)
+    st, dec, dprev, prev = first
+    record("ssd_scan_bwd", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+           "src/repro/models/layers.py:370", scan_errs,
+           timing(lambda: scan.ssd_scan_bwd(dprev, prev, dec)),
+           timing(lambda: scan.ssd_scan_bwd_plain(dprev, prev, dec), 5, 10),
+           4 * (3 * st.numel() + 2 * dec.numel()), 4 * st.numel(),
+           pallas=False)
+    del st, dec, dprev, prev, first
+    torch.cuda.empty_cache()
+
+    # -- 11c. train_loop at full width, counted -----------------------------
+    common.reset_launches()
+    hp = steps.HParams(remat="dots", cast_once=True,
+                       optimizer=adam.AdamWConfig(
+                           lr=1e-4, warmup_steps=2,
+                           total_steps=TRAIN_STEPS))
+    shape = ShapeConfig("chip", "train", TRAIN_SEQ, TRAIN_BATCH)
+    for arch, depth in TRAIN_MODELS:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), n_layers=depth)
+        n_attn = 0 if cfg.family == "ssm" else depth
+        n_mamba = depth if cfg.family == "ssm" else 0
+        n_params = count_template_params(zoo.model_template(cfg))
+        per_step = []
+        before = collections.Counter(common.LAUNCHES)
+        torch.cuda.reset_peak_memory_stats()
+        state, _ = train_loop(
+            cfg, shape, hp, steps=TRAIN_STEPS, log_every=0, seed=SEED,
+            device=dev, on_step=lambda s, m, sec: per_step.append((m, sec)))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        got = collections.Counter(common.LAUNCHES) - before
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        rows = "; ".join(
+            f"step {i}: {sec * 1e3:.1f} ms, {tokens / sec:.0f} tokens/s, "
+            f"loss {m['loss']:.4f}, grad norm {m['grad_norm']:.4f}"
+            for i, (m, sec) in enumerate(per_step))
+        log(f"[train] {arch}, full width, {depth} layers "
+            f"({n_params / 1e9:.2f} B parameters), B={TRAIN_BATCH} "
+            f"S={TRAIN_SEQ}, remat dots, cast_once, {TRAIN_STEPS} AdamW "
+            f"steps on the zipf pipeline through train_loop: {rows}; peak "
+            f"torch.cuda.max_memory_allocated {peak:.2f} GB; launches "
+            f"{dict(got)} ({ {k: v / TRAIN_STEPS for k, v in got.items()} } "
+            f"per step); {time.perf_counter() - t0:.1f} s")
+        finite = all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+                     for m, _ in per_step)
+        want = {"flash_attention": n_attn, "flash_attention_bwd": n_attn,
+                "ssd_scan": n_mamba, "ssd_scan_bwd": n_mamba}
+        short = {k: (got[k], n * TRAIN_STEPS) for k, n in want.items()
+                 if got[k] < n * TRAIN_STEPS}
+        if not finite or len(per_step) != TRAIN_STEPS or short:
+            raise AssertionError(f"{arch} training: finite {finite}, "
+                                 f"{len(per_step)} steps, launches short "
+                                 f"of one per layer and step: {short}")
+        del state, per_step
+        torch.cuda.empty_cache()
+    launches = dict(common.LAUNCHES)
+    log(f"[launches] phase 11 (training through train_loop): {launches}")
+
+    # -- 11d. fp32 gradients: kernels against flash, card against CPU ------
+    rng = np.random.default_rng(SEED + 13)
+    for arch, depth, seq in TRAIN_GRAD_CHECKS:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), n_layers=depth,
+                                  compute_dtype="float32")
+        params = init_params(zoo.model_template(cfg), SEED, device=dev)
+        batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                  (1, seq))).to(dev)
+                 for k in ("tokens", "labels")}
+        hp = steps.HParams(remat="dots")
+        loss, grads = steps.loss_and_grads(cfg, hp, params, batch)
+        if cfg.family == "ssm":
+            label = "card against the CPU (plain versions)"
+            cpu = tree_map(lambda t: t.cpu(), params)
+            want_loss, want = steps.loss_and_grads(
+                cfg, hp, cpu, {k: t.cpu() for k, t in batch.items()})
+            del cpu
+        else:
+            label = "kernel path against the blockwise flash autodiff"
+            want_loss, want = steps.loss_and_grads(
+                cfg, steps.HParams("flash", remat="dots"), params, batch)
+        errs = {}
+        for (key, g), (_, w) in zip(flat_items(grads), flat_items(want)):
+            errs[key] = scaled_err(g.cpu(), w.cpu())[1]
+        worst = max(errs, key=errs.get)
+        log(f"[train] {arch} fp32 gradients, full width, {depth} layers, "
+            f"B=1 S={seq}: {label}: loss {float(loss):.6f} vs "
+            f"{float(want_loss):.6f}, {len(errs)} leaves, largest scaled "
+            f"err {errs[worst]:.3e} ({worst}) (<= 1e-4); "
+            f"{time.perf_counter() - t0:.1f} s")
+        if errs[worst] > 1e-4 or abs(float(loss) - float(want_loss)) > \
+                1e-5 * abs(float(want_loss)):
+            raise AssertionError(f"{arch} fp32 gradients disagree")
+        del params, grads, want, batch
+        torch.cuda.empty_cache()
+    log(f"[train] phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    if not all(launches.get(k) for k in ("flash_attention",
+                                         "flash_attention_bwd", "ssd_scan",
+                                         "ssd_scan_bwd")):
+        raise AssertionError(f"training launched {launches}")
+    return launches
+
+
+def flat_items(tree, prefix=""):
+    """(path, leaf) of a nested dict in sorted key order."""
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from flat_items(tree[key], f"{prefix}{key}/")
+    else:
+        yield prefix[:-1], tree
 
 
 def autoconfig_phase(log, torch, cfg, f, coords, fused_cfg, unfused_cfg,

@@ -4,8 +4,8 @@
 * Atomic: write to <dir>.tmp then rename; a manifest with per-leaf checksums
   detects torn writes.
 * Async: a single background writer thread; `wait()` joins before the next
-  save or at exit.  The caller hands over host copies, so it continues
-  while bytes hit disk.
+  save or at exit.  `submit` takes host copies that own their bytes, so
+  the caller may update its state in place while bytes hit disk.
 
 A tree is nested dicts, lists and tuples over array leaves (numpy arrays,
 torch tensors, scalars).  A leaf's key joins its path with ``|``: dict keys
@@ -34,6 +34,15 @@ def host_array(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
+
+
+def _host_copy(leaf) -> np.ndarray:
+    """A host array that owns its bytes: the caller may update ``leaf`` in
+    place as soon as this returns (``host_array`` of a CPU tensor is a
+    view of it)."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().to("cpu", copy=True).numpy()
+    return np.array(leaf, copy=True)
 
 
 def tree_items(tree, prefix=()):
@@ -128,7 +137,7 @@ class AsyncCheckpointer:
     def submit(self, state, path: str, step: int):
         if self._err:
             raise self._err
-        host_state = {k: host_array(v) for k, v in _flatten(state).items()}
+        host_state = {k: _host_copy(v) for k, v in _flatten(state).items()}
         self._q.put((host_state, path, step))
 
     def wait(self):
@@ -141,3 +150,17 @@ class AsyncCheckpointer:
         self._q.put(None)
         self._t.join()
 
+
+def latest_step(base_dir: str) -> int | None:
+    """The largest N of the ``step_N`` directories under ``base_dir``, or
+    None."""
+    if not os.path.isdir(base_dir):
+        return None
+    steps = []
+    for d in os.listdir(base_dir):
+        if d.startswith("step_") and os.path.isdir(os.path.join(base_dir, d)):
+            try:
+                steps.append(int(d.split("_")[1]))
+            except ValueError:
+                pass
+    return max(steps) if steps else None

@@ -46,7 +46,8 @@ ABI = {"region_rows": 8, "region_threads": 256, "region_instr_ints": 96,
        "region_max_cluster": 16, "row_cluster": 2,
        "rows_stages": 2, "row_groups": 4, "col_tile": 4, "chunk_ints": 5,
        "design_ints": 7, "rows_consumers": 256, "sm_smem_bytes": 233472,
-       "smem_static": 1024, "chain_rows": 8, "chain_cols": 16}
+       "smem_static": 1024, "chain_rows": 8, "chain_cols": 16,
+       "ssd_bwd_max_nc": 1792}
 
 _LIB = None
 _LOCK = threading.Lock()
@@ -165,14 +166,18 @@ _SIGNATURES = {
                        _I, _I, _I, _VP, _LL, _VP, _VP], _I),
     "rt_region_bwd_max_clusters": ([_I, _LL], _I),
     "rt_region_bwd_reduce": ([_VP, _LL, _LL, _VP, _VP], _I),
-    "rt_flash_attention": ([_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
-                            ctypes.POINTER(_LL), _F, _I, _I, _VP], _I),
-    "rt_flash_attention_tc": ([_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
-                               ctypes.POINTER(_LL), _F, _I, _I, _VP], _I),
+    "rt_flash_attention": ([_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
+                            _I, ctypes.POINTER(_LL), _F, _I, _I, _VP], _I),
+    "rt_flash_attention_tc": ([_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
+                               _I, ctypes.POINTER(_LL), _F, _I, _I, _VP], _I),
+    "rt_flash_attention_bwd": ([_VP] * 10 + [_I] * 7 + [_F, _I, _I, _VP],
+                               _I),
     "rt_flash_attention_tc_smem": ([_I], _I),
     "rt_flash_attention_tc_encode_ns": ([_VP, _VP, _VP, _I, _I, _I, _I, _I,
                                          _I, ctypes.POINTER(_LL), _I], _LL),
     "rt_ssd_scan": ([_VP, _VP, _VP, _I, _LL, _I, _LL, _VP], _I),
+    "rt_ssd_scan_bwd": ([_VP, _VP, _VP, _VP, _VP, _I, _LL, _I, _LL, _VP],
+                        _I),
 }
 
 

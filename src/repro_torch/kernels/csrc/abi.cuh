@@ -43,6 +43,8 @@
 #define RT_FA_TC_BQ 128         // bf16 tensor-core kernel: q rows of one CTA
 #define RT_FA_TC_BK 128         //   keys of one kv tile at D <= 128
 #define RT_FA_TC_BK_WIDE 64     //   keys of one kv tile at D = 256
+// ssd_scan.cu's backward: chunks of one launch (a [NC, 32] fp32 shared array)
+#define RT_SSDB_MAX_NC 1792
 
 // Chain opcodes, in the order of kernels/fused_chain.py OPCODES.
 enum ChainOp : int {

@@ -14,7 +14,9 @@
 //
 // Masks follow the TPU kernel: keys past Sk, causal q_pos >= k_pos with
 // q_pos = (Sk - Sq) + i, window q_pos - k_pos < window; masked scores are
-// -1e30.  The output is acc / max(l, 1e-30).  Kv tiles wholly outside the
+// -1e30.  The output is acc / max(l, 1e-30); given a pointer, the kernel also
+// writes each row's log-sum-exp m + log(max(l, 1e-30)) as float32 [B, Sq, H],
+// which the backward (flash_attention_bwd.cu) reads.  Kv tiles wholly outside the
 // causal band or the window are skipped: such a tile adds exp(-1e30 - m) = 0
 // after a visible one, and one before every visible tile is wiped by the
 // first visible tile's correction exp(-1e30 - m) = 0, so skipping changes no
@@ -63,6 +65,7 @@ struct FaArgs {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // [B, Sq, H] or null
   int H, G, Sq, Sk;
   long long qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh;
   float scale;
@@ -209,6 +212,8 @@ __global__ void __launch_bounds__(FA_THREADS) fa_fwd_kernel(const FaArgs a) {
 #pragma unroll
     for (int c = 0; c < NC; ++c)
       orow[16 * c] = acc[r][c] / den;
+    if (a.lse && tx == 0)
+      a.lse[((long long)b * a.Sq + row) * a.H + h] = m[r] + logf(den);
   }
 }
 
@@ -226,21 +231,24 @@ static int fa_launch(const FaArgs& a, int B, cudaStream_t stream) {
 }
 
 // fp32 q, k, v, out.  strides[12] = q, k, v, out strides of (batch, seq,
-// head) in elements; the head dim is contiguous.
+// head) in elements; the head dim is contiguous.  lse: contiguous float32
+// [B, Sq, H], or null.
 extern "C" int rt_flash_attention(const void* q, const void* k, const void* v,
-                                  void* o, int B, int Sq, int Sk, int H,
-                                  int KH, int D, const long long* strides,
+                                  void* o, float* lse, int B, int Sq, int Sk,
+                                  int H, int KH, int D,
+                                  const long long* strides,
                                   float scale, int causal, int window,
                                   void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || KH < 1 || H % KH != 0 ||
       (long long)B * H > 65535)
     return (int)cudaErrorInvalidValue;
-  FaArgs a{q, k, v, o, H, H / KH, Sq, Sk,
+  FaArgs a{q, k, v, o, lse, H, H / KH, Sq, Sk,
            strides[0], strides[1], strides[2], strides[3], strides[4],
            strides[5], strides[6], strides[7], strides[8], strides[9],
            strides[10], strides[11], scale, causal, window};
   cudaStream_t s = (cudaStream_t)stream;
   switch (D) {
+    case 16: return fa_launch<16>(a, B, s);
     case 64: return fa_launch<64>(a, B, s);
     case 96: return fa_launch<96>(a, B, s);
     case 128: return fa_launch<128>(a, B, s);

@@ -26,7 +26,9 @@
 //   Each stage has a full barrier (TMA bytes) and an empty one (the 8
 //   consumer warps).  D = 96 is held as 128 columns: the box past the
 //   tensor's 96 columns is filled with zeros by TMA; q.k runs 6 k-steps and
-//   p.v writes 128 columns, of which 96 are stored.
+//   p.v writes 128 columns, of which 96 are stored.  D = 16 (the reduced
+//   configs' head dim) is held as one 64-column slab the same way: one
+//   k-step, 64 columns written by p.v, 16 stored.
 // - Overlap.  The producer's copies of the next tile overlap the consumers'
 //   work on this one.  Inside a warpgroup each tile runs S = Q K^T, the
 //   softmax and O += P V in turn; the two warpgroups overlap each other only
@@ -47,7 +49,10 @@
 //   consumer warpgroup.  Tiles wholly outside the band or the window are
 //   skipped, as in flash_attention.cu (the argument there holds per tile of
 //   any size).
-// - Output acc / max(l, 1e-30) in bf16, stored row-masked from registers.
+// - Output acc / max(l, 1e-30) in bf16, stored row-masked from registers;
+//   given a pointer, each row's log-sum-exp in natural log, (m + log2(max(l,
+//   1e-30))) / log2(e) from the base-2 m and l, as float32 [B, Sq, H] for the
+//   backward (flash_attention_bwd.cu).
 #include "abi.cuh"
 #include "mbarrier.cuh"
 
@@ -248,6 +253,7 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
 
 struct TcArgs {
   void* o;
+  float* lse;  // [B, Sq, H] or null
   int H, G, Sq, Sk;
   long long osb, oss, osh;
   float scale_log2;  // softmax scale * log2(e)
@@ -438,6 +444,15 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
     }
     const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
     const int row0 = q0 + 64 * wg + r, row1 = row0 + 8;
+    if (a.lse && t4 == 0) {
+      constexpr float LN2 = 0.69314718055994531f;
+      if (row0 < a.Sq)
+        a.lse[((long long)b * a.Sq + row0) * a.H + h] =
+            (m0 + log2f(den0)) * LN2;
+      if (row1 < a.Sq)
+        a.lse[((long long)b * a.Sq + row1) * a.H + h] =
+            (m1 + log2f(den1)) * LN2;
+    }
     __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(a.o) + b * a.osb +
                         h * a.osh;
 #pragma unroll
@@ -538,20 +553,22 @@ static int tc_launch(const void* q, const void* k, const void* v,
 
 // bf16 q, k, v, out.  strides[12] = q, k, v, out strides of (batch, seq,
 // head) in elements; the head dim is contiguous.  scale_log2 = scale *
-// log2(e).
+// log2(e).  lse: contiguous float32 [B, Sq, H], or null.
 extern "C" int rt_flash_attention_tc(const void* q, const void* k,
-                                     const void* v, void* o, int B, int Sq,
-                                     int Sk, int H, int KH, int D,
+                                     const void* v, void* o, float* lse,
+                                     int B, int Sq, int Sk, int H, int KH,
+                                     int D,
                                      const long long* strides,
                                      float scale_log2, int causal, int window,
                                      void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || KH < 1 || H % KH != 0 ||
       (Sq + TC_BQ - 1) / TC_BQ > 65535)
     return (int)cudaErrorInvalidValue;
-  TcArgs a{o, H, H / KH, Sq, Sk, strides[9], strides[10], strides[11],
+  TcArgs a{o, lse, H, H / KH, Sq, Sk, strides[9], strides[10], strides[11],
            scale_log2, causal, window};
   cudaStream_t s = (cudaStream_t)stream;
   switch (D) {
+    case 16: return tc_launch<16>(q, k, v, a, B, KH, strides, s);
     case 64: return tc_launch<64>(q, k, v, a, B, KH, strides, s);
     case 96: return tc_launch<96>(q, k, v, a, B, KH, strides, s);
     case 128: return tc_launch<128>(q, k, v, a, B, KH, strides, s);
@@ -563,6 +580,7 @@ extern "C" int rt_flash_attention_tc(const void* q, const void* k,
 // dynamic shared memory of one CTA at head dim D (0 if D is not built)
 extern "C" int rt_flash_attention_tc_smem(int D) {
   switch (D) {
+    case 16: return TcTile<16>::SMEM;
     case 64: return TcTile<64>::SMEM;
     case 96: return TcTile<96>::SMEM;
     case 128: return TcTile<128>::SMEM;

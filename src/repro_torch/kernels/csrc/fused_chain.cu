@@ -149,7 +149,8 @@ extern "C" int rt_abi(int* vals, int n) {
                      RT_ROW_CLUSTER,   RT_ROWS_STAGES,
                      RT_ROW_GROUPS,    RT_COL_TILE,       RT_CHUNK_INTS,
                      RT_DESIGN_INTS,   RT_ROWS_CONSUMERS, RT_SM_SMEM_BYTES,
-                     RT_SMEM_STATIC,   RT_CHAIN_ROWS,     RT_CHAIN_COLS};
+                     RT_SMEM_STATIC,   RT_CHAIN_ROWS,     RT_CHAIN_COLS,
+                     RT_SSDB_MAX_NC};
   const int m = (int)(sizeof(abi) / sizeof(abi[0]));
   for (int i = 0; i < n && i < m; ++i) vals[i] = abi[i];
   return m;

@@ -1,4 +1,4 @@
-"""Model-zoo building blocks: ``repro.models.layers`` except cross attention.
+"""Model-zoo building blocks: ``repro.models.layers``.
 
 Everything takes explicit param dicts (``models/zoo.py`` templates) and
 keeps the reference's numerics, so that bf16 runs round where it rounds:
@@ -17,8 +17,9 @@ Where the reference asks a product of bf16 operands for a float32 result
 product is exact in float32.  The SSD scan's inter-chunk recurrence runs
 through ``kernels/ssd_scan.py`` (the CUDA kernel on CUDA tensors).
 
-Not ported yet (ROADMAP Queue 1 items 13d and 13e): ``cross_attn_*`` and
-``flash_cvjp``.
+Everything here is differentiable: the attention kernel and ``ssd_scan``
+are ``torch.autograd.Function``s with backward kernels, and nothing that
+autograd saves is written in place.
 """
 
 from __future__ import annotations
@@ -191,7 +192,9 @@ def _qkv(cfg, p, x, positions, cdt):
 def attn_forward(cfg, p, x, positions, *, window=0, attn_impl="flash"):
     """Full-sequence self attention. x: [B, S, D].  ``attn_impl``:
     ``"pallas"`` runs the port's kernel (``kernels/flash_attention.py``),
-    ``"flash"`` the blockwise plain version above."""
+    ``"flash"`` the blockwise plain version above, ``"flash_cvjp"`` the
+    streaming-backward attention (``models/flash_cvjp.py``: the kernels on
+    CUDA tensors)."""
     cdt = x.dtype
     q, k, v = _qkv(cfg, p, x, positions, cdt)
     if attn_impl == "pallas":
@@ -199,9 +202,8 @@ def attn_forward(cfg, p, x, positions, *, window=0, attn_impl="flash"):
     elif attn_impl == "flash":
         out = flash_attention(q, k, v, causal=True, window=window)
     elif attn_impl == "flash_cvjp":
-        raise NotImplementedError("attn_impl='flash_cvjp' (models/flash_cvjp"
-                                  ".py) is not ported yet: ROADMAP Queue 1 "
-                                  "item 13e")
+        from repro_torch.models.flash_cvjp import flash_attention_cvjp
+        out = flash_attention_cvjp(q, k, v, causal=True, window=window)
     else:
         raise ValueError(f"unknown attn_impl {attn_impl!r}")
     B, S = x.shape[:2]
@@ -223,6 +225,33 @@ def attn_decode(cfg, p, x, cache_k, cache_v, pos, *, window=0):
     B = x.shape[0]
     out = out.reshape(B, 1, cfg.q_dim)
     return out @ p["o"].to(cdt), cache_k, cache_v
+
+
+def cross_attn_forward(cfg, p, x, kv_src):
+    """Cross attention to precomputed patch embeddings.  x: [B, S, D];
+    kv_src: [B, T, D] -> (out, k, v).  As in the reference, it runs the
+    blockwise plain attention with full visibility (the reference's
+    ``attn_impl`` argument here is unused)."""
+    cdt = x.dtype
+    B, S = x.shape[:2]
+    T = kv_src.shape[1]
+    q = (x @ p["q"].to(cdt)).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    k = (kv_src @ p["k"].to(cdt)).reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+    v = (kv_src @ p["v"].to(cdt)).reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+    out = flash_attention(q, k, v, causal=False, q_offset=0)
+    out = out.reshape(B, S, cfg.q_dim)
+    return out @ p["o"].to(cdt), k, v
+
+
+def cross_attn_decode(cfg, p, x, k, v):
+    """One token's cross attention to the cached patch keys and values
+    (every patch visible).  x: [B, 1, D]; k, v: [B, T, KH, hd]."""
+    cdt = x.dtype
+    B = x.shape[0]
+    q = (x @ p["q"].to(cdt)).reshape(B, 1, cfg.n_heads, cfg.head_dim)
+    out = decode_attention(q, k, v, k.shape[1] - 1)
+    out = out.reshape(B, 1, cfg.q_dim)
+    return out @ p["o"].to(cdt)
 
 
 # ---------------------------------------------------------------------------
@@ -361,10 +390,9 @@ def ssd_chunked(xh, dt, a_log, Bm, Cm, chunk):
     cum = torch.cumsum(da, dim=-1).permute(0, 1, 3, 2)        # [b,nc,q,h]
 
     # intra-chunk (quadratic within a chunk): (C B^T * L) @ xdt per head
-    L = torch.exp(_segsum(da))                                # [b,nc,h,q,k]
-    m = up(L)
-    del L
-    m.mul_(torch.einsum("bcqn,bckn->bcqk", Cm, Bm)[:, :, None])
+    # out of place: in float32 up(L) is L itself, which exp saved
+    m = up(torch.exp(_segsum(da))) * torch.einsum(
+        "bcqn,bckn->bcqk", Cm, Bm)[:, :, None]                # [b,nc,h,q,k]
     y = torch.einsum("bchqk,bckhp->bcqhp", m, xdt)
     del m
 

@@ -4,7 +4,8 @@ Written out rather than ``torch.optim.AdamW``, so that a fit here and the
 reference's take the same steps: clipping by global norm, linear warmup
 then cosine decay, weight decay only on leaves with ``ndim >= 2``, and all
 optimizer state in float32.  ``params``, ``grads`` and the state are lists
-of tensors in one order (the fit engine's flat leaves).
+of tensors in one order (the fit engine's flat leaves, the train step's
+leaves in the reference's tree order).
 """
 
 from __future__ import annotations
@@ -52,32 +53,43 @@ def init_opt_state(params) -> dict:
     return {"mu": zeros, "nu": [z.clone() for z in zeros]}
 
 
+@torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params, grads, opt_state, step: int):
     """One AdamW step.  All state math in float32; returns
     ``(params', opt_state', grad norm)`` with new tensors (nothing is
-    updated in place)."""
+    updated in place): ``adamw_update_`` on copies."""
+    params = [p.clone() for p in params]
+    opt_state = {"mu": [m.clone() for m in opt_state["mu"]],
+                 "nu": [v.clone() for v in opt_state["nu"]]}
+    gnorm = adamw_update_(cfg, params, grads, opt_state, step)
+    return params, opt_state, gnorm
+
+
+@torch.no_grad()
+def adamw_update_(cfg: AdamWConfig, params, grads, opt_state, step: int):
+    """``adamw_update`` IN PLACE: each parameter and its moments are
+    updated where they lie, one leaf at a time, with the same arithmetic
+    (the reference's ``adamw_update`` returns new trees).  A full-width
+    training state then needs no second copy of params and moments.
+    Returns the grad norm (before clipping)."""
     gnorm = global_norm(grads)
-    if cfg.clip_norm:
-        scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
-        grads = [g.float() * scale for g in grads]
-    else:
-        grads = [g.float() for g in grads]
+    scale = (torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
+             if cfg.clip_norm else None)
     dev = params[0].device if params else torch.device("cpu")
     lr = lr_at(cfg, step).to(dev)
     t = torch.tensor(float(step + 1), dtype=torch.float32)
     bc1 = (1 - torch.tensor(cfg.b1, dtype=torch.float32) ** t).to(dev)
     bc2 = (1 - torch.tensor(cfg.b2, dtype=torch.float32) ** t).to(dev)
-
-    new_p, new_m, new_v = [], [], []
     for p, g, m, v in zip(params, grads, opt_state["mu"], opt_state["nu"]):
-        m = cfg.b1 * m + (1 - cfg.b1) * g
-        v = cfg.b2 * v + (1 - cfg.b2) * g * g
-        mh = m / bc1
-        vh = v / bc2
-        upd = mh / (torch.sqrt(vh) + cfg.eps)
+        g = g.float() * scale if scale is not None else g.float()
+        m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+        v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
+        del g
+        upd = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
         if p.dim() >= 2:
             upd = upd + cfg.weight_decay * p.float()
-        new_p.append((p.float() - lr * upd).to(p.dtype))
-        new_m.append(m)
-        new_v.append(v)
-    return new_p, {"mu": new_m, "nu": new_v}, gnorm
+        if p.dtype == torch.float32:
+            p.sub_(lr * upd)
+        else:
+            p.copy_((p.float() - lr * upd).to(p.dtype))
+    return gnorm

@@ -173,6 +173,9 @@ EMU_CASES = [
     (200, 300, 8, 2, 128, 0, "bfloat16"),
     (181, 181, 4, 4, 96, 0, "bfloat16"),
     (70, 250, 4, 2, 256, 0, "bfloat16"),
+    # the reduced configs' head dim (one 64-column slab, 16 stored)
+    (150, 150, 4, 2, 16, 8, "bfloat16"),
+    (90, 90, 4, 2, 16, 0, "float32"),
     # windows that make the bf16 kernel skip whole kv tiles
     (600, 600, 4, 2, 64, 100, "bfloat16"),
     (300, 300, 2, 1, 256, 70, "bfloat16"),

@@ -1,7 +1,7 @@
 """LM serving: the port's prefill, decode and forward against the
 reference's, on the reduced configs of the dense archs (qwen3, gemma3,
-phi3, yi, musicgen) and of the MoE, SSM and hybrid ones (deepseek-moe,
-dbrx, mamba2, jamba).
+phi3, yi, musicgen), of the MoE, SSM and hybrid ones (deepseek-moe, dbrx,
+mamba2, jamba) and of the VLM (llama-3.2-vision, with image embeddings).
 
 Both packages get the same parameters (the reference's ``init_params``,
 carried across by ``zoo.params_from_jax``) and the same numpy inputs.  On
@@ -35,7 +35,7 @@ import torch
 from repro.configs import get_config as jget_config
 from repro.models import zoo as jzoo
 from repro.models.template import init_params as jinit_params
-from repro_torch.configs import ARCH_IDS, ShapeConfig, get_config
+from repro_torch.configs import ShapeConfig, get_config
 from repro_torch.launch import steps
 from repro_torch.models import layers as L
 from repro_torch.models import zoo
@@ -63,6 +63,11 @@ def _configs(arch, dtype):
 def _params(arch):
     jcfg, _ = _configs(arch, "float32")
     jp = jinit_params(jzoo.model_template(jcfg), jax.random.PRNGKey(0))
+    if jcfg.family == "vlm":
+        # the cross layers' tanh gate starts at 0, where they add nothing:
+        # open it so that the image reaches the logits and the cache
+        jp["periods"]["cross"]["gate"] = jnp.full_like(
+            jp["periods"]["cross"]["gate"], 0.5)
     return jp, zoo.params_from_jax(jax.tree.map(np.asarray, jp),
                                    device="cpu")
 
@@ -443,18 +448,192 @@ def test_mixed_serving_params_bf16(arch):
         assert 0 <= int(tok.min()) and int(tok.max()) < cfg.vocab_size
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCH_IDS
-                                  if get_config(a).family == "vlm"])
-def test_unported_families_raise(arch):
-    cfg = get_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13d"):
-        zoo.model_template(cfg)
-    with pytest.raises(NotImplementedError):
-        zoo.init_cache(cfg.reduced(), 1, 8, abstract=True)
+# -- VLM ---------------------------------------------------------------------
+
+VLM = "llama-3.2-vision-90b"
+
+
+def _vlm_batch(cfg, seq=S, seed=1):
+    """(reference batch, port batch): tokens and image embeddings from one
+    numpy draw."""
+    rng = np.random.default_rng(seed)
+    t = rng.integers(0, cfg.vocab_size, (2, seq))
+    im = rng.standard_normal((2, cfg.n_image_tokens, cfg.d_model)).astype(
+        np.float32)
+    return ({"tokens": jnp.asarray(t, jnp.int32),
+             "image_embeds": jnp.asarray(im)},
+            {"tokens": torch.from_numpy(t),
+             "image_embeds": torch.from_numpy(im)})
+
+
+def _reference_vlm(dtype):
+    """The reference's VLM prefill, cached per dtype."""
+    if (VLM, dtype) not in _REF:
+        jcfg, _ = _configs(VLM, dtype)
+        jp, tp = _params(VLM)
+        jb, tb = _vlm_batch(jcfg)
+        logits, cache = jzoo.prefill(jcfg, jp, jb)
+        _REF[VLM, dtype] = (jp, tp, tb, np.asarray(logits, np.float64),
+                            {k: _np64(v) for k, v in _flat(cache).items()})
+    return _REF[VLM, dtype]
+
+
+@pytest.mark.parametrize("attn_impl", ["pallas", "flash"])
+def test_vlm_prefill_matches_reference_f32(attn_impl):
+    """Logits and every cache leaf (the self layers' k / v, the cross
+    layers' image k / v) within 1e-4 of max|reference|."""
+    _, tp, tb, want, want_cache = _reference_vlm("float32")
+    _, tcfg = _configs(VLM, "float32")
+    logits, cache = steps.build_prefill_step(
+        tcfg, steps.HParams(attn_impl=attn_impl))(tp, tb)
+    assert _scaled(_f64(logits), want) <= 1e-4
+    got = _flat(cache)
+    assert set(got) == set(want_cache) == {"self/k", "self/v", "cross/xk",
+                                           "cross/xv"}
+    for k, w in want_cache.items():
+        assert tuple(got[k].shape) == w.shape
+        assert _scaled(_f64(got[k]), w) <= 1e-4, k
+
+
+@pytest.mark.parametrize("attn_impl", ["pallas", "flash"])
+def test_vlm_prefill_bf16_against_float64(attn_impl):
+    """bf16: the port's RMS error against its float64 evaluation at most
+    twice the reference's, as for the other families."""
+    _, tp, tb, want, want_cache = _reference_vlm("bfloat16")
+    _, tcfg = _configs(VLM, "bfloat16")
+    logits, cache = zoo.prefill(tcfg, tp, tb, attn_impl=attn_impl)
+    ocfg = dataclasses.replace(tcfg, compute_dtype="float64")
+    exact, exact_cache = zoo.prefill(ocfg, tp, tb, attn_impl="flash")
+
+    def rms(a):
+        return np.sqrt(np.mean(np.square(a)))
+    exact = exact.numpy()
+    assert 0 < rms(_f64(logits) - exact) <= 2 * rms(want - exact)
+    got = _flat(cache)
+    for k, e in _flat(exact_cache).items():
+        assert got[k].dtype == torch.bfloat16
+        e = e.numpy()
+        assert rms(_f64(got[k]) - e) <= 2 * rms(want_cache[k] - e), k
+
+
+def test_vlm_decode_matches_reference():
+    """Prefill S, pad the self-attention caches by 8, decode two tokens:
+    greedy tokens equal to the reference's, caches within 1e-4 scaled."""
+    jcfg, tcfg = _configs(VLM, "float32")
+    jp, tp = _params(VLM)
+    jb, tb = _vlm_batch(jcfg, seed=3)
+    _, jcache = jzoo.prefill(jcfg, jp, jb)
+    _, tcache = steps.build_prefill_step(tcfg, steps.HParams())(tp, tb)
+    jcache, tcache = _pad_attn(jcache, 8), _pad_attn(tcache, 8)
+    serve = steps.build_serve_step(tcfg, steps.HParams())
+    tok = np.random.default_rng(4).integers(0, jcfg.vocab_size, 2)
+    jt, tt = jnp.asarray(tok, jnp.int32), torch.from_numpy(tok)
+    for pos in (S, S + 1):
+        jt, jcache = jzoo.decode_step(jcfg, jp, jcache, jt, jnp.array(pos))
+        tt, out = serve(tp, tcache, tt, pos)
+        assert out is tcache
+        np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+    want = _flat(jcache)
+    for k, t in _flat(tcache).items():
+        assert _scaled(_f64(t), _np64(want[k])) <= 1e-4, k
+
+
+def test_vlm_decode_consistent_with_forward():
+    """Greedy token of (prefill S through the kernel path, decode S) ==
+    argmax of the kernel path's forward over S + 1, same image."""
+    _, tcfg = _configs(VLM, "float32")
+    _, tp = _params(VLM)
+    _, tb = _vlm_batch(tcfg, seq=S + 1, seed=5)
+    toks = tb["tokens"]
+    logits, _ = zoo.forward(tcfg, tp, tb, attn_impl="pallas")
+    _, cache = zoo.prefill(tcfg, tp, {"tokens": toks[:, :S],
+                                      "image_embeds": tb["image_embeds"]},
+                           attn_impl="pallas")
+    got, _ = zoo.decode_step(tcfg, tp, _pad_attn(cache, 8), toks[:, S], S)
+    assert torch.equal(got.long(), logits[:, -1].argmax(-1))
+
+
+@pytest.mark.parametrize("attn_impl", ["pallas", "flash"])
+def test_vlm_forward_matches_reference(attn_impl):
+    jcfg, tcfg = _configs(VLM, "float32")
+    jp, tp = _params(VLM)
+    jb, tb = _vlm_batch(jcfg, seq=12, seed=6)
+    want, jaux = jzoo.forward(jcfg, jp, jb, remat="none")
+    got, aux = zoo.forward(tcfg, tp, tb, attn_impl=attn_impl)
+    assert float(aux) == float(jaux) == 0.0
+    assert _scaled(_f64(got), np.asarray(want, np.float64)) <= 1e-4
+
+
+def test_vlm_cross_attention_matches_reference():
+    """``cross_attn_forward`` (blockwise, every patch visible, q offset 0)
+    and ``cross_attn_decode`` on the reference's cross-layer weights."""
+    from repro.models import layers as jlayers
+    jcfg, tcfg = _configs(VLM, "float32")
+    jp, tp = _params(VLM)
+    jx = {k: jax.tree.map(lambda a: a[0], v)
+          for k, v in jp["periods"]["cross"].items()}["xattn"]
+    tx = {k: v[0] for k, v in tp["periods"]["cross"]["xattn"].items()}
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((2, 11, tcfg.d_model)).astype(np.float32)
+    src = rng.standard_normal((2, tcfg.n_image_tokens,
+                               tcfg.d_model)).astype(np.float32)
+    want, wk, wv = jlayers.cross_attn_forward(jcfg, jx, jnp.asarray(x),
+                                              jnp.asarray(src))
+    got, k, v = L.cross_attn_forward(tcfg, tx, torch.from_numpy(x),
+                                     torch.from_numpy(src))
+    for a, b in ((got, want), (k, wk), (v, wv)):
+        assert _scaled(_f64(a), np.asarray(b, np.float64)) <= 1e-5
+    want = jlayers.cross_attn_decode(jcfg, jx, jnp.asarray(x[:, :1]), wk, wv)
+    got = L.cross_attn_decode(tcfg, tx, torch.from_numpy(x[:, :1]), k, v)
+    assert _scaled(_f64(got), np.asarray(want, np.float64)) <= 1e-5
+
+
+def test_vlm_template_and_cache():
+    """Full size, on ``meta``: the reference's keys, shapes and cache
+    layout; the count is the analytic one.  The template no longer
+    raises."""
+    cfg = get_config(VLM)
+    tmpl = zoo.model_template(cfg)
+    assert abs(count_template_params(tmpl) - cfg.count_params()) \
+        / cfg.count_params() < 0.02
+    want = _flat(jzoo.model_template(jget_config(VLM)))
+    got = _flat(abstract_params(tmpl))
+    assert set(got) == set(want)
+    for k, t in got.items():
+        assert tuple(t.shape) == want[k].shape, k
+    assert tuple(got["periods/cross/gate"].shape) == (20, 1)
+    want = _flat(jzoo.init_cache(jget_config(VLM), 2, 128, abstract=True))
+    got = _flat(zoo.init_cache(cfg, 2, 128, abstract=True))
+    assert set(got) == set(want)
+    for k, t in got.items():
+        assert tuple(t.shape) == want[k].shape
+        assert str(t.dtype)[6:] == str(want[k].dtype), k
+
+
+def test_vlm_serving_params_bf16():
+    """Served in bf16 through ``build_prefill_step`` and
+    ``build_serve_step``: prefill and four decode steps, finite logits,
+    in-range tokens, the image cache untouched by decode."""
+    cfg = get_config(VLM).reduced()
+    hp = steps.HParams()
+    sp = steps.serving_params(cfg, hp, init_params(zoo.model_template(cfg),
+                                                   1, device="cpu"))
+    batch = zoo.make_inputs(cfg, 2, 0, seq=20, device="cpu")
+    assert batch["image_embeds"].dtype == torch.bfloat16
+    logits, cache = steps.build_prefill_step(cfg, hp)(sp, batch)
+    assert torch.isfinite(logits).all()
+    xk = cache["cross"]["xk"].clone()
+    cache = _pad_attn(cache, 4)
+    tok, serve = logits.argmax(-1), steps.build_serve_step(cfg, hp)
+    for pos in range(20, 24):
+        tok, cache = serve(sp, cache, tok, pos)
+        assert 0 <= int(tok.min()) and int(tok.max()) < cfg.vocab_size
+    assert torch.equal(cache["cross"]["xk"], xk)
 
 
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
-@pytest.mark.parametrize("arch", ["qwen3-8b", "musicgen-medium", *MIXED])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "musicgen-medium", *MIXED,
+                                  "llama-3.2-vision-90b"])
 def test_make_inputs_match_input_structs(arch, kind):
     cfg = get_config(arch).reduced()
     shape = ShapeConfig(f"small_{kind}", kind, 12, 3)

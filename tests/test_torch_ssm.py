@@ -217,3 +217,111 @@ def test_mamba_layer_bf16_matches_reference():
     exact = exact.numpy()
     ref_err = _scaled(np.asarray(jy, np.float64), exact)
     assert 0 < _scaled(ty.double().numpy(), exact) <= 2 * ref_err
+
+
+# -- the backward: ssd_scan's autograd Function and its plain reverse loop --
+
+from repro.kernels import ref as jref                      # noqa: E402
+from repro_torch.kernels import ssd_scan as tscan          # noqa: E402
+
+
+@pytest.mark.parametrize("shape", [(6, 5, 3, 4), (4, 3, 2, 2), (2, 9, 4, 8)])
+def test_ssd_scan_bwd_matches_reference_vjp(shape):
+    """``ssd_scan_bwd_plain`` and the Function's backward against
+    ``jax.vjp`` of the reference's recurrence (``kernels/ref.py::ssd_scan``,
+    a ``lax.scan``), 1e-5 scaled."""
+    rng = np.random.default_rng(11)
+    st = rng.standard_normal(shape).astype(np.float32)
+    dec = rng.uniform(0.05, 1.0, shape[:2]).astype(np.float32)
+    g = rng.standard_normal(shape).astype(np.float32)
+    prev, vjp = jax.vjp(jref.ssd_scan, jnp.asarray(st), jnp.asarray(dec))
+    want_st, want_dec = vjp(jnp.asarray(g))
+    tprev = tscan.ssd_scan_plain(*_port(st, dec))
+    assert _scaled(tprev.numpy(), prev) <= 1e-6
+    dst, ddec = tscan.ssd_scan_bwd_plain(torch.from_numpy(g), tprev,
+                                         torch.from_numpy(dec))
+    assert _scaled(dst.numpy(), want_st) <= 1e-5
+    assert _scaled(ddec.numpy(), want_dec) <= 1e-5
+    ts, td = (t.requires_grad_() for t in _port(st, dec))
+    out = tscan.ssd_scan(ts, td)
+    assert out.grad_fn is not None
+    gs, gd = torch.autograd.grad(out, (ts, td), torch.from_numpy(g))
+    assert torch.equal(gs, dst) and torch.equal(gd, ddec)
+    # the wrapper on CPU tensors is the plain version
+    via = tscan.ssd_scan_bwd(torch.from_numpy(g), tprev,
+                             torch.from_numpy(dec))
+    assert all(torch.equal(a, b) for a, b in zip(via, (dst, ddec)))
+    # one chunk: prev is S_{-1} = 0 and nothing reads S_0
+    one = tscan.ssd_scan_bwd_plain(torch.from_numpy(g[:, :1]),
+                                   tprev[:, :1], torch.from_numpy(dec[:, :1]))
+    assert not one[0].any() and not one[1].any()
+
+
+def test_ssd_scan_function_gradcheck():
+    """The Function's backward is the recurrence's exact adjoint (float64
+    finite differences), states of any float type keep their dtype."""
+    rng = np.random.default_rng(12)
+    st = torch.from_numpy(rng.standard_normal((3, 4, 2, 3))).requires_grad_()
+    dec = torch.from_numpy(rng.uniform(0.1, 1.0, (3, 4))).requires_grad_()
+    # the plain version runs in float32: compare its float32 gradient with
+    # float64 finite differences of the float64 recurrence
+    def f64(s, d):
+        out, cur = [], torch.zeros_like(s[:, 0])
+        for c in range(s.shape[1]):
+            out.append(cur)
+            cur = cur * d[:, c, None, None] + s[:, c]
+        return torch.stack(out, 1)
+    torch.autograd.gradcheck(f64, (st, dec))
+    g = torch.from_numpy(rng.standard_normal((3, 4, 2, 3)))
+    want = torch.autograd.grad(f64(st, dec), (st, dec), g)
+    got = torch.autograd.grad(tscan.ssd_scan(st, dec), (st, dec), g)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float64
+        assert _scaled(a.numpy(), b.numpy()) <= 1e-6
+    sb = st.detach().to(torch.bfloat16).requires_grad_()
+    gb, = torch.autograd.grad(tscan.ssd_scan(sb, dec.detach().float()), sb,
+                              g.float())
+    assert gb.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("s", [32, 29])
+def test_ssd_chunked_gradients_match_reference(s):
+    """``jax.grad`` of the reference's ``ssd_chunked`` (its recurrence a
+    ``lax.scan``) against the port's autograd through the ``ssd_scan``
+    Function: every input's gradient within 1e-4 scaled."""
+    xh, dt, a_log, Bm, Cm = _ssd_inputs(s, seed=3)
+    w = np.random.default_rng(13).standard_normal((2, s, H, P)).astype(
+        np.float32)
+
+    def loss(*args):
+        return jnp.sum(jlayers.ssd_chunked(*args, CHUNK) * w)
+
+    want = jax.grad(loss, argnums=tuple(range(5)))(
+        *(jnp.asarray(t) for t in (xh, dt, a_log, Bm, Cm)))
+    args = [t.requires_grad_() for t in _port(xh, dt, a_log, Bm, Cm)]
+    y = tlayers.ssd_chunked(*args, CHUNK)
+    got = torch.autograd.grad((y * torch.from_numpy(w)).sum(), args)
+    for a, b, nm in zip(got, want, ("xh", "dt", "a_log", "B", "C")):
+        assert _scaled(a.numpy(), b) <= 1e-4, nm
+
+
+def test_mamba_layer_gradients_match_reference():
+    """A whole reduced mamba2 layer: every weight's gradient against
+    ``jax.grad`` of the reference's, 1e-4 scaled."""
+    jcfg, tcfg, jp, tp = _mamba_params("float32")
+    x = np.random.default_rng(14).standard_normal(
+        (2, 21, tcfg.d_model)).astype(np.float32)
+    w = np.random.default_rng(15).standard_normal(
+        (2, 21, tcfg.d_model)).astype(np.float32)
+
+    def loss(p):
+        y, _ = jlayers.mamba_layer(jcfg, p, jnp.asarray(x))
+        return jnp.sum(y * w)
+
+    want = jax.grad(loss)(jp)
+    leaves = {k: v.clone().requires_grad_() for k, v in tp.items()}
+    y, _ = tlayers.mamba_layer(tcfg, leaves, torch.from_numpy(x))
+    got = torch.autograd.grad((y * torch.from_numpy(w)).sum(),
+                              list(leaves.values()))
+    for (k, _), g in zip(leaves.items(), got):
+        assert _scaled(g.numpy(), want[k]) <= 1e-4, k
