@@ -174,7 +174,19 @@ Phases (any failure exits non-zero; nothing is caught):
      gradients, every leaf within 1e-4 scaled: qwen3-8b (1 layer, S =
      1,024) kernel path against the blockwise "flash" autodiff on the
      card, mamba2-2.7b (2 layers, S = 512) card against the CPU;
-  12. the launches of every kernel on each path, counted from 0 just before
+  12. sharding on a 1 x 1 mesh (the card is one rank): a one-rank NCCL
+     group on a file store and ``make_mesh((1, 1), ("data", "model"))``;
+     phase 5's K = 8 fleet at order 2 through ``MultiINRArtifact(...,
+     sharding=policy)`` (``k_sharded``, the stacked kernel, outputs
+     torch.equal to the unsharded stack), N = 65,536 rows at orders 1-3
+     through ``ServingEngine(sharding=policy, shard_chunking=True)`` and
+     ``AsyncServingEngine(sharding=policy)`` (torch.equal to the unsharded
+     engine), and one ``build_train_step(cfg, hp, policy)`` step of
+     qwen3-8b cut to 4 layers at phase 11's shape with the state placed at
+     ``state_specs`` (flash_attention and its backward launched; loss
+     within rtol 1e-5 and grad norm within rtol 1e-4 of the unsharded
+     step); the group is then destroyed;
+  13. the launches of every kernel on each path, counted from 0 just before
      the path and read just after it: phase 4 must launch region,
      fused_chain, stream_matmul and siren_layer, phase 5 region_stacked
      (stacked path) and region and fused_chain (per-lane path), phase 6
@@ -185,9 +197,11 @@ Phases (any failure exits non-zero; nothing is caught):
      region_stacked and fused_chain (``async_serve``: the counted
      ``serve_async``) and region, fused_chain, stream_matmul and
      siren_layer (``drift``), phase 11 flash_attention,
-     flash_attention_bwd, ssd_scan and ssd_scan_bwd (``train``); one JSON
-     line of per-kernel numbers;
-  13. the last line: {"ok": true, "device": {...}}.
+     flash_attention_bwd, ssd_scan and ssd_scan_bwd (``train``), phase 12
+     region_stacked, region, flash_attention and flash_attention_bwd
+     (``sharded``); one JSON line of per-kernel numbers (a kernel's fp32
+     route, where it has one, under ``routes``);
+  14. the last line: {"ok": true, "device": {...}}.
 
 Times: ``ms`` is the device time of one call (torch.profiler, the sum of
 the kernel records per call; for a plain version, every kernel it
@@ -553,10 +567,26 @@ def main() -> int:
 
     def record(name, source, replaces, errs, t_k, t_p, nbytes, flops,
                library_ms=None, peak_flops_per_s=FP32_FLOPS_PER_S,
-               pallas=True):
+               pallas=True, route=None):
         """``pallas=False``: a kernel with no Pallas counterpart, whose
-        ``replaces`` names the reference's XLA code it stands for."""
+        ``replaces`` names the reference's XLA code it stands for.
+        ``route``: the figures of a second route of a kernel already
+        recorded (its fp32 source beside the bf16 one), kept under the
+        record's ``routes``."""
         b, by = bound_ms(nbytes, flops, peak_flops_per_s)
+        if route is not None:
+            kernels[name].setdefault("routes", {})[route] = {
+                "source": source, "shape": replaces,
+                "max_abs_err": max(e for e, _ in errs),
+                "ms": t_k[0], "plain_ms": t_p[0], "bound_ms": b,
+                "bound_by": by, "library_ms": library_ms,
+                "call_ms": t_k[1], "plain_call_ms": t_p[1]}
+            log(f"[kernel] {name} {route} route ({source}) at {replaces}: "
+                f"{t_k[0]:.5f} ms/launch on the device ({t_k[1]:.5f} "
+                f"ms/call), plain {t_p[0]:.5f} ms ({t_p[1]:.5f} ms/call), "
+                f"bound {b:.6f} ms by {by} at {peak_flops_per_s / 1e12:.0f} "
+                f"TFLOP/s, library {library_ms:.5f} ms; {card}")
+            return
         kernels[name] = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "pallas_counterpart": pallas,
@@ -1041,7 +1071,11 @@ def main() -> int:
     launches_train = train_phase(log, torch, dev, scaled_err, device_ms,
                                  timing, record)
 
-    # -- 12. launches --------------------------------------------------------
+    # -- 12. sharding on a 1 x 1 mesh -----------------------------------------
+    launches_sharded = sharding_phase(log, torch, dev, cfg, f, params, fleet,
+                                      coords, fused_cfg, card)
+
+    # -- 13. launches --------------------------------------------------------
     # ``launches`` counts the path a kernel was ported for (phase 4's for
     # PR 11's kernels, phase 5's for region_stacked, phase 6's for
     # region_bwd, phase 7's qwen3 serving for flash_attention, phase 7e's
@@ -1053,7 +1087,8 @@ def main() -> int:
              "lm_families": launches_families,
              "kernel_ops": launches_ops, "compile_auto": launches_auto,
              "bank": launches_bank, "async_serve": launches_async,
-             "drift": launches_drift, "train": launches_train}
+             "drift": launches_drift, "train": launches_train,
+             "sharded": launches_sharded}
     home = {"region_stacked": "multi_inr", "region_bwd": "fit",
             "flash_attention": "lm_serve", "ssd_scan": "lm_families",
             "flash_attention_bwd": "train", "ssd_scan_bwd": "train"}
@@ -1746,7 +1781,28 @@ def lm_phase(log, torch, dev, scaled_err, device_ms, timing, record):
            q.element_size() * (2 * q.numel() + k.numel() + v.numel()),
            attention_flops(B, Sq, Sk, H, D, causal=True, window=0),
            library_ms=lib_ms, peak_flops_per_s=BF16_FLOPS_PER_S)
+    # the fp32 route (csrc/flash_attention.cu) at the same shape
+    qf, kf, vf = (t.float() for t in (q, k, v))
     del q, k, v, qt, kt, vt, timed
+    ok = scaled_err(flash_attention(qf, kf, vf, causal=True),
+                    flash_attention_plain(qf, kf, vf, causal=True))
+    qt, kt, vt = (t.transpose(1, 2) for t in (qf, kf, vf))
+    record("flash_attention", "src/repro_torch/kernels/csrc/"
+           "flash_attention.cu", f"q {tuple(qf.shape)} k {tuple(kf.shape)} "
+           f"float32 causal", [ok],
+           timing(lambda: flash_attention(qf, kf, vf, causal=True), 3, 3),
+           timing(lambda: flash_attention_plain(qf, kf, vf, causal=True), 2,
+                  2),
+           4 * (2 * qf.numel() + kf.numel() + vf.numel()),
+           attention_flops(B, Sq, Sk, H, D, causal=True, window=0),
+           library_ms=timing(
+               lambda: torch.nn.functional.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=True, enable_gqa=True), 5, 5)[0],
+           route="float32")
+    if ok[1] > 1e-5:
+        raise AssertionError(f"flash_attention fp32 at the prefill shape: "
+                             f"scaled err against plain {ok[1]:.3e}")
+    del qf, kf, vf, qt, kt, vt
     torch.cuda.empty_cache()
 
     # -- 7b. ssd_scan ---------------------------------------------------------
@@ -2293,7 +2349,7 @@ def train_phase(log, torch, dev, scaled_err, device_ms, timing, record):
             f"kernels (pass 1 and 2 at D = {fa.HEAD_DIMS}), HGMMA "
             f"{sorted(c['HGMMA'] for c in tc_sass.values())}, UTMALDG "
             f"{sorted(c['UTMALDG'] for c in tc_sass.values())}")
-    errs, timed = [], None
+    errs, timed, timed32 = [], None, None
     for label, (B, Sq, H, KH, D), dt, window in TRAIN_ATTN_CASES:
         dt = getattr(torch, dt)
         q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
@@ -2358,6 +2414,9 @@ def train_phase(log, torch, dev, scaled_err, device_ms, timing, record):
                                  f"({rule})")
         if timed is None:
             timed = (q, k, v, out, lse, dout, window)
+        if timed32 is None and dt == torch.float32:
+            timed32 = (label, q, k, v, out, lse, dout, window,
+                       errs[-3:])
         del got, plain, exact
     q, k, v, out, lse, dout, window = timed
     B, Sq, H, D = q.shape
@@ -2393,6 +2452,30 @@ def train_phase(log, torch, dev, scaled_err, device_ms, timing, record):
            nbytes, flops, library_ms=lib_ms,
            peak_flops_per_s=BF16_FLOPS_PER_S, pallas=False)
     del q, k, v, out, lse, dout, timed, qt, kt, vt, ot, dt_
+    # the fp32 route (csrc/flash_attention_bwd.cu) at its first fp32 case,
+    # with SDPA's fp32 autograd backward at the same shape
+    label, q, k, v, out, lse, dout, window, errs32 = timed32
+    B, Sq, H, D = q.shape
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    ot = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    dt_ = dout.transpose(1, 2)
+    record("flash_attention_bwd",
+           "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+           f"{label}: q {tuple(q.shape)} k {tuple(k.shape)} float32 causal",
+           errs32,
+           timing(lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout),
+                  10, 10),
+           timing(lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse,
+                                                       dout), 3, 3),
+           q.element_size() * 2 * (2 * q.numel() + 2 * k.numel()
+                                   + dout.numel()) + 4 * lse.numel(),
+           2.5 * attention_flops(B, Sq, Sq, H, D, causal=True, window=0),
+           library_ms=timing(lambda: torch.autograd.grad(
+               ot, (qt, kt, vt), dt_, retain_graph=True), 5, 10)[0],
+           route="float32")
+    del q, k, v, out, lse, dout, timed32, qt, kt, vt, ot, dt_
     torch.cuda.empty_cache()
 
     # -- 11b. the ssd_scan backward against plain and float64 --------------
@@ -2532,6 +2615,152 @@ def train_phase(log, torch, dev, scaled_err, device_ms, timing, record):
                                          "flash_attention_bwd", "ssd_scan",
                                          "ssd_scan_bwd")):
         raise AssertionError(f"training launched {launches}")
+    return launches
+
+
+def sharding_phase(log, torch, dev, cfg, f, params, fleet, coords, fused_cfg,
+                   card):
+    """Phase 12, sharding on a 1 x 1 mesh; returns the launches of the
+    sharded paths, counted from 0 just before them (the unsharded runs they
+    are compared with are not counted)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core.pipeline import compile_gradient
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.distributed.sharding import ShardingPolicy, make_mesh
+    from repro_torch.kernels import common
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import init_process_group
+    from repro_torch.optim import adam
+    from repro_torch.serve import (AsyncServingEngine, MultiINRArtifact,
+                                   ServingEngine, bind_weights)
+
+    t_phase = time.perf_counter()
+    pg_dir = ROOT / "build" / "chip_smoke_pg"
+    shutil.rmtree(pg_dir, ignore_errors=True)
+    pg_dir.mkdir(parents=True)
+    init_process_group(str(pg_dir / "store"), 0, 1, timeout_s=300)
+    counted = collections.Counter()
+
+    def count(fn):
+        """fn() with the launches it made added to ``counted``."""
+        common.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        counted.update(common.LAUNCHES)
+        return out, dict(common.LAUNCHES)
+
+    def same(want, got):
+        return len(want) == len(got) and all(
+            len(w) == len(g) and all(torch.equal(a, b) for a, b in zip(w, g))
+            for w, g in zip(want, got))
+
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        policy = ShardingPolicy(mesh)
+        log(f"[shard] mesh {mesh} over a one-rank {dist.get_backend()} "
+            f"group; {card}")
+
+        # -- 12a. phase 5's K = 8 fleet, K-sharded --------------------------
+        K, N = len(fleet), 8192
+        gen = torch.Generator().manual_seed(K)
+        lane_coords = (torch.rand(K, N, 2, generator=gen) * 2 - 1).to(dev)
+        base = compile_gradient(f, 2, coords[:cfg.batch], config=fused_cfg,
+                                device=dev)
+        payloads = [bind_weights(base, params, w) for w in fleet]
+        want = MultiINRArtifact(base, payloads).apply_batched(lane_coords)
+        m = MultiINRArtifact(base, payloads, sharding=policy)
+        got, launched = count(lambda: m.apply_batched(lane_coords))
+        ok = m.k_sharded and m.double_buffered and same([want], [got]) \
+            and launched.get("region_stacked", 0) > 0
+        log(f"[shard] K-sharded fleet, K={K} order 2 N={N} per lane: "
+            f"k_sharded {m.k_sharded}, stacked path {m.double_buffered}, "
+            f"outputs torch.equal to the unsharded stack "
+            f"{same([want], [got])}; launches {launched}; {card}")
+        if not ok:
+            raise AssertionError("the K-sharded fleet disagrees")
+        del want, got, m, lane_coords
+
+        # -- 12b. row-sharded sync and async engines at orders 1-3 ---------
+        for order in (1, 2, 3):
+            cg = compile_gradient(f, order, coords[:cfg.batch],
+                                  config=fused_cfg, device=dev)
+            reqs = [(f"siren{order}", coords)]
+            plain = ServingEngine(device=dev)
+            sync = ServingEngine(sharding=policy, shard_chunking=True,
+                                 device=dev)
+            asyn = AsyncServingEngine(sharding=policy, device=dev)
+            for e in (plain, sync, asyn):
+                e.register(f"siren{order}", cg)
+            want = plain.serve(reqs)
+            got_s, l_s = count(lambda: sync.serve(reqs))
+            got_a, l_a = count(lambda: asyn.serve_async(reqs))
+            log(f"[shard] order {order}, N={coords.shape[0]} rows: "
+                f"ServingEngine(sharding, shard_chunking) torch.equal "
+                f"{same(want, got_s)} (launches {l_s}), "
+                f"AsyncServingEngine(sharding) torch.equal "
+                f"{same(want, got_a)} (launches {l_a}); {card}")
+            if not (same(want, got_s) and same(want, got_a)):
+                raise AssertionError(f"sharded engines at order {order} "
+                                     f"disagree")
+            del want, got_s, got_a, plain, sync, asyn, cg
+
+        # -- 12c. one sharded train step of qwen3-8b, 4 layers --------------
+        arch, depth = TRAIN_MODELS[0]
+        lm = dataclasses.replace(get_config(arch), n_layers=depth)
+        hp = steps.HParams(remat="dots", cast_once=True,
+                           optimizer=adam.AdamWConfig(
+                               lr=1e-4, warmup_steps=2,
+                               total_steps=TRAIN_STEPS))
+        shape = ShapeConfig("chip", "train", TRAIN_SEQ, TRAIN_BATCH)
+        pipe = TokenPipeline(DataConfig(lm.vocab_size, shape.seq_len,
+                                        shape.global_batch, seed=SEED))
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in pipe.batch_at(0).items()}
+        results = {}
+        for label, pol in (("unsharded", None), ("sharded", policy)):
+            state = steps.init_state(lm, SEED, device=dev)
+            if pol is not None:
+                state = steps.place_state(state, lm, pol)
+            step = steps.build_train_step(lm, hp, pol)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if pol is None:
+                _, metrics = step(state, batch)
+                torch.cuda.synchronize()
+                launched = None
+            else:
+                (_, metrics), launched = count(lambda: step(state, batch))
+            results[label] = ({k: float(v) for k, v in metrics.items()},
+                              time.perf_counter() - t0, launched)
+            del state, step, metrics
+            torch.cuda.empty_cache()
+        (m1, t1, _), (m2, t2, launched) = (results["unsharded"],
+                                           results["sharded"])
+        loss_ok = abs(m2["loss"] - m1["loss"]) <= 1e-5 * abs(m1["loss"])
+        gn_ok = abs(m2["grad_norm"] - m1["grad_norm"]) <= \
+            1e-4 * abs(m1["grad_norm"])
+        log(f"[shard] {arch}, full width, {depth} layers, B={TRAIN_BATCH} "
+            f"S={TRAIN_SEQ}, remat dots, cast_once, one step with the state "
+            f"at state_specs: loss {m2['loss']:.6f} vs {m1['loss']:.6f} "
+            f"unsharded (rtol 1e-5: {loss_ok}), grad norm "
+            f"{m2['grad_norm']:.6f} vs {m1['grad_norm']:.6f} (rtol 1e-4: "
+            f"{gn_ok}); first-step wall {t2 * 1e3:.1f} ms vs "
+            f"{t1 * 1e3:.1f} ms; launches {launched}; {card}")
+        finite = np.isfinite(m2["loss"]) and np.isfinite(m2["grad_norm"])
+        if not (loss_ok and gn_ok and finite
+                and launched.get("flash_attention", 0) > 0
+                and launched.get("flash_attention_bwd", 0) > 0):
+            raise AssertionError("the sharded train step disagrees")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(pg_dir, ignore_errors=True)
+    launches = dict(counted)
+    log(f"[launches] phase 12 (sharding on a 1 x 1 mesh): {launches}; "
+        f"{card}")
+    log(f"[shard] phase 12 took {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 

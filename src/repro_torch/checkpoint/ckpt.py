@@ -11,8 +11,12 @@ A tree is nested dicts, lists and tuples over array leaves (numpy arrays,
 torch tensors, scalars).  A leaf's key joins its path with ``|``: dict keys
 in sorted order and sequence indices, as ``jax.tree_util`` names them, so a
 checkpoint written by the reference restores here and the other way round.
-The reference's elastic restore onto a device mesh (``shardings=``) is not
-ported: restore returns host arrays.
+Sharded state.  A DTensor leaf is saved whole (its blocks all-gathered:
+every rank of the group calls ``save`` / ``submit``, rank 0 writes).
+``restore(..., shardings=)`` is the ELASTIC path: given a tree of
+``distributed.sharding.NamedSharding`` over any mesh (``launch.steps.
+_to_shardings``), each leaf becomes a DTensor at that sharding, so a
+checkpoint written on one mesh restores onto another.
 """
 
 from __future__ import annotations
@@ -30,9 +34,18 @@ import torch
 _SEP = "|"
 
 
+def _whole(leaf):
+    """A DTensor's full value (a collective: every rank calls it)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(leaf, DTensor):
+        from repro_torch.distributed.sharding import full_tensor
+        return full_tensor(leaf.detach())
+    return leaf
+
+
 def host_array(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        return _whole(leaf).detach().cpu().numpy()
     return np.asarray(leaf)
 
 
@@ -41,8 +54,15 @@ def _host_copy(leaf) -> np.ndarray:
     place as soon as this returns (``host_array`` of a CPU tensor is a
     view of it)."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True).numpy()
+        return _whole(leaf).detach().to("cpu", copy=True).numpy()
     return np.array(leaf, copy=True)
+
+
+def _writes() -> bool:
+    """Whether this process writes checkpoints: always, but in a process
+    group only rank 0."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def tree_items(tree, prefix=()):
@@ -76,13 +96,17 @@ def _unflatten_into(template, flat: dict, prefix=()):
 
 def save(state, path: str, step: int | None = None):
     """Blocking checkpoint write (atomic)."""
+    flat = {key: host_array(leaf) for key, leaf in _flatten(state).items()}
+    return _write(flat, path, step) if _writes() else None
+
+
+def _write(flat: dict, path: str, step):
     tmp = path + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp, exist_ok=True)
     manifest = {"step": step, "leaves": {}}
-    for key, leaf in _flatten(state).items():
-        arr = host_array(leaf)
+    for key, arr in flat.items():
         fn = hashlib.sha1(key.encode()).hexdigest()[:16] + ".npy"
         np.save(os.path.join(tmp, fn), arr)
         manifest["leaves"][key] = {
@@ -97,8 +121,10 @@ def save(state, path: str, step: int | None = None):
     return manifest
 
 
-def restore(template, path: str, verify: bool = True):
-    """Restore into ``template``'s structure (leaves become numpy arrays)."""
+def restore(template, path: str, shardings=None, verify: bool = True):
+    """Restore into ``template``'s structure: leaves become numpy arrays,
+    or with ``shardings`` (a matching tree of ``NamedSharding``) DTensors
+    at those shardings, each rank keeping its blocks."""
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     flat = {}
@@ -109,7 +135,18 @@ def restore(template, path: str, verify: bool = True):
             if got != meta["sha1"]:
                 raise IOError(f"checkpoint corruption in leaf {key}")
         flat[key] = arr
-    return _unflatten_into(template, flat), manifest.get("step")
+    state = _unflatten_into(template, flat)
+    if shardings is not None:
+        state = _place(state, shardings)
+    return state, manifest.get("step")
+
+
+def _place(tree, shardings):
+    if isinstance(tree, dict):
+        return {k: _place(v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_place(v, s) for v, s in zip(tree, shardings))
+    return shardings.place(torch.from_numpy(np.asarray(tree)))
 
 
 class AsyncCheckpointer:
@@ -126,9 +163,9 @@ class AsyncCheckpointer:
             item = self._q.get()
             if item is None:
                 return
-            state, path, step = item
+            flat, path, step = item
             try:
-                save(state, path, step)
+                _write(flat, path, step)
             except Exception as e:          # pragma: no cover
                 self._err = e
             finally:
@@ -138,7 +175,8 @@ class AsyncCheckpointer:
         if self._err:
             raise self._err
         host_state = {k: _host_copy(v) for k, v in _flatten(state).items()}
-        self._q.put((host_state, path, step))
+        if _writes():
+            self._q.put((host_state, path, step))
 
     def wait(self):
         self._q.join()

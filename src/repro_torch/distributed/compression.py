@@ -6,9 +6,9 @@ int8 quantization with a per-tensor scale cuts cross-pod gradient traffic
 into the next step's gradient, which keeps SGD/Adam convergence (Seide et
 al.; Karimireddy et al.).  ``compress_grads`` is the state-carrying function
 the reference uses inside a train step; a tree is a tensor or nested dicts
-of tensors.  The reference's ``compressed_psum`` is a collective over a
-device mesh: it raises here until sharding is ported (ROADMAP Queue 1 item
-12).
+of tensors.  ``compressed_psum`` is the int8 all-reduce over one axis of a
+``distributed.sharding.Mesh`` (each rank calls it with its own ``x``, as
+each shard does inside the reference's ``shard_map``).
 """
 
 from __future__ import annotations
@@ -65,9 +65,22 @@ def compression_ratio(grads) -> float:
     return orig / comp
 
 
-def compressed_psum(x: torch.Tensor, axis_name: str):
-    """An all-reduce of int8-quantized values along a mesh axis: needs a
-    device mesh, which the port does not build yet."""
-    raise NotImplementedError("compressed_psum needs a device mesh: "
-                              "sharding is not ported yet, ROADMAP Queue 1 "
-                              "item 12")
+def compressed_psum(x: torch.Tensor, axis_name: str, mesh):
+    """All-reduce int8-quantized values along ``mesh``'s axis
+    ``axis_name`` (on that axis' process group).
+
+    All participants must quantize on a COMMON scale (a per-shard scale
+    can't be factored out of the sum), so: (1) all-reduce the local maxima
+    with MAX — a scalar collective, (2) quantize against the global scale,
+    (3) exact int32 sum of the int8 payloads.  Per-participant error <=
+    scale/2, so the reduced error is <= n*scale/2 (covered by error
+    feedback at the caller)."""
+    import torch.distributed as dist
+    group = mesh.get_group(axis_name)
+    gmax = torch.max(torch.abs(x)).to(torch.float32).reshape(1)
+    dist.all_reduce(gmax, op=dist.ReduceOp.MAX, group=group)
+    scale = torch.clamp_min(gmax[0], 1e-30) / 127.0
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    qsum = q.to(torch.int32)
+    dist.all_reduce(qsum, op=dist.ReduceOp.SUM, group=group)
+    return qsum.to(torch.float32) * scale

@@ -83,6 +83,21 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def refuse_dtensor(name: str, *operands) -> None:
+    """Raise ``TypeError`` if an operand (a tensor, or a list / tuple of
+    them) is a DTensor: a kernel takes a rank's local tensors (a sharded
+    path hands it ``.to_local()``), and a DTensor is never gathered whole
+    or sent to the plain version behind the caller's back."""
+    for op in operands:
+        for t in (op if isinstance(op, (list, tuple)) else (op,)):
+            if type(t) is torch.Tensor or t is None:
+                continue
+            from torch.distributed.tensor import DTensor
+            if isinstance(t, DTensor):
+                raise TypeError(f"{name}: got a DTensor; kernels take a "
+                                f"rank's local tensors (DTensor.to_local())")
+
+
 def fp32_strict() -> None:
     """Keep float32 products in full float32: TF32 keeps about three
     digits, and SIREN's w0 = 30 amplifies pre-activation error."""

@@ -33,7 +33,7 @@ import math
 import torch
 
 from repro_torch.kernels.common import ABI, check_launch, load_library, \
-    stream_handle
+    refuse_dtensor, stream_handle
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
@@ -122,6 +122,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     parity with the reference's signature; the kernels tile by
     ``KERNEL_TILES``.  CPU tensors take the plain version.  Differentiable:
     under autograd the backward is ``flash_attention_bwd``."""
+    refuse_dtensor("flash_attention", q, k, v)
     del bq, bk
     _check_shapes(q, k, v)
     window = int(window)
@@ -273,6 +274,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     strides where TMA can (else a contiguous copy); fp32
     ``csrc/flash_attention_bwd.cu`` (both passes, one launch count), which
     reads contiguous copies."""
+    refuse_dtensor("flash_attention_bwd", q, k, v, out, lse, dout)
     _check_shapes(q, k, v)
     window = int(window)
     if q.device.type == "cpu":

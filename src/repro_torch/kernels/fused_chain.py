@@ -27,7 +27,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.common import (ABI, check_cuda_f32, check_launch,
-                                        load_library, stream_handle)
+                                        load_library, refuse_dtensor,
+                                        stream_handle)
 
 UNARY = {
     "sin": torch.sin, "cos": torch.cos, "exp": torch.exp, "tanh": torch.tanh,
@@ -170,6 +171,7 @@ def fused_chain(x: torch.Tensor, chain, extras=()):
     ``ChainProgram`` (the executor passes ``ChainSpec.program``), which
     spares encoding it on every call.  CPU tensors take the plain version;
     CUDA tensors the kernel."""
+    refuse_dtensor("fused_chain", x, extras)
     prog = chain if type(chain) is ChainProgram else None
     if not x.is_cuda:
         steps = chain if prog is None else prog.steps

@@ -52,7 +52,7 @@ import torch
 
 from repro_torch.kernels.common import (ABI, cdiv, check_cuda_f32,
                                         check_launch, load_library,
-                                        stream_handle)
+                                        refuse_dtensor, stream_handle)
 from repro_torch.kernels.fused_chain import encode_chain, eval_chain
 
 CHAIN = "chain"
@@ -1068,6 +1068,7 @@ def region_call(spec: RegionKernelSpec, stream, rows, residents, out_info):
 
     CPU tensors take the plain version; CUDA tensors the kernel.  Returns
     one tensor per output."""
+    refuse_dtensor("region", stream, rows, residents)
     _check_arity("region", spec, stream, rows, residents)
     dev = stream[0].device
     if dev.type == "cpu":
@@ -1126,6 +1127,7 @@ def region_call_stacked(spec: RegionKernelSpec, stream, rows, residents,
     8-32 rows, and a cluster of CTAs on adjacent row tiles of one lane
     shares each weight chunk, copied once from L2 into all their shared
     memories (``csrc/region.cu``)."""
+    refuse_dtensor("region_stacked", stream, rows, residents)
     _check_arity("region_stacked", spec, stream, rows, residents)
     if stream[0].dim() != 3:
         raise ValueError(f"region_stacked: stream input 0 must be [K, R, C], "
@@ -1202,6 +1204,7 @@ def region_bwd_call(spec: RegionKernelSpec, stream, rows, residents, cots):
     over all rows.  CPU tensors take the plain version; CUDA tensors the
     kernel (one ``region_bwd`` launch, and one ``region_bwd_reduce``
     launch when ``R`` spans more than one row tile)."""
+    refuse_dtensor("region_bwd", stream, rows, residents, cots)
     _check_arity("region_bwd", spec, stream, rows, residents)
     if len(cots) != len(spec.outputs):
         raise ValueError(f"region_bwd: {len(cots)} cotangents for "

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.common import refuse_dtensor
 from repro_torch.kernels.stream_matmul import launch_matmul
 
 
@@ -26,6 +27,7 @@ def siren_layer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None, *,
                 mm_parallel: int | None = None):
     """x: [B, K], w: [K, N], b: [N] or None -> sin(w0 (x@w + b)) (or
     linear).  CPU tensors take the plain version; CUDA tensors the kernel."""
+    refuse_dtensor("siren_layer", x, w, b)
     if x.device.type == "cpu":
         return siren_layer_plain(x, w, b, w0=w0, apply_sin=apply_sin)
     if x.device.type != "cuda":

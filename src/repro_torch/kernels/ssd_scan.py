@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.common import ABI, check_launch, load_library, \
-    stream_handle
+    refuse_dtensor, stream_handle
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -60,6 +60,7 @@ def ssd_scan_plain(states, chunk_decay):
 def ssd_scan(states: torch.Tensor, chunk_decay: torch.Tensor) -> torch.Tensor:
     """[BH, NC, P, N] float32 prev-states.  CPU tensors take the plain
     version; CUDA tensors the kernel.  Differentiable in both inputs."""
+    refuse_dtensor("ssd_scan", states, chunk_decay)
     _check_shapes(states, chunk_decay)
     if torch.is_grad_enabled() and (states.requires_grad
                                     or chunk_decay.requires_grad):
@@ -144,6 +145,7 @@ def ssd_scan_bwd(dprev: torch.Tensor, prev: torch.Tensor,
     the gradient of prev and the forward's prev and decay.  CPU tensors
     take the plain version; CUDA tensors the kernel (P·N <= 32,768, NC <=
     ``ABI["ssd_bwd_max_nc"]``)."""
+    refuse_dtensor("ssd_scan_bwd", dprev, prev, chunk_decay)
     _check_shapes(prev, chunk_decay)
     if tuple(dprev.shape) != tuple(prev.shape):
         raise ValueError(f"ssd_scan_bwd: dprev {tuple(dprev.shape)} != prev "

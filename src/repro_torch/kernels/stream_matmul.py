@@ -13,7 +13,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.common import (check_cuda_f32, check_launch,
-                                        load_library, stream_handle)
+                                        load_library, refuse_dtensor,
+                                        stream_handle)
 
 # largest K step the kernel's shared-memory tile holds (csrc/matmul.cu MM_TK)
 MAX_BK = 32
@@ -64,6 +65,7 @@ def stream_matmul(a: torch.Tensor, b: torch.Tensor, *,
                   mm_parallel: int | None = None):
     """C = A @ B.  A: [M, K], B: [K, N].  CPU tensors take the plain
     version; CUDA tensors the kernel."""
+    refuse_dtensor("stream_matmul", a, b)
     if a.device.type == "cpu":
         return stream_matmul_plain(a, b)
     if a.device.type != "cuda":

@@ -9,8 +9,14 @@ Runs REAL steps on the card (CUDA unless ``device="cpu"``):
 ``--reduced`` is the default, as in the reference; ``--full`` trains the
 full-size config.  Fault tolerance: deterministic pipeline replay, atomic
 async checkpoints and a step watchdog (straggler events logged; a restart
-resumes from the last checkpoint and replays exactly).  One device: the
-port builds no mesh yet (ROADMAP Queue 1 item 12).
+resumes from the last checkpoint and replays exactly).
+
+Sharded: with a process group up (one process a rank;
+``launch/mesh.py::init_process_group``, or the CLI's ``--world-size n
+--rank r --pg-store PATH``, a ``FileStore`` path every rank can reach),
+``train_loop`` builds the reference's ``(n // model, model)`` mesh and
+keeps the state at ``steps.state_specs`` (``launch/steps.py`` says how a
+sharded step runs); rank 0 writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from repro_torch.checkpoint import ckpt as ckptlib
 from repro_torch.configs.base import ShapeConfig, get_config
 from repro_torch.data.pipeline import DataConfig, TokenPipeline
 from repro_torch.distributed.fault_tolerance import StepWatchdog
+from repro_torch.distributed.sharding import ShardingPolicy, make_mesh
 from repro_torch.kernels.common import resolve_device
 from repro_torch.launch import steps as steplib
 from repro_torch.models.template import tree_map
@@ -35,23 +42,30 @@ _log = get_logger("train")
 
 
 def make_mesh_if_possible(min_devices: int = 2, device=None):
-    """None where ``device`` has fewer than ``min_devices`` devices (the CPU,
-    or one card); a mesh over more is not ported yet (item 12)."""
-    dev = resolve_device(device)
-    n = torch.cuda.device_count() if dev.type == "cuda" else 1
+    """The reference's ``(n // model, model)`` ("data", "model") mesh over
+    the n ranks of the process group that is up (``model`` = 2 where n is
+    even); None with fewer than ``min_devices`` ranks or no group (one
+    process: the CPU, or one card).  ``device`` is checked as every entry
+    point checks it."""
+    import torch.distributed as dist
+    resolve_device(device)
+    n = dist.get_world_size() if dist.is_initialized() else 1
     if n < min_devices:
         return None
-    raise NotImplementedError(f"{n} devices: meshes and sharded training "
-                              f"are not ported yet, ROADMAP Queue 1 item 12")
+    model = 2 if n % 2 == 0 else 1
+    return make_mesh((n // model, model), ("data", "model"))
 
 
-def _restore(state, path, device):
-    """``state``'s tensors replaced by the checkpoint at ``path``."""
-    host, _ = ckptlib.restore(state, path)
-    params = tree_map(lambda a: torch.from_numpy(a).to(device),
-                      {"params": host["params"], "opt": host["opt"]})
-    return {**params, "step": torch.tensor(int(host["step"]),
-                                           dtype=torch.int32)}
+def _restore(state, path, device, shardings=None):
+    """``state``'s tensors replaced by the checkpoint at ``path`` (DTensors
+    at ``shardings`` where given)."""
+    host, _ = ckptlib.restore(state, path, shardings=shardings)
+    params = {"params": host["params"], "opt": host["opt"]}
+    if shardings is None:
+        params = tree_map(lambda a: torch.from_numpy(a).to(device), params)
+    step = host["step"]
+    step = int(step.full_tensor() if hasattr(step, "full_tensor") else step)
+    return {**params, "step": torch.tensor(step, dtype=torch.int32)}
 
 
 def train_loop(cfg, shape: ShapeConfig, hp: steplib.HParams, *, steps: int,
@@ -65,19 +79,26 @@ def train_loop(cfg, shape: ShapeConfig, hp: steplib.HParams, *, steps: int,
     the card).  The reference's ``compress`` flag, whose wrapper passes the
     step through unchanged, is left out."""
     dev = resolve_device(device)
-    make_mesh_if_possible(device=dev)             # None, or raises
-    step_fn = steplib.build_train_step(cfg, hp)
+    mesh = make_mesh_if_possible(device=dev)
+    policy = (ShardingPolicy(mesh, seq_parallel=hp.seq_parallel)
+              if mesh else None)
+    step_fn = steplib.build_train_step(cfg, hp, policy)
     pipe = TokenPipeline(DataConfig(cfg.vocab_size, shape.seq_len,
                                     shape.global_batch, seed=seed,
                                     kind=data_kind))
     state = steplib.init_state(cfg, seed, device=dev)
+    shardings = None
+    if policy is not None:
+        state = steplib.place_state(state, cfg, policy)
+        shardings = steplib._to_shardings(mesh,
+                                          steplib.state_specs(cfg, policy))
     start = 0
     ck = ckptlib.AsyncCheckpointer() if ckpt_dir else None
     if ckpt_dir and resume:
         last = ckptlib.latest_step(ckpt_dir)
         if last is not None:
             state = _restore(state, os.path.join(ckpt_dir, f"step_{last}"),
-                             dev)
+                             dev, shardings)
             start = last
             pipe.load_state_dict({"step": last})
             _log.info("resumed", step=last)
@@ -128,7 +149,19 @@ def main(argv=None):
     ap.add_argument("--data", default="zipf", choices=["zipf", "copy"])
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
+    ap.add_argument("--world-size", type=int, default=1,
+                    help="ranks, one process each")
+    ap.add_argument("--rank", type=int, default=0)
+    ap.add_argument("--pg-store", default=None,
+                    help="FileStore path of the process group (ranks > 1)")
     args = ap.parse_args(argv)
+    if args.world_size > 1:
+        import torch.distributed as dist
+        from repro_torch.launch.mesh import init_process_group
+        if args.pg_store is None:
+            ap.error("--world-size > 1 needs --pg-store")
+        init_process_group(args.pg_store, args.rank, args.world_size,
+                           backend="gloo" if args.device == "cpu" else None)
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -145,6 +178,8 @@ def main(argv=None):
                          device=args.device)
     _log.info("done", steps=args.steps, wall_s=time.time() - t0,
               loss_first=hist[0], loss_last=hist[-1])
+    if args.world_size > 1:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -307,9 +307,16 @@ def _mixer_norm(cfg, p, x):
     return L.rms_norm(x, p["ln1" if "ln1" in p else "ln"], cfg.norm_eps)
 
 
-def _attn_block(cfg, p, x, positions, window, attn_impl):
-    a, k, v = L.attn_forward(cfg, p["attn"], _mixer_norm(cfg, p, x),
-                             positions, window=window, attn_impl=attn_impl)
+def _attn_block(cfg, p, x, positions, window, attn_impl, tp=None):
+    """x + attention -> (x, k, v).  ``tp``: ``(into, out)``, applied to the
+    block's normed input and to its output projection (``forward``)."""
+    h = _mixer_norm(cfg, p, x)
+    if tp is not None:
+        h = tp[0](h)
+    a, k, v = L.attn_forward(cfg, p["attn"], h, positions, window=window,
+                             attn_impl=attn_impl)
+    if tp is not None:
+        a = tp[1](a)
     return x + a, k, v
 
 
@@ -326,15 +333,20 @@ def _cross_block(cfg, p, x, image):
     return x + torch.tanh(p["gate"].to(x.dtype)) * a, k, v
 
 
-def _ffn_block(cfg, p, x):
+def _ffn_block(cfg, p, x, tp=None):
     """The feed-forward half of a layer -> (x, aux loss); a pure mamba
-    layer has none and returns x unchanged."""
+    layer has none and returns x unchanged.  ``tp`` wraps a dense MLP as
+    it wraps attention (``_attn_block``); a MoE layer takes none."""
     if "moe" in p:
         f, aux = L.moe_ffn(cfg, p["moe"], L.rms_norm(x, p["ln2"],
                                                      cfg.norm_eps))
     elif "mlp" in p:
         h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+        if tp is not None:
+            h = tp[0](h)
         f, aux = L.mlp(p["mlp"], h, cfg.mlp_type, x.dtype), 0.0
+        if tp is not None:
+            f = tp[1](f)
     else:
         return x, 0.0
     return x + f, aux
@@ -374,12 +386,15 @@ def _remat(fn, policy: str):
 
 
 def forward(cfg: ModelConfig, params, batch, *, remat="dots",
-            attn_impl="flash", constrain=None):
+            attn_impl="flash", constrain=None, tp=None):
     """Training / scoring forward pass -> (logits [B, S, V] in the compute
     dtype, aux loss: the MoE layers' sum, float32).  ``remat`` is applied
     per layer (the reference's per scan body: a layer, or a hybrid block;
     the VLM cross layer is not recomputed, as there); ``constrain`` wraps
-    the residual stream where the reference does (``_layers``' ``first``)."""
+    the residual stream where the reference does (``_layers``' ``first``).
+    ``tp``: the tensor-parallel pair ``(into, out)`` of a sharded train
+    step (``distributed/tensor_parallel.py``), applied around every
+    attention and dense MLP block; None leaves the pass as it is."""
     _check_family(cfg)
     cons = constrain if constrain is not None else (lambda a: a)
     cdt = _dtype(cfg.compute_dtype)
@@ -394,15 +409,16 @@ def forward(cfg: ModelConfig, params, batch, *, remat="dots",
         if first:
             x = cons(x)
         if mixer == "attn":
-            x, _, _ = _attn_block(cfg, lp, x, positions, window, attn_impl)
+            x, _, _ = _attn_block(cfg, lp, x, positions, window, attn_impl,
+                                  tp)
         else:
             x, _ = _mamba_block(cfg, lp, x)
-        return _ffn_block(cfg, lp, x)
+        return _ffn_block(cfg, lp, x, tp)
 
     for mixer, lp, window, _, first in _layers(cfg, params):
         if mixer == "cross":
             x, _, _ = _cross_block(cfg, lp, x, image)
-            x, aux = _ffn_block(cfg, lp, x)
+            x, aux = _ffn_block(cfg, lp, x, tp)
         else:
             x, aux = _remat(functools.partial(layer_fn, mixer, window, first),
                             remat)(x, lp)
@@ -440,9 +456,9 @@ def ce_loss(logits, labels, vocab_chunk=0):
 
 
 def loss_fn(cfg, params, batch, *, remat="dots", attn_impl="flash",
-            vocab_chunk=0, aux_coef=0.01, constrain=None):
+            vocab_chunk=0, aux_coef=0.01, constrain=None, tp=None):
     logits, aux = forward(cfg, params, batch, remat=remat,
-                          attn_impl=attn_impl, constrain=constrain)
+                          attn_impl=attn_impl, constrain=constrain, tp=tp)
     return ce_loss(logits, batch["labels"], vocab_chunk) + aux_coef * aux
 
 

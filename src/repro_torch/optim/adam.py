@@ -66,13 +66,17 @@ def adamw_update(cfg: AdamWConfig, params, grads, opt_state, step: int):
 
 
 @torch.no_grad()
-def adamw_update_(cfg: AdamWConfig, params, grads, opt_state, step: int):
+def adamw_update_(cfg: AdamWConfig, params, grads, opt_state, step: int,
+                  gnorm=None):
     """``adamw_update`` IN PLACE: each parameter and its moments are
     updated where they lie, one leaf at a time, with the same arithmetic
     (the reference's ``adamw_update`` returns new trees).  A full-width
     training state then needs no second copy of params and moments.
-    Returns the grad norm (before clipping)."""
-    gnorm = global_norm(grads)
+    Returns the grad norm (before clipping).  ``gnorm``: the norm of the
+    whole gradient where ``grads`` are one rank's shards of it (the
+    sharded train step); by default ``global_norm(grads)``."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = (torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
              if cfg.clip_norm else None)
     dev = params[0].device if params else torch.device("cpu")

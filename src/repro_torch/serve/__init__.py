@@ -19,7 +19,9 @@
                     (``submit`` / ``drain`` / ``serve_async``), results
                     ``torch.equal`` to ``serve``.
 
-Not ported yet: row and K-axis sharding (ROADMAP Queue 1 item 12).
+Under a ``ShardingPolicy`` (``distributed/sharding.py``) the engines split
+a group's rows, or a fleet's K axis, over the ranks of a mesh and return
+the whole outputs on every rank.
 """
 
 from repro_torch.serve.async_engine import AsyncServingEngine

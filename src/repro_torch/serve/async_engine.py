@@ -52,8 +52,12 @@ still count per block, so the stats equal the reference's; only
 
 Routing matches the sync engine at each dispatch: a signature whose only
 pending lane is the base weight set takes the single-INR fast path;
-anything else takes the multi-INR (stacked-resident) path.  K-axis
-sharding is not ported (ROADMAP Queue 1 item 12): ``sharding=`` raises.
+anything else takes the multi-INR (stacked-resident) path.  Under
+``sharding=`` (passed through to ``ServingEngine``) a multi-INR chunk whose
+K axis the policy shards runs K-sharded and a bank pass splits its rows
+over the data axes, as ``serve`` does; full single-INR chunks run whole,
+as the reference's do.  ``serve_async`` stays ``torch.equal`` to ``serve``
+where the kernels' results do not depend on a launch's row count.
 """
 
 from __future__ import annotations
@@ -468,7 +472,8 @@ class AsyncServingEngine(ServingEngine):
             self.stats["rows"] += n
             self.stats["padded_rows"] += (-n) % bank.cg.config.block
             with TRACER.span("serve.dispatch", cat="serve", bank=True):
-                outs = bank.apply_batched(coords)
+                outs = self._run_placed(bank.apply_batched, bank.cg, coords,
+                                        0)
             self._dispatch(_InFlight("bank", outs, scatter,
                                      time.perf_counter(), n))
 

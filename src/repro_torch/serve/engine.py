@@ -22,9 +22,19 @@ filter's output.  Restored artifacts and multi-INR stacks are cached
 in-process behind bounded LRU caches, so steady-state serving touches
 neither the tracer nor the disk.
 
-Not ported yet: row and K-axis sharding and ``shard_chunking`` (ROADMAP
-Queue 1 item 12).  Their stats keys stay, at zero.  The asynchronous,
-continuously batched engine is ``serve.async_engine.AsyncServingEngine``.
+Sharding (``sharding=``, a ``distributed.sharding.ShardingPolicy`` over a
+mesh of ranks, one process each; every rank runs the same ``serve``).  On
+a mesh of more than one rank a group's rows axis is split over the data
+axes where they divide it (``stats["sharded_batches"]``) and stays whole
+where they do not; a multi-INR group whose K axis the policy shards runs
+K-sharded instead (``MultiINRArtifact``, ``stats["k_sharded_batches"]``).
+Each rank serves its block and the blocks are all-gathered at the end of
+the group, so every rank returns the whole outputs, those of the
+unsharded engine.  ``shard_chunking`` serves single-INR groups through a
+per-shard variant of the artifact, compiled from the SAME graph (no
+re-trace) with ``chunk_blocks // n`` and ``n_shards = n``.  The
+asynchronous, continuously batched engine is
+``serve.async_engine.AsyncServingEngine``.
 
 Bounded caches.  ``_payloads`` (weight payloads, frequency-ranked) and
 ``_multi`` (stacked multi-INR artifacts) are bounded (``payload_cache`` /
@@ -41,11 +51,13 @@ device before it stops the clock).
 from __future__ import annotations
 
 import itertools
+import math
 import time
 from collections import OrderedDict
 
 import torch
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.common import resolve_device
 from repro_torch.obs.metrics import MetricsView, counter as _obs_counter
 from repro_torch.obs.metrics import histogram as _obs_histogram
@@ -170,16 +182,30 @@ def _synchronize(outs) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _row_outputs(cg) -> list[bool]:
+    """Per graph output of ``cg``: whether ``apply_batched`` returns it by
+    rows (streamed, or a row-constant resident broadcast to the rows)."""
+    plan, B = cg.plan, cg.plan.batch
+    out = []
+    for o in cg.graph.outputs:
+        if o not in plan.resident:
+            out.append(True)
+            continue
+        v = cg.residents[o]
+        out.append(o in plan.rowconst and v.dim() > 0
+                   and tuple(v.shape[:1]) == (B,))
+    return out
+
+
 class ServingEngine:
     def __init__(self, store: "ArtifactStore | str | None" = None, *,
                  sharding=None, shard_chunking: bool = False,
                  payload_cache: int = 256, multi_cache: int = 32,
                  device=None):
-        if sharding is not None or shard_chunking:
-            raise NotImplementedError(
-                "sharded serving (sharding=, shard_chunking=) is not ported "
-                "yet (ROADMAP Queue 1 item 12)")
         self.store = as_store(store)
+        self.sharding = sharding
+        self.shard_chunking = shard_chunking
+        self._variants: dict = {}               # (sig, n) -> per-shard cg
         self.device = resolve_device(device)   # where restored artifacts run
         self._routes: dict[str, tuple[str, str]] = {}   # inr_id -> (sig, wid)
         self._artifacts: dict[str, object] = {}         # sig -> CompiledGradient
@@ -308,10 +334,70 @@ class ServingEngine:
         if m is None:
             base = self._artifact(sig)
             m = MultiINRArtifact(base, [self._payload(sig, w) for w in wids],
-                                 list(wids))
+                                 list(wids), sharding=self.sharding)
             # stacks rebuild from payloads, so they are always evictable
             self.stats["multi_evictions"] += self._multi.put(key, m)
         return m
+
+    # -- sharding ----------------------------------------------------------
+
+    def _n_devices(self) -> int:
+        if self.sharding is None:
+            return 1
+        return math.prod(self.sharding.mesh.shape.values())
+
+    def _place(self, coords, batch_axis: int):
+        """(this rank's block of ``coords``, the spec it was split at): the
+        rows axis split over the policy's data axes, or (coords, None) when
+        they do not divide it or there is one rank."""
+        if self.sharding is None or self._n_devices() == 1:
+            return coords, None
+        logical = [None] * coords.dim()
+        logical[batch_axis] = "batch"
+        spec = self.sharding.act_spec(tuple(coords.shape), tuple(logical))
+        if not spec:
+            return coords, None
+        self.stats["sharded_batches"] += 1
+        return shd.local_shard(coords, spec, self.sharding.mesh), spec
+
+    def _run_placed(self, fn, cg, coords, batch_axis: int):
+        """``fn`` on this rank's block of ``coords`` (``_place``); the rows
+        of every row output (streamed, or a row-constant resident
+        broadcast to the rows) all-gathered, so every rank holds the whole
+        outputs."""
+        local, spec = self._place(coords, batch_axis)
+        outs = fn(local)
+        if spec is None:
+            return outs
+        return tuple(shd.gather(o, spec, self.sharding.mesh) if rows else o
+                     for o, rows in zip(outs, _row_outputs(cg)))
+
+    def _serving_artifact(self, sig: str):
+        """The artifact a single-INR group executes: the base, or — under
+        ``shard_chunking`` — a per-shard-config variant compiled from the
+        SAME graph (chunk scaled to the per-rank slice, ``n_shards``
+        stamped so the dataflow oracle models the cross-shard input stream;
+        no re-trace)."""
+        cg = self._artifact(sig)
+        n = self._n_devices()
+        if not self.shard_chunking or n == 1:
+            return cg
+        key = (sig, n)
+        variant = self._variants.get(key)
+        if variant is None:
+            from repro_torch.core.pipeline import compile_from_graph
+            shard_cfg = cg.config.replace(
+                chunk_blocks=max(1, cg.config.chunk_blocks // n),
+                n_shards=n)
+            if shard_cfg == cg.config:
+                variant = cg
+            else:
+                variant = compile_from_graph(cg.graph, config=shard_cfg,
+                                             order=cg.order,
+                                             emit_source=False,
+                                             device=cg.device)
+            self._variants[key] = variant
+        return variant
 
     # -- serving -----------------------------------------------------------
 
@@ -395,7 +481,8 @@ class ServingEngine:
             t0 = time.perf_counter()
             with TRACER.span("serve.dispatch", cat="serve", sig=sig[:12],
                              bank=True):
-                outs = bank.apply_batched(coords)
+                outs = self._run_placed(bank.apply_batched, bank.cg, coords,
+                                        0)
                 _synchronize({sig: outs})
             self.stats["device_exec_s"] += time.perf_counter() - t0
             with TRACER.span("serve.unpad", cat="serve", sig=sig[:12]):
@@ -411,16 +498,20 @@ class ServingEngine:
 
     def _serve_single(self, sig: str, inr_id: str, coords):
         _, wid = self._routes[inr_id]
-        cg = self._artifact(sig)
+        cg = self._serving_artifact(sig)
         self.stats["rows"] += int(coords.shape[0])
         self.stats["padded_rows"] += (-int(coords.shape[0])) % cg.config.block
         if wid != self._base_wid.get(sig):
             # not the base artifact's weight set: run the K=1 multi path
             # with this INR's payload (resident swap, no recompilation)
             m = self._multi_artifact(sig, (wid,))
-            outs = m.apply_batched(coords[None])
+            if m.k_sharded:
+                outs = m.apply_batched(coords[None])
+            else:
+                outs = self._run_placed(m.apply_batched, m.base,
+                                        coords[None], 1)
             return tuple(o[0] for o in outs)
-        return cg.apply_batched(coords)
+        return self._run_placed(cg.apply_batched, cg, coords, 0)
 
     def _serve_multi(self, sig: str, inr_ids, coords_per_inr):
         self.stats["multi_groups"] += 1
@@ -434,7 +525,12 @@ class ServingEngine:
                              for i in inr_ids])          # [K, n_pad, ...]
         self.stats["rows"] += sum(counts)
         self.stats["padded_rows"] += n_pad * len(counts) - sum(counts)
-        outs = m.apply_batched(batch)                    # each [K, n_pad, ...]
+        if m.k_sharded:
+            # the artifact splits the K axis itself (rows stay shard-local)
+            self.stats["k_sharded_batches"] += 1
+            outs = m.apply_batched(batch)                # each [K, n_pad, ...]
+        else:
+            outs = self._run_placed(m.apply_batched, m.base, batch, 1)
         return {i: tuple(o[k, :counts[k]] for o in outs)
                 for k, i in enumerate(inr_ids)}
 
@@ -442,6 +538,9 @@ class ServingEngine:
 
     def describe(self) -> str:
         st = self.stats
+        mesh = (f", mesh {dict(self.sharding.mesh.shape)}"
+                f"{' (shard_chunking)' if self.shard_chunking else ''}"
+                if self.sharding is not None else "")
         lines = [f"ServingEngine: {len(self._routes)} INRs + "
                  f"{len(self._bank_routes)} bank filters over "
                  f"{len(self._artifacts) + len(self._banks)} "
@@ -449,7 +548,7 @@ class ServingEngine:
                  f"({len(self._multi)}/{self._multi.cap} multi-INR stacks, "
                  f"{len(self._payloads)}/{self._payloads.cap} payloads), "
                  f"store={'yes' if self.store is not None else 'no'}, "
-                 f"device={self.device}",
+                 f"device={self.device}{mesh}",
                  f"  stats: {st}",
                  f"  phases: host_group {st['host_group_s'] * 1e3:.1f}ms | "
                  f"device_exec {st['device_exec_s'] * 1e3:.1f}ms"]

@@ -36,8 +36,16 @@ artifact's Const values against the template params (random init makes the
 match unique; shared literals — w0 scalars, reverse-mode seeds — match
 nothing and stay shared).
 
-K-axis sharding (the reference's ``sharding=``) is not ported yet (ROADMAP
-Queue 1 item 12).
+K-axis sharding (``sharding=``, a ``distributed.sharding.ShardingPolicy``
+over a mesh of ranks): the K axis takes the policy's ``("inr",)`` spec —
+the data axes first, the model axis as fallback — where the mesh divides
+K, and stays whole (``k_sharded`` False) where it does not.  A K-sharded
+stack keeps only this rank's lanes of every stacked resident (computed
+from this rank's payloads only) and serves them through the same path as
+an unsharded stack (the stacked kernel where the plan allows it); rows
+stay per-shard-local.  Every call takes the whole [K, rows, ...] batch on
+every rank, serves the rank's lanes and all-gathers the lanes, so every
+rank returns the whole result.
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ import torch
 
 from repro_torch.checkpoint.ckpt import host_array, tree_items
 from repro_torch.core.executor import ResidentEnv, _eval_node, torch_dtype
+from repro_torch.distributed import sharding as shd
 
 
 def pad_rows(c, n_pad: int):
@@ -126,10 +135,6 @@ class MultiINRArtifact:
     """
 
     def __init__(self, base, payloads, inr_ids=None, *, sharding=None):
-        if sharding is not None:
-            raise NotImplementedError(
-                "K-axis sharding of multi-INR serving is not ported yet "
-                "(ROADMAP Queue 1 item 12)")
         if not payloads:
             raise ValueError("need at least one weight payload")
         self.base = base
@@ -140,9 +145,19 @@ class MultiINRArtifact:
             raise ValueError("inr_ids and payloads disagree in length")
         g, plan = base.graph, base.plan
         const_ids = {nid for nid, n in g.nodes.items() if n.op == "Const"}
+        self.sharding = sharding
+        # this rank's lanes [lo, hi): all of them unless K is sharded
+        self._k_spec = self._resolve_k_sharding()
+        if self._k_spec is None:
+            self._lanes = (0, self.n_inrs)
+        else:
+            mine = shd.local_shard(torch.arange(self.n_inrs), self._k_spec,
+                                   sharding.mesh)
+            self._lanes = (int(mine[0]), int(mine[-1]) + 1)
+        lo, hi = self._lanes
 
         per_inr: list[dict] = []
-        for payload in payloads:
+        for payload in payloads[lo:hi]:
             missing = const_ids - {int(k) for k in payload}
             if missing:
                 raise ValueError(f"payload missing Const nodes "
@@ -158,13 +173,14 @@ class MultiINRArtifact:
                     res[nid] = _eval_node(n, [res[i] for i in n.inputs],
                                           device=self.device)
             per_inr.append(res)
-        # stack: resident leaves gain the [K] axis; lane k's environment is
-        # a view of each stack (contiguous, as the kernels require)
+        # stack: resident leaves gain the [K] axis (this rank's lanes); lane
+        # k's environment is a view of each stack (contiguous, as the
+        # kernels require)
         self.residents = {nid: torch.stack([r[nid] for r in per_inr])
                           .contiguous() for nid in per_inr[0]}
         self._lane_res = [ResidentEnv({nid: v[k] for nid, v in
                                        self.residents.items()})
-                          for k in range(self.n_inrs)]
+                          for k in range(hi - lo)]
         self.double_buffered = self._stacked_applicable()
         self._serve = (self._make_serve_stacked() if self.double_buffered
                        else self._make_serve())
@@ -173,11 +189,30 @@ class MultiINRArtifact:
     def n_inrs(self) -> int:
         return len(self.inr_ids)
 
+    def _resolve_k_sharding(self):
+        """The K axis' spec when the policy shards it, else None (no policy,
+        or K not divisible -> replicate)."""
+        if self.sharding is None:
+            return None
+        spec = self.sharding.act_spec((self.n_inrs,), ("inr",))
+        return spec if spec else None
+
     @property
     def k_sharded(self) -> bool:
-        """Whether the K axis is sharded over devices: never, until K-axis
-        sharding is ported (ROADMAP Queue 1 item 12)."""
-        return False
+        return self._k_spec is not None
+
+    def _serve_all(self, x):
+        """``x`` [K, rows, ...] -> every streamed output [K, rows, ...]:
+        this rank's lanes served, then the lanes all-gathered."""
+        if self._k_spec is None:
+            return self._serve(x)
+        lo, hi = self._lanes
+        return tuple(self._gather_k(o) for o in self._serve(x[lo:hi]))
+
+    def _gather_k(self, t):
+        if self._k_spec is None:
+            return t
+        return shd.gather(t, self._k_spec, self.sharding.mesh)
 
     def streamed_outputs(self) -> list[int]:
         return [o for o in self.base.graph.outputs
@@ -224,7 +259,7 @@ class MultiINRArtifact:
         from repro_torch.kernels.region import region_call_stacked
         base = self.base
         g, plan = base.graph, base.plan
-        K, B = self.n_inrs, plan.batch
+        K, B = self._lanes[1] - self._lanes[0], plan.batch
         residents = self.residents
         input_id = plan.inputs[0]
         streamed = self.streamed_outputs()
@@ -277,7 +312,7 @@ class MultiINRArtifact:
         nb, K, block = xb.shape[:3]
         x = xb.movedim(1, 0).reshape(K, nb * block, *xb.shape[3:])
         return tuple(o.reshape(K, nb, block, *o.shape[2:]).movedim(0, 1)
-                     for o in self._serve(x))
+                     for o in self._serve_all(x))
 
     def apply_batched(self, coords):
         """Serve every INR's queries in one batched pass.
@@ -310,13 +345,13 @@ class MultiINRArtifact:
         if pad:
             edge = coords[:, -1:].expand((K, pad) + tuple(coords.shape[2:]))
             coords = torch.cat([coords, edge], dim=1)
-        streamed = iter(o[:, :n] for o in self._serve(coords))
+        streamed = iter(o[:, :n] for o in self._serve_all(coords))
         return tuple(self.resident_output(o, n) if o in base.plan.resident
                      else next(streamed) for o in base.graph.outputs)
 
     def resident_output(self, o: int, n: int):
         """Resident output ``o`` of every lane for ``n`` rows: [K, ...]."""
-        v = self.residents[o]                # [K, ...]
+        v = self._gather_k(self.residents[o])    # [K, ...]
         B = self.base.plan.batch
         if (o in self.base.plan.rowconst and v.dim() > 1
                 and v.shape[1:2] == (B,)):
@@ -339,6 +374,10 @@ class MultiINRArtifact:
     def describe(self) -> str:
         dbuf = (", resident double-buffered (stacked region lanes)"
                 if self.double_buffered else "")
+        if self.k_sharded:
+            lo, hi = self._lanes
+            dbuf += (f", K-sharded {tuple(self._k_spec)} (lanes {lo}:{hi} "
+                     f"here)")
         return (f"MultiINRArtifact: {self.n_inrs} INRs x "
                 f"[{self.base.config.describe()}], "
                 f"{len(self.residents)} stacked residents{dbuf}, "

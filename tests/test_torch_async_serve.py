@@ -1,8 +1,9 @@
 """The port's AsyncServingEngine against its own sync engine and against the
 reference's AsyncServingEngine (DESIGN.md §8).
 
-Counterparts of ``tests/test_async_serve.py`` (its three sharding cases
-stay with the reference: K-axis sharding is not ported).  Both packages
+Counterparts of ``tests/test_async_serve.py`` (its one-device K-axis
+sharding case is here; its two-device cases run on gloo ranks in
+``test_torch_sharded_serve.py``).  Both packages
 get the same SIRENs (``siren.params_from_jax`` on the reference's
 ``siren_init`` weights), the same INSP heads (``insp.params_from_jax``) and
 the same requests, made with numpy.  On the CPU every kernel wrapper runs
@@ -41,7 +42,9 @@ from repro_torch.serve import (AsyncServingEngine, MultiINRArtifact,
                                ServingEngine)
 from repro_torch.serve.async_engine import _InFlight
 from repro_torch.serve.multi_inr import const_payload
+from repro_torch.distributed.sharding import ShardingPolicy
 from test_torch_pipeline import _close_scaled
+from test_torch_sharding import one_rank_mesh
 
 HW = HardwareConfig(block=8, chunk_blocks=4)
 JHW = DEFAULT_CONFIG.replace(block=8, chunk_blocks=4)
@@ -276,19 +279,30 @@ def test_perf_counters_populate(fleet, tmp_path):
 
 
 def test_k_sharding_not_ported_on_one_device(fleet):
-    """K-axis sharding is item 12: a stack reports ``k_sharded`` False
-    and serves as the base does; ``sharding=`` raises, naming the item."""
-    _, cgs, _ = fleet
+    """Without a policy a stack reports ``k_sharded`` False and serves as
+    the base does; on a one-rank mesh (``tests/test_async_serve.py``'s
+    one-device case) the stack is K-sharded and the async engine under the
+    policy serves bit for bit what it serves without one (the multi-rank
+    cases are ``test_torch_sharded_serve.py``'s)."""
+    _, cgs, other = fleet
     m = MultiINRArtifact(cgs[0], [const_payload(cgs[0])], ["a"])
     assert m.k_sharded is False
     q = torch.from_numpy(_x(9, 8))
     for a, b in zip(cgs[0].apply_batched(q), m.apply_batched(q)):
         assert torch.equal(a, b[0])
-    for make in (lambda: AsyncServingEngine(sharding=object(), device="cpu"),
-                 lambda: MultiINRArtifact(cgs[0], [const_payload(cgs[0])],
-                                          sharding=object())):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            make()
+    with one_rank_mesh() as mesh:
+        pol = ShardingPolicy(mesh)
+        ms = MultiINRArtifact(cgs[0], [const_payload(cgs[0])], ["a"],
+                              sharding=pol)
+        assert ms.k_sharded             # 1 % 1 == 0: trivially sharded
+        for a, b in zip(cgs[0].apply_batched(q), ms.apply_batched(q)):
+            assert torch.equal(a, b[0])
+        reqs = _mixed(5)
+        plain = _register(AsyncServingEngine(device="cpu"), cgs, other)
+        shard = _register(AsyncServingEngine(sharding=pol, device="cpu"),
+                          cgs, other)
+        _assert_equal(plain.serve_async(reqs), shard.serve_async(reqs))
+        assert shard.stats["k_sharded_batches"] >= 1
 
 
 # ---------------------------------------------------------------------------

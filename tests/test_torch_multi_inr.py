@@ -32,7 +32,9 @@ from repro_torch.core import pipeline as tpipeline
 from repro_torch.core.config import HardwareConfig
 from repro_torch.inr.siren import params_from_jax, siren_fn
 from repro_torch.kernels import region as tregion
+from repro_torch.distributed.sharding import ShardingPolicy
 from repro_torch.serve import MultiINRArtifact, bind_weights
+from test_torch_sharding import one_rank_mesh
 
 from test_torch_kernels import (_close, _emulate, _port_spec, _region_inputs,
                                 planned_regions)  # noqa: F401 (fixture)
@@ -302,8 +304,18 @@ def test_multi_inr_zero_rows_and_unported_options(inrs):
                                               (3, 0, 2), (3, 0, 2)]
     with pytest.raises(ValueError):                 # 2 lanes for 3 INRs
         m.apply_batched(torch.zeros(2, 5, 2))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        MultiINRArtifact(tbase, tpay, sharding=object())
+    # K-axis sharding is ported: on a one-rank mesh the stack is
+    # K-sharded and serves bit for bit what the unsharded one serves
+    with one_rank_mesh() as mesh:
+        ms = MultiINRArtifact(tbase, tpay, ["a", "b", "c"],
+                              sharding=ShardingPolicy(mesh))
+        assert ms.k_sharded and ms.double_buffered
+        assert [tuple(o.shape) for o in ms.apply_batched(
+            torch.zeros(0, 2))] == [(3, 0, 1), (3, 0, 2), (3, 0, 2),
+                                    (3, 0, 2)]
+        q = torch.rand(3, 13, 2, generator=torch.Generator().manual_seed(4))
+        for a, b in zip(m.apply_batched(q), ms.apply_batched(q)):
+            assert torch.equal(a, b)
     with pytest.raises(ValueError):
         MultiINRArtifact(tbase, [])
     assert "3 INRs" in m.describe() and "double-buffered" in m.describe()

@@ -27,6 +27,8 @@ from repro_torch.inr.siren import params_from_jax, siren_fn
 from repro_torch.obs.tracing import TRACER
 from repro_torch.serve import ServingEngine, bind_weights
 from repro_torch.serve.engine import _FreqCache, _LRU
+from repro_torch.distributed.sharding import ShardingPolicy
+from test_torch_sharding import one_rank_mesh
 
 STATS = ("groups", "multi_groups", "requests", "rows", "padded_rows")
 
@@ -212,11 +214,23 @@ def test_engine_phases_are_spans(x):
     assert e.stats["device_exec_s"] > 0 and "ServingEngine" in e.describe()
 
 
-def test_engine_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ServingEngine(sharding=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ServingEngine(shard_chunking=True, device="cpu")
+def test_engine_unported_options_raise(x):
+    # sharding is ported: on a one-rank mesh the sharded engine and
+    # shard_chunking serve what the plain engine serves, bit for bit
+    _, cg = _compile(_pair(16, 0), 2, x)
+    q = torch.from_numpy(x[:33])
+    want = ServingEngine(device="cpu")
+    want.register("a", cg)
+    with one_rank_mesh() as mesh:
+        for kw in ({"sharding": ShardingPolicy(mesh)},
+                   {"sharding": ShardingPolicy(mesh),
+                    "shard_chunking": True},
+                   {"shard_chunking": True}):
+            e = ServingEngine(device="cpu", **kw)
+            e.register("a", cg)
+            for a, b in zip(want.serve([("a", q)])[0],
+                            e.serve([("a", q)])[0]):
+                assert torch.equal(a, b)
     # filter banks are ported: a bank route needs a bank or a signature
     with pytest.raises(ValueError, match="a bank or a signature"):
         ServingEngine(device="cpu").register_bank(["f0"])

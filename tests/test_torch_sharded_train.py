@@ -1,0 +1,298 @@
+"""The sharded train step (with its tensor-parallel split over "model"),
+``compressed_psum`` and the elastic restore on gloo ranks
+(``tests/test_sharding.py``, ``tests/test_compression.py``,
+``tests/test_checkpoint.py`` mesh cases).
+
+Each case runs in fresh interpreters, one per rank
+(``test_torch_sharding.run_ranks``), with torch alone: every rank builds
+the same state and batch from the same seeds and holds the sharded result
+to the one-rank result it computes itself, at the reference's tolerances
+(loss rtol 1e-5, grad norm rtol 1e-4; ``compressed_psum`` within
+4·scale + 1e-5; restored values equal).  The one-rank step itself is held
+to the reference in ``test_torch_train.py``.
+"""
+
+import os
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint import ckpt as C
+from repro_torch.configs import get_config
+from repro_torch.launch import steps
+from test_torch_sharding import run_ranks
+
+_MODEL = """
+import dataclasses
+import numpy as np
+from repro_torch.checkpoint.ckpt import tree_items
+from repro_torch.configs import get_config
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch import steps
+from repro_torch.models import zoo
+from repro_torch.models.template import tree_map
+from repro_torch.optim import adam
+
+cfg = dataclasses.replace(get_config("qwen3-8b").reduced(),
+                          compute_dtype="float32")
+hp = steps.HParams(remat="none", optimizer=adam.AdamWConfig(
+    warmup_steps=2, total_steps=10))
+copy = lambda st: {"params": tree_map(torch.clone, st["params"]),
+                   "opt": tree_map(torch.clone, st["opt"]),
+                   "step": st["step"].clone()}
+state = steps.init_state(cfg, 0, device="cpu")
+state["step"] = torch.tensor(1, dtype=torch.int32)  # lr > 0 after warmup 0
+batch = zoo.make_inputs(cfg, 4, 3, seq=32, device="cpu")
+batch["labels"] = torch.from_numpy(np.random.default_rng(9).integers(
+    0, cfg.vocab_size, (4, 32)))
+"""
+
+
+def test_sharded_train_step_matches_one_rank():
+    """Reduced qwen3 in fp32 on a 2 x 2 ("data", "model") mesh: the loss
+    within rtol 1e-5 and the grad norm within rtol 1e-4 of one rank, the
+    updated parameters and moments the one-rank ones, each rank holding
+    its blocks; then the sharded prefill and decode steps return the
+    one-rank logits, cache and tokens."""
+    outs = run_ranks(_MODEL + """
+from torch.distributed.tensor import DTensor
+one, m1 = steps.build_train_step(cfg, hp)(copy(state), batch)
+mesh = shd.make_mesh((2, 2), ("data", "model"))
+pol = shd.ShardingPolicy(mesh)
+placed = steps.place_state(copy(state), cfg, pol)
+emb = placed["params"]["embed"]
+assert isinstance(emb, DTensor)
+assert tuple(emb.to_local().shape) == tuple(
+    s // 2 for s in state["params"]["embed"].shape)
+new, m2 = steps.build_train_step(cfg, hp, pol)(placed, batch)
+np.testing.assert_allclose(float(m2["loss"]), float(m1["loss"]), rtol=1e-5)
+np.testing.assert_allclose(float(m2["grad_norm"]), float(m1["grad_norm"]),
+                           rtol=1e-4)
+assert int(new["step"]) == 2 and new is placed
+# seq_parallel shards the activations' seq dim, not the rows a rank runs
+hp_sp = dataclasses.replace(hp, seq_parallel=True)
+_, m3 = steps.build_train_step(cfg, hp_sp, pol)(
+    steps.place_state(copy(state), cfg, pol), batch)
+np.testing.assert_allclose(float(m3["loss"]), float(m1["loss"]), rtol=1e-5)
+for group in ("params", "opt"):
+    a = steps._leaves(one[group]); b = steps._leaves(new[group])
+    for x, y in zip(a, b):
+        np.testing.assert_allclose(y.full_tensor().numpy(), x.numpy(),
+                                   rtol=2e-4, atol=1e-6)
+
+# prefill and decode: rows split over "data", the outputs gathered
+params = tree_map(torch.clone, state["params"])
+pl = steps.place_state(copy(state), cfg, pol)["params"]
+pb = {"tokens": batch["tokens"]}
+want_l, want_c = steps.build_prefill_step(cfg, hp)(params, pb)
+got_l, got_c = steps.build_prefill_step(cfg, hp, pol)(pl, pb)
+np.testing.assert_allclose(got_l.numpy(), want_l.numpy(), rtol=1e-5,
+                           atol=1e-5)
+for (k, x), (_, y) in zip(tree_items(want_c),
+                          tree_items(got_c)):
+    np.testing.assert_allclose(y.numpy(), x.numpy(), rtol=1e-5, atol=1e-5)
+cache = zoo.init_cache(cfg, 4, 40, device="cpu")
+cache2 = zoo.init_cache(cfg, 4, 40, device="cpu")
+tok = batch["tokens"][:, 0]
+for pos in range(3):
+    t1, _ = steps.build_serve_step(cfg, hp)(params, cache, tok, pos)
+    t2, _ = steps.build_serve_step(cfg, hp, pol)(pl, cache2, tok, pos)
+    assert torch.equal(t1, t2), (t1, t2)
+    for (k, x), (_, y) in zip(tree_items(cache),
+                              tree_items(cache2)):
+        np.testing.assert_allclose(y.numpy(), x.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+    tok = t1
+print("SHARDED_OK", float(m1["loss"]), float(m2["loss"]))
+""", 4)
+    assert all(o.startswith("SHARDED_OK") for o in outs)
+
+
+def test_tensor_parallel_step_matches_one_rank():
+    """A (1, 2) mesh splits heads and MLP units over "model": qwen3 (its
+    one kv head on both ranks) with remat "dots" and 2 microbatches,
+    gemma3 (kv heads split, local windows), deepseek-moe (experts whole)
+    and jamba (mamba whole); each rank's attention sees its 2 of 4 heads,
+    and the loss and grad norm are one rank's."""
+    outs = run_ranks(_MODEL + """
+from repro_torch.distributed import tensor_parallel
+from repro_torch.kernels import flash_attention as fa
+heads = []
+kernel = fa.flash_attention
+fa.flash_attention = lambda q, *a, **k: heads.append(q.shape[2]) or \
+    kernel(q, *a, **k)
+mesh = shd.make_mesh((1, 2), ("data", "model"))
+pol = shd.ShardingPolicy(mesh)
+cases = [("qwen3-8b", dict(remat="dots", accum=2)),
+         ("gemma3-4b", {}), ("deepseek-moe-16b", {}),
+         ("jamba-v0.1-52b", {})]
+for arch, kw in cases:
+    c = dataclasses.replace(get_config(arch).reduced(),
+                            compute_dtype="float32")
+    h = dataclasses.replace(hp, **kw)
+    st = steps.init_state(c, 0, device="cpu")
+    st["step"] = torch.tensor(1, dtype=torch.int32)
+    b = zoo.make_inputs(c, 4, 3, seq=32, device="cpu")
+    b["labels"] = batch["labels"] % c.vocab_size
+    tp = tensor_parallel.plan(c, pol)
+    assert tp is not None and tp.cfg.n_heads == c.n_heads // 2, arch
+    heads.clear()
+    _, m1 = steps.build_train_step(c, h)(copy(st), b)
+    assert set(heads) == {c.n_heads}, (arch, heads)
+    heads.clear()
+    _, m2 = steps.build_train_step(c, h, pol)(
+        steps.place_state(copy(st), c, pol), b)
+    assert set(heads) == {c.n_heads // 2}, (arch, heads)
+    np.testing.assert_allclose(float(m2["loss"]), float(m1["loss"]),
+                               rtol=1e-5, err_msg=arch)
+    np.testing.assert_allclose(float(m2["grad_norm"]),
+                               float(m1["grad_norm"]), rtol=1e-4,
+                               err_msg=arch)
+vlm = get_config("llama-3.2-vision-90b").reduced()
+assert tensor_parallel.plan(vlm, pol) is None
+print("TP_OK")
+""", 2)
+    assert all(o.startswith("TP_OK") for o in outs)
+
+
+def test_sharded_train_loop_checkpoints_and_resumes(tmp_path):
+    """``train_loop`` on 4 ranks builds the reference's (2, 2) mesh, keeps
+    the state at ``state_specs``, writes its checkpoints from rank 0 and
+    resumes onto the mesh; its losses are one process's (phi3 reduced in
+    fp32, as ``test_torch_trainer.py``'s replay in its compute dtype)."""
+    import dataclasses
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import train
+    from repro_torch.optim import adam
+    hp = steps.HParams(remat="none", optimizer=adam.AdamWConfig(
+        lr=1e-3, total_steps=4, warmup_steps=2))
+    cfg = dataclasses.replace(get_config("phi3-mini-3.8b").reduced(),
+                              compute_dtype="float32")
+    _, want = train.train_loop(cfg, ShapeConfig("t", "train", 32, 4), hp,
+                               steps=4, log_every=0, device="cpu")
+    outs = run_ranks(f"""
+from torch.distributed.tensor import DTensor
+import dataclasses
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import steps, train
+from repro_torch.optim import adam
+hp = steps.HParams(remat="none", optimizer=adam.AdamWConfig(
+    lr=1e-3, total_steps=4, warmup_steps=2))
+cfg = dataclasses.replace(get_config("phi3-mini-3.8b").reduced(),
+                          compute_dtype="float32")
+shape = ShapeConfig("t", "train", 32, 4)
+mesh = train.make_mesh_if_possible(device="cpu")
+assert mesh.shape == {{"data": 2, "model": 2}}, mesh
+d = {str(tmp_path / "ck")!r}
+state, a = train.train_loop(cfg, shape, hp, steps=2, ckpt_dir=d,
+                            ckpt_every=2, log_every=0, resume=False,
+                            device="cpu")
+assert isinstance(state["params"]["embed"], DTensor)
+dist.barrier()
+state, b = train.train_loop(cfg, shape, hp, steps=4, ckpt_dir=d,
+                            ckpt_every=100, log_every=0, device="cpu")
+print("LOOP", *(a + b))
+""", 4)
+    assert os.path.isdir(tmp_path / "ck" / "step_2")
+    for out in outs:
+        got = [float(v) for v in out.split()[1:]]
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+def test_train_cli_on_two_ranks(tmp_path):
+    """``python -m repro_torch.launch.train`` started once a rank with
+    ``--world-size 2 --rank r --pg-store``: both ranks train on the (1, 2)
+    mesh and rank 0 writes the checkpoint."""
+    import subprocess
+    import sys
+
+    from test_torch_sharding import SRC
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "qwen3-8b", "--steps", "2", "--batch", "2", "--seq", "16",
+           "--device", "cpu", "--world-size", "2", "--pg-store",
+           str(tmp_path / "store"), "--ckpt-dir", str(tmp_path / "ck"),
+           "--ckpt-every", "2"]
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(cmd + ["--rank", str(r)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, f"stdout:\n{out}\nstderr:\n{err}"
+    assert C.latest_step(str(tmp_path / "ck")) == 2
+
+
+def test_compressed_psum_four_ranks():
+    """int8 all-reduce over a ("data",) axis of 4 ranks: within
+    4·scale + 1e-5 of the exact sum (``tests/test_compression.py``)."""
+    outs = run_ranks("""
+import numpy as np
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.compression import compressed_psum
+mesh = shd.make_mesh((4,), ("data",))
+x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+    (4, 128)).astype(np.float32))
+got = compressed_psum(x[RANK], "data", mesh)
+err = float((got - x.sum(0)).abs().max())
+scale = float(x.abs().max()) / 127
+assert err <= 4 * scale + 1e-5, (err, scale)
+assert got.dtype == torch.float32 and got.shape == (128,)
+print("PSUM_OK", err)
+""", 4)
+    errs = {o.split()[1] for o in outs}
+    assert len(errs) == 1          # every rank holds the same sum
+
+
+def test_elastic_restore_across_meshes(tmp_path):
+    """A checkpoint written by one process (no mesh) restores onto a 2 x 2
+    and a 4 x 1 mesh with equal values, each rank holding its blocks at
+    ``state_specs``, laid out as DTensor lays them out; a sharded state
+    saved from the 2 x 2 mesh restores equal on one process."""
+    cfg = get_config("phi3-mini-3.8b").reduced()
+    state = steps.init_state(cfg, 0, device="cpu")
+    state["step"] = torch.tensor(2, dtype=torch.int32)
+    C.save(state, str(tmp_path / "elastic"), step=2)
+    run_ranks(f"""
+import numpy as np
+from torch.distributed.tensor import DTensor, distribute_tensor
+from repro_torch.checkpoint import ckpt as C
+from repro_torch.checkpoint.ckpt import tree_items
+from repro_torch.configs import get_config
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch import steps
+
+cfg = get_config("phi3-mini-3.8b").reduced()
+template = steps.init_state(cfg, 1, device="cpu")
+saved, _ = C.restore(template, {str(tmp_path / 'elastic')!r})
+for shape in [(2, 2), (4, 1)]:
+    mesh = shd.make_mesh(shape, ("data", "model"))
+    pol = shd.ShardingPolicy(mesh)
+    sh = steps._to_shardings(mesh, steps.state_specs(cfg, pol))
+    got, step = C.restore(template, {str(tmp_path / 'elastic')!r},
+                          shardings=sh)
+    assert step == 2
+    n_split = 0
+    for (k, a), (_, b) in zip(tree_items(saved),
+                              tree_items(got)):
+        assert isinstance(b, DTensor), k
+        np.testing.assert_array_equal(b.full_tensor().numpy(), a)
+        ref = distribute_tensor(torch.from_numpy(np.asarray(a)),
+                                mesh.device_mesh, b.placements)
+        assert torch.equal(ref.to_local(), b.to_local()), k
+        n_split += b.to_local().numel() < a.size
+    assert n_split > 0
+    if shape == (2, 2):
+        C.save(got, {str(tmp_path / 'resaved')!r}, step=3)
+print("ELASTIC_OK")
+""", 4)
+    again, step = C.restore(state, str(tmp_path / "resaved"))
+    assert step == 3
+    for (k, a), (_, b) in zip(C.tree_items(state), C.tree_items(again)):
+        np.testing.assert_array_equal(b, a.numpy())

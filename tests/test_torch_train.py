@@ -33,10 +33,12 @@ from repro.configs import get_config as jget_config
 from repro.launch import steps as jsteps
 from repro.optim import adam as jadam
 from repro_torch.checkpoint.ckpt import tree_items
+from repro_torch.distributed.sharding import ShardingPolicy
 from repro_torch.configs import get_config
 from repro_torch.launch import steps
 from repro_torch.models import zoo
 from repro_torch.optim import adam
+from test_torch_sharding import one_rank_mesh
 
 ARCHS = ["qwen3-8b", "gemma3-4b", "deepseek-moe-16b", "mamba2-2.7b",
          "jamba-v0.1-52b", "llama-3.2-vision-90b"]
@@ -303,15 +305,38 @@ def test_state_layout_matches_reference():
 
 
 def test_sharding_knobs_raise():
+    """The sharding knobs are ported: each builds a step that, on a
+    one-rank mesh or with no policy, takes the unsharded step's step bit
+    for bit (the multi-rank step is ``test_torch_sharded_train.py``'s)."""
     _, tcfg = _configs("qwen3-8b")
-    for hp, policy in ((steps.HParams(seq_parallel=True), None),
-                       (steps.HParams(constrain_proj=True), None),
-                       (steps.HParams(extra_rules={"x": 1}), None),
-                       (steps.HParams(), object())):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            steps.build_train_step(tcfg, hp, policy)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        steps.make_constrain(tcfg, object())
+    jst = _jstate("qwen3-8b")
+    _, tb = _batch(tcfg)
+    hp0 = steps.HParams(**_opt())
+    want_state, want = steps.build_train_step(tcfg, hp0)(_port_state(jst),
+                                                         tb)
+    with one_rank_mesh() as mesh:
+        pol = ShardingPolicy(mesh)
+        for hp, policy in ((dict(seq_parallel=True), None),
+                           (dict(constrain_proj=True), None),
+                           (dict(extra_rules={"x": 1}), None),
+                           ({}, pol), (dict(seq_parallel=True), pol),
+                           (dict(constrain_proj=True,
+                                 extra_rules={"ff": ()}), pol)):
+            hp = steps.HParams(**_opt(), **hp)
+            st = _port_state(jst)
+            if policy is not None:
+                st = steps.place_state(st, tcfg, policy)
+            st, m = steps.build_train_step(tcfg, hp, policy)(st, tb)
+            for k in ("loss", "grad_norm", "lr"):
+                assert torch.equal(m[k], want[k]), (hp, k)
+            for (_, a), (_, b) in zip(tree_items(want_state["params"]),
+                                      tree_items(st["params"])):
+                assert torch.equal(a, getattr(b, "to_local", lambda: b)())
+        c = steps.make_constrain(tcfg, pol)
+        x = torch.ones(2, 3, 4)
+        assert c(x) is x and len(c.placements) == 2
+        assert steps.make_constrain(tcfg, pol, grad_cast=True)(x).dtype \
+            == x.dtype
     assert steps.make_constrain(tcfg) is None
     assert steps.make_constrain(tcfg, grad_cast=True) is zoo.grad_cast_bf16
 

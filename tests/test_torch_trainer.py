@@ -34,6 +34,7 @@ from repro_torch.distributed.fault_tolerance import (RestartLog,
 from repro_torch.launch import steps as steplib
 from repro_torch.launch import train
 from repro_torch.optim import adam
+from test_torch_sharding import one_rank_mesh
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "src")
@@ -329,5 +330,11 @@ def test_compression_ratio_and_psum():
     assert 3.9 < r < 4.0
     assert r == jcomp.compression_ratio({"a": jnp.zeros(1024),
                                          "b": jnp.zeros(2048)})
-    with pytest.raises(NotImplementedError, match="item 12"):
-        comp.compressed_psum(torch.zeros(4), "data")
+    # on a one-rank mesh the int8 all-reduce is the quantize round trip
+    # (the four-rank case is test_torch_sharded_train.py's)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        128).astype(np.float32))
+    with one_rank_mesh((1,), ("data",)) as mesh:
+        got = comp.compressed_psum(x, "data", mesh)
+    assert torch.equal(got, comp._dequantize(*comp._quantize(x)))
+    assert float((got - x).abs().max()) <= float(x.abs().max()) / 254 + 1e-7
