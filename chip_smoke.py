@@ -186,7 +186,16 @@ Phases (any failure exits non-zero; nothing is caught):
      ``state_specs`` (flash_attention and its backward launched; loss
      within rtol 1e-5 and grad norm within rtol 1e-4 of the unsharded
      step); the group is then destroyed;
-  13. the launches of every kernel on each path, counted from 0 just before
+  13. the dry run (``launch/dryrun.py``) on fake tensors, which launches
+     nothing and allocates nothing on the card: phase 11's qwen3-8b step
+     traced unsharded and on a 1 x 1 mesh of a one-rank fake process group
+     (predicted peak within 15% of phase 11's ``max_memory_allocated``,
+     predicted kernel calls equal to its launches per step, FLOPs beside
+     the closed form), then the CLI in a subprocess on qwen3-8b x
+     train_4k and the reference's test cell deepseek-moe-16b x decode_32k
+     (remat full) over 256 fake ranks: per-rank bytes, the fit in 80 GB,
+     the dominant roofline term;
+  14. the launches of every kernel on each path, counted from 0 just before
      the path and read just after it: phase 4 must launch region,
      fused_chain, stream_matmul and siren_layer, phase 5 region_stacked
      (stacked path) and region and fused_chain (per-lane path), phase 6
@@ -199,9 +208,10 @@ Phases (any failure exits non-zero; nothing is caught):
      siren_layer (``drift``), phase 11 flash_attention,
      flash_attention_bwd, ssd_scan and ssd_scan_bwd (``train``), phase 12
      region_stacked, region, flash_attention and flash_attention_bwd
-     (``sharded``); one JSON line of per-kernel numbers (a kernel's fp32
-     route, where it has one, under ``routes``);
-  14. the last line: {"ok": true, "device": {...}}.
+     (``sharded``), phase 13 none (``dryrun``); one JSON line of
+     per-kernel numbers (a kernel's fp32 route, where it has one, under
+     ``routes``);
+  15. the last line: {"ok": true, "device": {...}}.
 
 Times: ``ms`` is the device time of one call (torch.profiler, the sum of
 the kernel records per call; for a plain version, every kernel it
@@ -1068,14 +1078,17 @@ def main() -> int:
         fused_cfg, unfused_cfg, oracle, scaled_err, reading)
 
     # -- 11. LM training ------------------------------------------------------
-    launches_train = train_phase(log, torch, dev, scaled_err, device_ms,
-                                 timing, record)
+    launches_train, trained = train_phase(log, torch, dev, scaled_err,
+                                          device_ms, timing, record)
 
     # -- 12. sharding on a 1 x 1 mesh -----------------------------------------
     launches_sharded = sharding_phase(log, torch, dev, cfg, f, params, fleet,
                                       coords, fused_cfg, card)
 
-    # -- 13. launches --------------------------------------------------------
+    # -- 13. the dry run on fake tensors --------------------------------------
+    launches_dryrun = dryrun_phase(log, torch, dev, trained, card)
+
+    # -- 14. launches --------------------------------------------------------
     # ``launches`` counts the path a kernel was ported for (phase 4's for
     # PR 11's kernels, phase 5's for region_stacked, phase 6's for
     # region_bwd, phase 7's qwen3 serving for flash_attention, phase 7e's
@@ -1088,7 +1101,7 @@ def main() -> int:
              "kernel_ops": launches_ops, "compile_auto": launches_auto,
              "bank": launches_bank, "async_serve": launches_async,
              "drift": launches_drift, "train": launches_train,
-             "sharded": launches_sharded}
+             "sharded": launches_sharded, "dryrun": launches_dryrun}
     home = {"region_stacked": "multi_inr", "region_bwd": "fit",
             "flash_attention": "lm_serve", "ssd_scan": "lm_families",
             "flash_attention_bwd": "train", "ssd_scan_bwd": "train"}
@@ -1644,15 +1657,12 @@ def fit_phase(log, torch, dev, cfg, f, params, coords, fused_cfg, tiled_cfg,
 
 
 def attention_flops(B, Sq, Sk, H, D, *, causal, window):
-    """Operations of one attention call on these masks: 4 D for each
-    visible (query, key) pair (q.k and p.v), for every batch and q head."""
-    pairs = 0
-    for i in range(Sq):
-        q_pos = Sk - Sq + i
-        hi = min(q_pos + 1, Sk) if causal else Sk
-        lo = max(q_pos - window + 1, 0) if window > 0 else 0
-        pairs += max(hi - lo, 0)
-    return 4 * D * pairs * B * H
+    """Operations of one attention call on these masks
+    (``kernels/flash_attention.py::attention_flops``, the custom op's flop
+    formula): 4 D for each visible (query, key) pair, for every batch and
+    q head."""
+    from repro_torch.kernels.flash_attention import attention_flops as count
+    return count(B, Sq, Sk, H, D, causal=causal, window=window)
 
 
 def kernel_classes(times):
@@ -2315,7 +2325,9 @@ def attention_grad64(torch, q, k, v, dout, causal, window):
 def train_phase(log, torch, dev, scaled_err, device_ms, timing, record):
     """Phase 11, LM training; returns the launches of the steps through
     ``train_loop``, counted from 0 just before them (the kernel checks
-    before them and the gradient checks after are not counted)."""
+    before them and the gradient checks after are not counted), and per
+    trained arch its peak ``max_memory_allocated`` (bytes) and launches
+    per step, which phase 13's dry run predicts."""
     import dataclasses
 
     import numpy as np
@@ -2532,6 +2544,7 @@ def train_phase(log, torch, dev, scaled_err, device_ms, timing, record):
                            lr=1e-4, warmup_steps=2,
                            total_steps=TRAIN_STEPS))
     shape = ShapeConfig("chip", "train", TRAIN_SEQ, TRAIN_BATCH)
+    measured = {}
     for arch, depth in TRAIN_MODELS:
         t0 = time.perf_counter()
         cfg = dataclasses.replace(get_config(arch), n_layers=depth)
@@ -2569,6 +2582,8 @@ def train_phase(log, torch, dev, scaled_err, device_ms, timing, record):
             raise AssertionError(f"{arch} training: finite {finite}, "
                                  f"{len(per_step)} steps, launches short "
                                  f"of one per layer and step: {short}")
+        measured[arch] = {"peak": peak * 1e9, "per_step": {
+            k: v / TRAIN_STEPS for k, v in got.items()}}
         del state, per_step
         torch.cuda.empty_cache()
     launches = dict(common.LAUNCHES)
@@ -2615,7 +2630,7 @@ def train_phase(log, torch, dev, scaled_err, device_ms, timing, record):
                                          "flash_attention_bwd", "ssd_scan",
                                          "ssd_scan_bwd")):
         raise AssertionError(f"training launched {launches}")
-    return launches
+    return launches, measured
 
 
 def sharding_phase(log, torch, dev, cfg, f, params, fleet, coords, fused_cfg,
@@ -2761,6 +2776,152 @@ def sharding_phase(log, torch, dev, cfg, f, params, fleet, coords, fused_cfg,
     log(f"[launches] phase 12 (sharding on a 1 x 1 mesh): {launches}; "
         f"{card}")
     log(f"[shard] phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# phase 13: the reference's own record of its dry-run test cell
+# (deepseek-moe-16b x decode_32k x single pod, remat full; written by its
+# system test, ``results/dryrun_testcell.json``): bytes of arguments per
+# device, the KV cache split 256 ways plus a parameter shard
+REFERENCE_TESTCELL_ARG_BYTES = 3_890_630_692
+DRYRUN_CELLS = [["--arch", "qwen3-8b", "--shape", "train_4k"],
+                ["--arch", "deepseek-moe-16b", "--shape", "decode_32k",
+                 "--remat", "full"]]
+DRYRUN_TIMEOUT_S = 300
+
+
+def dryrun_phase(log, torch, dev, trained, card):
+    """Phase 13, the dry run on fake tensors (``launch/dryrun.py``);
+    returns the launches made while it ran, which must be none, and
+    checks that it allocated nothing on the card.
+
+    13a: phase 11's qwen3-8b step (``TRAIN_MODELS``' depth, B, S, remat
+    "dots", cast_once) traced on fake tensors on ``dev``, unsharded and on
+    a 1 x 1 mesh of a one-rank fake group: the predicted peak beside phase
+    11's measured ``max_memory_allocated`` (within 15%), the custom ops'
+    calls beside phase 11's launches per step (equal), the FLOPs beside
+    the closed form.  13b: the CLI in a subprocess on two production
+    cells of the single pod's 256 ranks: per-rank peak, whether it fits,
+    the dominant roofline term, and for the reference's test cell the
+    argument bytes against the reference's."""
+    import dataclasses
+    import os
+    import tempfile
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.distributed.sharding import make_mesh
+    from repro_torch.kernels import common
+    from repro_torch.kernels.flash_attention import visible_pairs
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.models import zoo
+    from repro_torch.models.template import count_template_params
+    from repro_torch.optim import adam
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    common.reset_launches()
+    allocated = torch.cuda.memory_allocated()
+
+    # -- 13a. phase 11's step, predicted ----------------------------------
+    arch, depth = TRAIN_MODELS[0]
+    cfg = dataclasses.replace(get_config(arch), n_layers=depth)
+    hp = steps.HParams(remat="dots", cast_once=True,
+                       optimizer=adam.AdamWConfig(
+                           lr=1e-4, warmup_steps=2,
+                           total_steps=TRAIN_STEPS))
+    shape = ShapeConfig("chip", "train", TRAIN_SEQ, TRAIN_BATCH)
+    want = trained[arch]
+    calls_want = {"flash_attention_fwd": want["per_step"].get(
+        "flash_attention", 0), "flash_attention_bwd": want["per_step"].get(
+        "flash_attention_bwd", 0)}
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_mat = count_template_params(zoo.model_template(cfg)) \
+        - cfg.vocab_size * cfg.d_model          # the embedding is a lookup
+    closed = 6 * n_mat * tokens + (4 + 4 + 10) * cfg.head_dim * \
+        visible_pairs(TRAIN_SEQ, TRAIN_SEQ, True, 0) * TRAIN_BATCH * \
+        cfg.n_heads * depth
+    for label in ("unsharded", "1 x 1 mesh"):
+        if label == "unsharded":
+            rec = dryrun.lower_cell(arch, "chip", None, hp, device=dev,
+                                    cfg=cfg, shape=shape)
+        else:
+            with dryrun.fake_process_group(1):
+                mesh = make_mesh((1, 1), ("data", "model"),
+                                 device_type=dev.type)
+                rec = dryrun.lower_cell(arch, "chip", mesh, hp, device=dev,
+                                        cfg=cfg, shape=shape)
+        mem, cost = rec["memory"], rec["hlo_cost"]
+        peak = mem["peak_memory_in_bytes"]
+        ratio = peak / want["peak"]
+        log(f"[dryrun] {arch} train step ({depth} layers, B={TRAIN_BATCH} "
+            f"S={TRAIN_SEQ}, remat dots, cast_once) on fake {dev.type} "
+            f"tensors, {label}: traced in {rec['lower_s']} s; predicted peak "
+            f"{peak / 1e9:.3f} GB (arguments "
+            f"{mem['argument_size_in_bytes'] / 1e9:.3f}, temporaries "
+            f"{mem['temp_size_in_bytes'] / 1e9:.3f}) against phase 11's "
+            f"measured max_memory_allocated {want['peak'] / 1e9:.3f} GB: "
+            f"{ratio:.4f} (within 15%); kernel calls {rec['kernel_calls']} "
+            f"against phase 11's launches per step {calls_want}; FLOPs "
+            f"{cost['flops']:.6e} (matrix products and kernels "
+            f"{rec['dot_flops']:.6e}) against the closed form 6 N T + 18 D "
+            f"pairs H L {closed:.6e}: {rec['dot_flops'] / closed:.4f}; "
+            f"bytes streamed {cost['bytes_streamed']:.6e}, collectives "
+            f"{cost['collective_bytes']:.6e} B; {card}")
+        if abs(ratio - 1) > 0.15 or rec["kernel_calls"] != calls_want:
+            raise AssertionError(f"dry run of phase 11's step, {label}: "
+                                 f"peak ratio {ratio:.4f}, calls "
+                                 f"{rec['kernel_calls']} vs {calls_want}")
+
+    # -- 13b. production cells through the CLI ----------------------------
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               REPRO_LOG_LEVEL="info")
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, cell in enumerate(DRYRUN_CELLS):
+            out = Path(tmp) / f"cell{i}.json"
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", *cell,
+                 "--mesh", "single", "--device", dev.type, "--out",
+                 str(out)], capture_output=True, text=True, env=env,
+                cwd=ROOT, timeout=DRYRUN_TIMEOUT_S)
+            recs = json.loads(out.read_text()) if out.exists() else []
+            if r.returncode != 0 or len(recs) != 1 or "error" in recs[0]:
+                raise AssertionError(f"dry run {cell}: rc {r.returncode}\n"
+                                     f"{r.stdout[-3000:]}{r.stderr[-3000:]}")
+            rec = recs[0]
+            mem, roof = rec["memory"], rec["roofline"]
+            vs_ref = ""
+            if rec["arch"] == "deepseek-moe-16b":
+                ref = REFERENCE_TESTCELL_ARG_BYTES
+                vs_ref = (f"; arguments over the reference's "
+                          f"{ref / 1e9:.2f} GB: "
+                          f"{mem['argument_size_in_bytes'] / ref:.1f}x")
+            log(f"[dryrun] {rec['arch']} x {rec['shape']} x single pod "
+                f"({rec['n_devices']} fake ranks, mesh {rec['mesh']}, remat "
+                f"{rec['hp']['remat']}, attn {rec['hp']['attn_impl']}): "
+                f"{time.perf_counter() - t0:.1f} s (traced in "
+                f"{rec['lower_s']} s); per rank: arguments "
+                f"{mem['argument_size_in_bytes'] / 1e9:.3f} GB, peak "
+                f"{mem['peak_memory_in_bytes'] / 1e9:.3f} GB, fits 80 GB "
+                f"{rec['fits_hbm']}; flops {rec['hlo_cost']['flops']:.4e}, "
+                f"bytes streamed {rec['hlo_cost']['bytes_streamed']:.4e}, "
+                f"collectives {rec['hlo_cost']['collective_bytes']:.4e} B; "
+                f"roofline compute {roof['t_compute']:.4f} s, memory "
+                f"{roof['t_memory']:.4f} s, collective "
+                f"{roof['t_collective']:.4f} s: dominant {roof['dominant']}"
+                f"{vs_ref}; kernel calls {rec['kernel_calls']}")
+            if rec["n_devices"] != 256:
+                raise AssertionError(f"dry run {cell}: {rec['n_devices']}")
+
+    torch.cuda.synchronize()
+    launches = dict(common.LAUNCHES)
+    grew = torch.cuda.memory_allocated() - allocated
+    log(f"[launches] phase 13 (the dry run): {launches}; device memory "
+        f"allocated during it {grew} B")
+    log(f"[dryrun] phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    if launches or grew:
+        raise AssertionError(f"the dry run launched {launches} and "
+                             f"allocated {grew} B on the card")
     return launches
 
 

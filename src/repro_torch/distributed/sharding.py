@@ -296,10 +296,14 @@ class NamedSharding:
 def distribute(t: torch.Tensor, spec, mesh):
     """A DTensor of the full tensor ``t`` (present on every rank) at
     ``spec``'s placements: each rank keeps its own block, no
-    communication."""
+    communication.  The block is ``t`` itself where it is the whole
+    tensor, else a copy in storage of its own (a view would hold the
+    whole of ``t`` alive on every rank)."""
     from torch.distributed.tensor import DTensor
-    return DTensor.from_local(local_shard(t, spec, mesh).contiguous(),
-                              mesh.device_mesh, placements(spec, mesh),
+    block = local_shard(t, spec, mesh)
+    block = block.contiguous() if block.numel() == t.numel() else \
+        block.clone(memory_format=torch.contiguous_format)
+    return DTensor.from_local(block, mesh.device_mesh, placements(spec, mesh),
                               run_check=False, shape=t.shape,
                               stride=t.contiguous().stride())
 

@@ -83,6 +83,31 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+# The LM kernels' dispatcher ops, ``torch.ops.repro_torch.*`` (defined by
+# ``define_op``).  torch.library's ``custom_op`` decorator would do the
+# same, but its first call in a process imports torch._dynamo (seconds).
+OPS = torch.library.Library("repro_torch", "DEF")
+
+
+def define_op(schema: str, *, cpu, cuda, fake, flops):
+    """Define the dispatcher op ``repro_torch::<schema>`` and return it:
+    ``cpu`` runs on CPU tensors (a kernel's plain version), ``cuda`` on
+    CUDA tensors (the launch), ``fake`` gives the outputs' shapes and
+    dtypes under ``FakeTensorMode`` (and on ``meta``), and ``flops``
+    (shapes in, as ``torch.utils.flop_counter`` formulas take them) is
+    what ``FlopCounterMode`` and ``distributed/hlo_cost.py`` charge a
+    call."""
+    from torch.utils.flop_counter import register_flop_formula
+    name = schema.split("(")[0]
+    OPS.define(schema)
+    OPS.impl(name, cpu, "CPU")
+    OPS.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"repro_torch::{name}", fake, lib=OPS)
+    op = getattr(torch.ops.repro_torch, name)
+    register_flop_formula(op)(flops)
+    return op
+
+
 def refuse_dtensor(name: str, *operands) -> None:
     """Raise ``TypeError`` if an operand (a tensor, or a list / tuple of
     them) is a DTensor: a kernel takes a rank's local tensors (a sharded

@@ -23,6 +23,15 @@ code, so these kernels have no Pallas counterpart).  bf16 runs it on the
 tensor cores (``wgmma`` fed by TMA, two passes with one writer per output
 element), fp32 on SIMT FMAs.  Its plain version
 ``flash_attention_bwd_plain`` is the port of ``_bwd_impl`` itself.
+
+Both directions are custom ops of the dispatcher
+(``torch.ops.repro_torch.flash_attention_fwd`` / ``flash_attention_bwd``,
+``common.define_op``): the CPU kernel of each is its plain version, the
+CUDA kernel the launch, a fake kernel gives the outputs' shapes and dtypes
+(so ``FakeTensorMode`` traces a step through them without touching a
+pointer), and a flop formula (``torch.utils.flop_counter``) charges
+``attention_flops``: 4 D per visible (query, key) pair forward, 10 D
+backward.
 """
 
 from __future__ import annotations
@@ -30,10 +39,11 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 
-from repro_torch.kernels.common import ABI, check_launch, load_library, \
-    refuse_dtensor, stream_handle
+from repro_torch.kernels.common import ABI, check_launch, define_op, \
+    load_library, refuse_dtensor, stream_handle
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
@@ -115,6 +125,23 @@ def _mask(Sq, Sk, causal, window, device, q_offset=None):
     return mask
 
 
+def visible_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs ``_mask`` lets through, for one batch row and
+    head: query i at position Sk - Sq + i sees keys [lo, hi)."""
+    q_pos = Sk - Sq + np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(q_pos + 1, Sk) if causal else np.full(Sq, Sk)
+    lo = np.maximum(q_pos - window + 1, 0) if window > 0 else 0
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def attention_flops(B, Sq, Sk, H, D, *, causal, window):
+    """Operations of one attention forward on these masks: 4 D for each
+    visible (query, key) pair (q.k and p.v), for every batch row and q
+    head.  The backward does 2.5 times as many (q.k and p.v again, then
+    dO.v, dS.k and dS.q, p^T dO: 10 D a pair)."""
+    return 4 * D * visible_pairs(Sq, Sk, causal, window) * B * H
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, bq: int = 256,
                     bk: int = 256) -> torch.Tensor:
@@ -152,16 +179,32 @@ class _Attention(torch.autograd.Function):
 
 
 def _forward(q, k, v, causal: bool, window: int, want_lse: bool):
-    """(out, lse or None): the plain version on CPU tensors, a kernel on
-    CUDA tensors (writing lse only if ``want_lse``)."""
-    if q.device.type == "cpu":
-        if want_lse:
-            return flash_attention_plain(q, k, v, causal=causal,
-                                         window=window, return_lse=True)
-        return flash_attention_plain(q, k, v, causal=causal,
-                                     window=window), None
-    if q.device.type != "cuda":
+    """(out, lse or None) through the custom op
+    ``torch.ops.repro_torch.flash_attention_fwd``: the plain version on
+    CPU tensors, a kernel on CUDA tensors (writing lse only if
+    ``want_lse``)."""
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    out, lse = _fwd_op(q, k, v, bool(causal), int(window), bool(want_lse))
+    return out, (lse if want_lse else None)
+
+
+def _no_lse(q):
+    """The op's second output when lse is not asked for: empty."""
+    return torch.empty((0,), dtype=torch.float32, device=q.device)
+
+
+def _fwd_cpu(q, k, v, causal, window, want_lse):
+    """CPU: the plain version."""
+    if want_lse:
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     return_lse=True)
+    return flash_attention_plain(q, k, v, causal=causal,
+                                 window=window), _no_lse(q)
+
+
+def _fwd_cuda(q, k, v, causal, window, want_lse):
+    """CUDA: the tensor-core kernel for bf16, the SIMT one for fp32."""
     B, Sq, H, D = q.shape
     _, Sk, KH, _ = k.shape
     _check_cuda(q, k, v)
@@ -175,7 +218,7 @@ def _forward(q, k, v, causal: bool, window: int, want_lse: bool):
                              f"{t.stride()}")
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device) \
-        if want_lse else None
+        if want_lse else _no_lse(q)
     strides = _strides(q, k, v, out)
     lib = load_library()
     if q.dtype == torch.bfloat16:
@@ -188,6 +231,27 @@ def _forward(q, k, v, causal: bool, window: int, want_lse: bool):
                 stream_handle(q.device))
     check_launch(rc, "flash_attention")
     return out, lse
+
+
+def _fwd_fake(q, k, v, causal, window, want_lse):
+    B, Sq, H, _ = q.shape
+    out = q.new_empty(q.shape)
+    if not want_lse:
+        return out, _no_lse(q)
+    return out, q.new_empty((B, Sq, H), dtype=_acc_dtype(q.dtype))
+
+
+def _fwd_flops(q_shape, k_shape, v_shape, causal, window, want_lse, *args,
+               out_shape=None, **kwargs) -> int:
+    B, Sq, H, D = q_shape
+    return attention_flops(B, Sq, k_shape[1], H, D, causal=causal,
+                           window=window)
+
+
+_fwd_op = define_op(
+    "flash_attention_fwd(Tensor q, Tensor k, Tensor v, bool causal, "
+    "int window, bool want_lse) -> (Tensor, Tensor)",
+    cpu=_fwd_cpu, cuda=_fwd_cuda, fake=_fwd_fake, flops=_fwd_flops)
 
 
 def _check_cuda(q, *others):
@@ -268,21 +332,28 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal=True,
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
                         window: int = 0):
     """(dq, dk, dv) in q's, k's and v's dtype from the forward's (out, lse)
-    and the output's gradient.  CPU tensors take the plain version.  CUDA
-    tensors: bf16 ``csrc/flash_attention_bwd_tc.cu`` (its preprocess and
-    both passes, one launch count), which reads the operands through their
-    strides where TMA can (else a contiguous copy); fp32
-    ``csrc/flash_attention_bwd.cu`` (both passes, one launch count), which
-    reads contiguous copies."""
+    and the output's gradient, through
+    ``torch.ops.repro_torch.flash_attention_bwd``.  CPU tensors take the
+    plain version.  CUDA tensors: bf16 ``csrc/flash_attention_bwd_tc.cu``
+    (its preprocess and both passes, one launch count), which reads the
+    operands through their strides where TMA can (else a contiguous copy);
+    fp32 ``csrc/flash_attention_bwd.cu`` (both passes, one launch count),
+    which reads contiguous copies."""
     refuse_dtensor("flash_attention_bwd", q, k, v, out, lse, dout)
     _check_shapes(q, k, v)
-    window = int(window)
-    if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, out, lse, dout,
-                                         causal=causal, window=window)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"flash_attention_bwd: unsupported device "
                          f"{q.device}")
+    return _bwd_op(q, k, v, out, lse, dout, bool(causal), int(window))
+
+
+def _bwd_cpu(q, k, v, out, lse, dout, causal, window):
+    """CPU: the plain version."""
+    return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=causal,
+                                     window=window)
+
+
+def _bwd_cuda(q, k, v, out, lse, dout, causal, window):
     B, Sq, H, D = q.shape
     _, Sk, KH, _ = k.shape
     if tuple(out.shape) != tuple(q.shape) or \
@@ -312,6 +383,24 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
         stream_handle(q.device))
     check_launch(rc, "flash_attention_bwd")
     return dq, dk, dv
+
+
+def _bwd_fake(q, k, v, out, lse, dout, causal, window):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def _bwd_flops(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
+    B, Sq, H, D = q_shape
+    causal, window = args[-2:]
+    return 5 * attention_flops(B, Sq, k_shape[1], H, D, causal=causal,
+                               window=window) // 2
+
+
+_bwd_op = define_op(
+    "flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor out, "
+    "Tensor lse, Tensor dout, bool causal, int window) -> "
+    "(Tensor, Tensor, Tensor)",
+    cpu=_bwd_cpu, cuda=_bwd_cuda, fake=_bwd_fake, flops=_bwd_flops)
 
 
 def _tma_operand(t):

@@ -19,14 +19,21 @@ Under autograd (grad enabled and an input requiring grad) the wrapper is a
 kernel has no Pallas counterpart):
 ``G_{NC-1} = 0``, ``G_c = dprev[c+1] + decay_{c+1} G_{c+1}``,
 ``dstates[c] = G_c`` and ``ddecay[c] = sum_{p,n} G_c * prev[c]``.
+
+Both are custom ops of the dispatcher (``torch.ops.repro_torch.ssd_scan``
+/ ``ssd_scan_bwd``, ``common.define_op``): the CPU kernel is the plain
+version, the CUDA kernel the launch, a fake kernel gives the outputs'
+shapes and dtypes to ``FakeTensorMode``, and a flop formula
+(``torch.utils.flop_counter``) counts the plain version's arithmetic
+(``scan_flops``, ``scan_bwd_flops``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import ABI, check_launch, load_library, \
-    refuse_dtensor, stream_handle
+from repro_torch.kernels.common import ABI, check_launch, define_op, \
+    load_library, refuse_dtensor, stream_handle
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -85,10 +92,17 @@ class _Scan(torch.autograd.Function):
 
 
 def _scan(states, chunk_decay):
-    if states.device.type == "cpu":
-        return ssd_scan_plain(states, chunk_decay)
-    if states.device.type != "cuda":
+    if states.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"ssd_scan: unsupported device {states.device}")
+    return _scan_op(states, chunk_decay)
+
+
+def _scan_cpu(states, chunk_decay):
+    """CPU: the plain version."""
+    return ssd_scan_plain(states, chunk_decay)
+
+
+def _scan_cuda(states, chunk_decay):
     if states.dtype not in _DTYPES:
         raise TypeError(f"ssd_scan: states must be float32, bfloat16 or "
                         f"float16, got {states.dtype}")
@@ -108,6 +122,30 @@ def _scan(states, chunk_decay):
                          stream_handle(states.device))
     check_launch(rc, "ssd_scan")
     return prev
+
+
+def _scan_fake(states, chunk_decay):
+    return states.new_empty(states.shape, dtype=torch.float32)
+
+
+def scan_flops(shape) -> int:
+    """The plain forward's arithmetic: a multiply and an add per element
+    of each chunk's state."""
+    BH, NC, P, N = shape
+    return 2 * BH * NC * P * N
+
+
+def scan_bwd_flops(shape) -> int:
+    """The plain backward's arithmetic: G's multiply and add for every
+    chunk but the last, then G * prev and its sum for every chunk."""
+    BH, NC, P, N = shape
+    return 2 * BH * max(NC - 1, 0) * P * N + 2 * BH * NC * P * N
+
+
+_scan_op = define_op(
+    "ssd_scan(Tensor states, Tensor chunk_decay) -> Tensor",
+    cpu=_scan_cpu, cuda=_scan_cuda, fake=_scan_fake,
+    flops=lambda states, decay, *a, out_shape=None, **kw: scan_flops(states))
 
 
 def _check_device(states, chunk_decay):
@@ -150,10 +188,17 @@ def ssd_scan_bwd(dprev: torch.Tensor, prev: torch.Tensor,
     if tuple(dprev.shape) != tuple(prev.shape):
         raise ValueError(f"ssd_scan_bwd: dprev {tuple(dprev.shape)} != prev "
                          f"{tuple(prev.shape)}")
-    if prev.device.type == "cpu":
-        return ssd_scan_bwd_plain(dprev, prev, chunk_decay, dtype)
-    if prev.device.type != "cuda":
+    if prev.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"ssd_scan_bwd: unsupported device {prev.device}")
+    return _scan_bwd_op(dprev, prev, chunk_decay, dtype)
+
+
+def _scan_bwd_cpu(dprev, prev, chunk_decay, dtype):
+    """CPU: the plain version."""
+    return ssd_scan_bwd_plain(dprev, prev, chunk_decay, dtype)
+
+
+def _scan_bwd_cuda(dprev, prev, chunk_decay, dtype):
     if dtype not in _DTYPES:
         raise TypeError(f"ssd_scan_bwd: dstates must be float32, bfloat16 "
                         f"or float16, got {dtype}")
@@ -176,3 +221,16 @@ def ssd_scan_bwd(dprev: torch.Tensor, prev: torch.Tensor,
         P * N, stream_handle(prev.device))
     check_launch(rc, "ssd_scan_bwd")
     return dstates, ddecay
+
+
+def _scan_bwd_fake(dprev, prev, chunk_decay, dtype):
+    BH, NC = prev.shape[:2]
+    return (prev.new_empty(prev.shape, dtype=dtype),
+            prev.new_empty((BH, NC), dtype=torch.float32))
+
+
+_scan_bwd_op = define_op(
+    "ssd_scan_bwd(Tensor dprev, Tensor prev, Tensor chunk_decay, "
+    "ScalarType dtype) -> (Tensor, Tensor)",
+    cpu=_scan_bwd_cpu, cuda=_scan_bwd_cuda, fake=_scan_bwd_fake,
+    flops=lambda dprev, prev, *a, out_shape=None, **kw: scan_bwd_flops(prev))

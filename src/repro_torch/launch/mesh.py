@@ -47,7 +47,11 @@ def _world_size() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
-def make_production_mesh(*, multi_pod: bool = False):
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str | None = None):
+    """The production mesh over the process group that is up;
+    ``device_type`` as ``distributed.sharding.make_mesh`` takes it (by
+    default the group's backend decides)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     ndev = math.prod(shape)
@@ -57,7 +61,7 @@ def make_production_mesh(*, multi_pod: bool = False):
             f"mesh {shape} needs {ndev} ranks, found {have}; start one "
             f"process per rank and call init_process_group first")
     from repro_torch.distributed.sharding import make_mesh
-    return make_mesh(shape, axes)
+    return make_mesh(shape, axes, device_type=device_type)
 
 
 def make_debug_mesh(n_data: int = 2, n_model: int = 2):

@@ -46,6 +46,7 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed import tensor_parallel
 from repro_torch.distributed.sharding import P, ShardingPolicy
+from repro_torch.kernels.common import resolve_device
 from repro_torch.models import zoo
 from repro_torch.models.template import init_params, tree_map
 from repro_torch.optim import adam
@@ -109,6 +110,44 @@ def init_state(cfg: ModelConfig, seed_or_generator, device=None) -> dict:
     return {"params": params, "opt": {"mu": zeros(params),
                                       "nu": zeros(params)},
             "step": torch.zeros((), dtype=torch.int32)}
+
+
+def abstract_state(cfg: ModelConfig, device=None) -> dict:
+    """``init_state``'s tree with no values: every leaf ``torch.empty`` on
+    ``device`` (CUDA unless ``"cpu"``), made on the active
+    ``FakeTensorMode`` when one is (``launch/dryrun.py``), so nothing is
+    allocated.  The step stays a real 0-d int32 host tensor, as
+    ``init_state``'s: the train step reads it with ``int``.  The
+    reference's ``abstract_state``."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    device = resolve_device(device)
+    params = _empty_params(zoo.model_template(cfg), device)
+    zeros = lambda t: tree_map(lambda p: torch.empty(
+        p.shape, dtype=torch.float32, device=p.device), t)
+    with unset_fake_temporarily():
+        step = torch.zeros((), dtype=torch.int32)
+    return {"params": params, "opt": {"mu": zeros(params),
+                                      "nu": zeros(params)},
+            "step": step}
+
+
+def _empty_params(template, device, dtype=None) -> dict:
+    """The template's leaves as ``torch.empty`` on ``device``; float32
+    leaves in ``dtype`` where it is given."""
+    def leaf(s):
+        dt = getattr(torch, s.dtype)
+        if dtype is not None and dt == torch.float32:
+            dt = dtype
+        return torch.empty(s.shape, dtype=dt, device=device)
+    return tree_map(leaf, template)
+
+
+def serving_params_struct(cfg: ModelConfig, hp: HParams, device=None):
+    """``serving_params``' tree with no values (float32 leaves in
+    ``hp.serve_dtype``), as ``abstract_state`` makes it: the reference's
+    ``serving_params_struct``."""
+    return _empty_params(zoo.model_template(cfg), resolve_device(device),
+                         getattr(torch, hp.serve_dtype))
 
 
 def _spec_map(fn, *trees):
@@ -255,7 +294,10 @@ def loss_and_grads(cfg: ModelConfig, hp: HParams, params, batch,
                        attn_impl=hp.attn_impl, vocab_chunk=hp.vocab_chunk,
                        aux_coef=hp.aux_coef, constrain=constrain, tp=tp)
     flat = _leaves(leaves)
-    grads = torch.autograd.grad(loss, flat)
+    # a leaf the loss does not use (the token table of a model fed
+    # embeddings) gets zeros, as jax.value_and_grad gives it
+    grads = torch.autograd.grad(loss, flat, allow_unused=True,
+                                materialize_grads=True)
     by_id = {id(p): g for p, g in zip(flat, grads)}
     return loss.detach(), tree_map(lambda p: by_id[id(p)], leaves)
 
@@ -324,6 +366,14 @@ def _rows_spec(dim: int, axes) -> P:
     return P(*([None] * dim + [tuple(axes)]))
 
 
+def _step_of(state) -> int:
+    """The step counter, a real 0-d host tensor, as an int: read outside
+    any ``FakeTensorMode`` (``launch/dryrun.py`` traces the step on one)."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    with unset_fake_temporarily():
+        return int(state["step"])
+
+
 def build_train_step(cfg: ModelConfig, hp: HParams, policy=None):
     """``train_step(state, batch) -> (state, metrics)``: the loss and its
     gradients (``_step_grads``), then AdamW.  The update runs IN PLACE on
@@ -349,7 +399,7 @@ def build_train_step(cfg: ModelConfig, hp: HParams, policy=None):
     if policy is None:
         def train_step(state, batch):
             params = state["params"]
-            step = int(state["step"])
+            step = _step_of(state)
             loss, grads = _step_grads(cfg, hp, params, batch)
             return finish(state, _leaves(params), grads, loss, step,
                           {"mu": _leaves(state["opt"]["mu"]),
@@ -361,7 +411,7 @@ def build_train_step(cfg: ModelConfig, hp: HParams, policy=None):
     tp = tensor_parallel.plan(cfg, policy)
 
     def train_step(state, batch):
-        step = int(state["step"])
+        step = _step_of(state)
         full = tree_map(shd.full_tensor, state["params"])
         local, dp = _local_batch(policy, batch, "train")
         if tp is None:

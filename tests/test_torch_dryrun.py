@@ -1,0 +1,267 @@
+"""The port's dry run (``repro_torch.launch.dryrun``): one step of a cell
+on fake tensors over a fake process group, its collective bytes against
+the port's design counted by hand, its argument bytes against the
+rank-local state, the CLI on the reference's test cell, the roofline
+terms, and imports free of jax and the reference."""
+
+import collections
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro.configs import get_config as jget_config
+from repro_torch.checkpoint.ckpt import tree_items
+from repro_torch.configs import SHAPES, get_config
+from repro_torch.distributed import sharding as shd
+from repro_torch.kernels import common
+from repro_torch.launch import dryrun, mesh as meshlib, steps
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = os.path.join(REPO, "src")
+MESH = (4, 4)
+
+
+def _local_bytes(t, spec, mesh) -> int:
+    """Bytes of a rank's block of ``t`` at ``spec``."""
+    block = shd.local_shard(torch.empty(t.shape, device="meta"), spec, mesh)
+    return block.numel() * t.dtype.itemsize
+
+
+def _gather_bytes(shape, dtype, spec, mesh) -> int:
+    """Operand bytes of gathering a leaf whole: one all-gather per mesh
+    axis it is sharded over, each on what the ones before it gathered."""
+    total, n_all = 0, 1
+    axes = shd.sharded_axes(spec, mesh)
+    for a in axes:
+        n_all *= mesh.shape[a]
+    block = torch.Size(shape).numel() * dtype.itemsize // n_all
+    for a in axes:
+        total += block
+        block *= mesh.shape[a]
+    return total
+
+
+def _param_leaves(cfg, policy, dtype=None):
+    """(path, shape, dtype, spec) of every parameter leaf."""
+    from repro_torch.models import zoo
+    specs = steps._spec_leaves(steps.param_specs(cfg, policy))
+    out = []
+    for (path, ps), spec in zip(tree_items(zoo.model_template(cfg)), specs):
+        dt = getattr(torch, ps.dtype)
+        if dtype is not None and dt == torch.float32:
+            dt = dtype
+        out.append((path, ps.shape, dt, spec))
+    return out
+
+
+def _cell(arch, shape_name, **hp):
+    """A reduced config's cell on a fake (4, 4) mesh."""
+    before = collections.Counter(common.LAUNCHES)
+    with dryrun.fake_process_group(16):
+        mesh = shd.make_mesh(MESH, ("data", "model"))
+        rec = dryrun.lower_cell(arch, shape_name, mesh,
+                                steps.HParams(**hp), device="cpu",
+                                cfg=get_config(arch).reduced())
+    assert collections.Counter(common.LAUNCHES) == before
+    return rec, get_config(arch).reduced(), shd.ShardingPolicy(mesh), mesh
+
+
+def _batch_local(cfg, shape, policy, mesh) -> int:
+    from repro_torch.models import zoo
+    specs = steps.batch_specs(cfg, shape, policy)
+    return sum(_local_bytes(v, specs[k], mesh)
+               for k, v in zoo.input_structs(cfg, shape).items()
+               if k != "pos")
+
+
+@pytest.mark.parametrize("arch,remat,tp_reduces", [
+    ("mamba2-2.7b", "dots", 0), ("qwen3-8b", "none", 4),
+    ("qwen3-8b", "dots", 5)])
+def test_train_cell(arch, remat, tp_reduces):
+    """The train step's collectives: every parameter's block gathered
+    whole, the loss and every whole float32 gradient all-reduced over
+    "data".  With the tensor-parallel split (qwen3) also, per layer, each
+    split block's output all-reduced over "model" in the forward and its
+    input's gradient in the backward (4); under remat "dots" the
+    recompute adds the attention block's (the non-reentrant checkpoint
+    stops once it has what the backward saved, before the MLP's); and
+    each leaf of a split block summed over "model" whole.  Arguments: the
+    rank-local params and moments, the step, the rank's rows of the
+    batch."""
+    rec, cfg, policy, mesh = _cell(arch, "train_4k", remat=remat)
+    shape = SHAPES["train_4k"]
+    leaves = _param_leaves(cfg, policy)
+    gathers = sum(_gather_bytes(s, dt, sp, mesh) for _, s, dt, sp in leaves)
+    grads = sum(4 * torch.Size(s).numel() for _, s, _, _ in leaves)
+    reduce_ = grads + 4
+    if tp_reduces:
+        rows = shape.global_batch // MESH[0]
+        act = rows * shape.seq_len * cfg.d_model * torch.bfloat16.itemsize
+        reduce_ += tp_reduces * cfg.n_layers * act
+        reduce_ += sum(4 * torch.Size(s).numel() for p, s, _, _ in leaves
+                       if p[-2:-1] == ("attn",) or p[-2:] in (
+                           ("mlp", "wi"), ("mlp", "wg"), ("mlp", "wo")))
+    c = rec["hlo_cost"]["collectives"]
+    assert c["all-gather"]["bytes"] == gathers
+    assert c["all-reduce"]["bytes"] == reduce_
+    assert rec["hlo_cost"]["collective_bytes"] == gathers + reduce_
+    state = 3 * sum(_local_bytes(torch.empty(s, device="meta"), sp, mesh)
+                    for _, s, _, sp in leaves)
+    assert rec["memory"]["argument_size_in_bytes"] == \
+        state + 4 + _batch_local(cfg, shape, policy, mesh)
+    kernel = "ssd_scan" if cfg.family == "ssm" else "flash_attention_fwd"
+    # remat "dots" runs each layer's kernel forward twice
+    assert rec["kernel_calls"][kernel] == \
+        (2 if remat == "dots" else 1) * cfg.n_layers
+    assert rec["n_devices"] == 16 and rec["mesh"] == {"data": 4, "model": 4}
+    # the step returns the state it updated in place (a new step tensor)
+    mem = rec["memory"]
+    assert mem["peak_memory_in_bytes"] == (
+        mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+        + mem["output_size_in_bytes"] - state)
+
+
+def test_prefill_and_decode_cells():
+    """Prefill gathers every parameter whole (bf16), then its logits and
+    each cache leaf by rows over "data"; decode gathers the parameters,
+    every cache leaf's rows and the next tokens.  Decode's arguments hold
+    the whole cache on every rank."""
+    rec, cfg, policy, mesh = _cell("qwen3-8b", "prefill_32k")
+    leaves = _param_leaves(cfg, policy, torch.bfloat16)
+    gathers = sum(_gather_bytes(s, dt, sp, mesh) for _, s, dt, sp in leaves)
+    shape = SHAPES["prefill_32k"]
+    rows = shape.global_batch // MESH[0]
+    kv = cfg.n_layers * rows * shape.seq_len * cfg.n_kv_heads \
+        * cfg.head_dim * 2
+    logits = rows * cfg.vocab_size * 4
+    assert rec["hlo_cost"]["collectives"]["all-gather"]["bytes"] == \
+        gathers + logits + 2 * kv
+    params = sum(_local_bytes(torch.empty(s, dtype=dt, device="meta"), sp,
+                              mesh) for _, s, dt, sp in leaves)
+    assert rec["memory"]["argument_size_in_bytes"] == \
+        params + _batch_local(cfg, shape, policy, mesh)
+    assert rec["kernel_calls"] == {"flash_attention_fwd": cfg.n_layers}
+
+    rec, *_ = _cell("qwen3-8b", "decode_32k")
+    shape = SHAPES["decode_32k"]
+    rows = shape.global_batch // MESH[0]
+    kv = cfg.n_layers * rows * shape.seq_len * cfg.n_kv_heads \
+        * cfg.head_dim * 2
+    assert rec["hlo_cost"]["collectives"]["all-gather"]["bytes"] == \
+        gathers + 2 * kv + 4 * rows
+    whole = 2 * MESH[0] * kv
+    assert rec["memory"]["argument_size_in_bytes"] == \
+        params + whole + 4 * shape.global_batch
+    assert rec["kernel_calls"] == {} and rec["tokens"] == shape.global_batch
+
+
+def test_unsharded_cell():
+    """Without a mesh the unsharded step is traced: no collectives, the
+    whole state as arguments, one kernel call per layer and direction
+    (remat "none")."""
+    cfg = get_config("qwen3-8b").reduced()
+    shape = SHAPES["train_4k"]
+    rec = dryrun.lower_cell("qwen3-8b", "train_4k", None,
+                            steps.HParams(remat="none"), device="cpu",
+                            cfg=cfg)
+    assert rec["hlo_cost"]["collective_bytes"] == 0 and rec["mesh"] == {}
+    n = sum(torch.Size(s).numel() for _, s, _, _ in _param_leaves(
+        cfg, shd.ShardingPolicy(_OneAxis())))
+    tokens = 2 * shape.global_batch * shape.seq_len * 4
+    assert rec["memory"]["argument_size_in_bytes"] == 12 * n + 4 + tokens
+    assert rec["kernel_calls"] == {"flash_attention_fwd": cfg.n_layers,
+                                   "flash_attention_bwd": cfg.n_layers}
+
+
+class _OneAxis:
+    shape = {"data": 1}
+    axis_names = ("data",)
+
+
+def test_skipped_shape():
+    with dryrun.fake_process_group(16):
+        mesh = shd.make_mesh(MESH, ("data", "model"))
+        rec = dryrun.lower_cell("qwen3-8b", "long_500k", mesh,
+                                steps.HParams(), device="cpu")
+    assert "skipped" in rec
+
+
+def test_roofline_terms():
+    rec = {"kind": "train", "n_devices": 4, "active_params": 10,
+           "params": 20, "tokens": 100,
+           "hlo_cost": {"flops": meshlib.PEAK_FLOPS_BF16,
+                        "bytes_streamed": 2 * meshlib.HBM_BW,
+                        "collective_bytes": 3 * meshlib.NVLINK_BW}}
+    t = dryrun.roofline_terms(rec)
+    assert (t["t_compute"], t["t_memory"], t["t_collective"]) == pytest.approx(
+        (1.0, 2.0, 3.0))
+    assert t["dominant"] == "t_collective"
+    assert t["roofline_bound_s"] == pytest.approx(3.0)
+    assert t["model_flops_per_dev"] == 6 * 10 * 100 / 4
+    assert t["useful_ratio"] == pytest.approx(1500 / meshlib.PEAK_FLOPS_BF16)
+    assert t["ideal_compute_s"] == pytest.approx(
+        1500 / meshlib.PEAK_FLOPS_BF16)
+    rec["kind"] = "decode"
+    assert dryrun.roofline_terms(rec)["model_flops_per_dev"] == 500
+
+
+def test_cli_on_the_references_test_cell(tmp_path):
+    """deepseek-moe-16b x decode_32k x single pod, remat full: the
+    reference's record keys (less XLA's ``cost`` and ``compile_s``), 256
+    ranks, its parameter and token counts."""
+    out = tmp_path / "dryrun.json"
+    env = dict(os.environ, PYTHONPATH=SRC, REPRO_LOG_LEVEL="info")
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "deepseek-moe-16b", "--shape", "decode_32k", "--mesh", "single",
+         "--remat", "full", "--device", "cpu", "--out", str(out)],
+        capture_output=True, text=True, env=env, timeout=300, cwd=REPO)
+    assert r.returncode == 0, r.stdout + r.stderr
+    rec, = json.loads(out.read_text())
+    assert "error" not in rec
+    want_keys = {"arch", "shape", "kind", "mesh", "n_devices", "params",
+                 "active_params", "tokens", "hp", "memory", "hlo_cost",
+                 "lower_s", "multi_pod", "tag", "roofline"}
+    assert want_keys <= set(rec) and not {"cost", "compile_s"} & set(rec)
+    assert set(rec["memory"]) == {
+        "argument_size_in_bytes", "output_size_in_bytes",
+        "temp_size_in_bytes", "peak_memory_in_bytes"}
+    assert rec["n_devices"] == 256 and rec["hlo_cost"]["flops"] > 0
+    assert rec["roofline"]["dominant"] in ("t_compute", "t_memory",
+                                           "t_collective")
+    jcfg = jget_config("deepseek-moe-16b")
+    assert (rec["params"], rec["active_params"], rec["tokens"]) == (
+        jcfg.count_params(), jcfg.count_active_params(), 128)
+    assert rec["hp"]["remat"] == "full" and rec["hp"]["attn_impl"] == \
+        "pallas"
+    assert rec["fits_hbm"] is False
+    assert "[dryrun]" in r.stderr + r.stdout
+
+
+def test_imports_no_jax():
+    """The dry run and the cost model load and trace a cell in a fresh
+    interpreter that never imports jax, jaxlib or the reference."""
+    code = """
+import sys
+from repro_torch.configs import get_config
+from repro_torch.distributed import hlo_cost, sharding as shd
+from repro_torch.launch import dryrun, steps
+with dryrun.fake_process_group(4):
+    mesh = shd.make_mesh((2, 2), ("data", "model"))
+    rec = dryrun.lower_cell("qwen3-8b", "decode_32k", mesh, steps.HParams(),
+                            device="cpu", cfg=get_config("qwen3-8b").reduced())
+assert rec["hlo_cost"]["flops"] > 0, rec
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not bad, bad
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env=env, timeout=180)
+    assert r.returncode == 0 and r.stdout.strip().endswith("ok"), \
+        r.stdout + r.stderr

@@ -156,6 +156,31 @@ def test_train_step_matches_reference(arch, attn_impl):
             assert np.abs(mu[f"periods/cross/xattn/{w}"]).max() > 0, w
 
 
+def test_embedding_input_step_matches_reference():
+    """musicgen takes embeddings, so its token table is not in the loss:
+    the reference's gradient there is zero, and so is the port's (the
+    leaf no longer makes ``torch.autograd.grad`` raise).  The rest of the
+    step as ``test_train_step_matches_reference`` holds it."""
+    arch = "musicgen-medium"
+    jcfg, tcfg = _configs(arch)
+    jst = _jstate(arch)
+    rng = np.random.default_rng(1)
+    emb = rng.standard_normal((B, S, tcfg.d_model)).astype(np.float32)
+    labs = rng.integers(0, tcfg.vocab_size, (B, S))
+    jb = {"embeds": jnp.asarray(emb), "labels": jnp.asarray(labs, jnp.int32)}
+    tb = {"embeds": torch.from_numpy(emb), "labels": torch.from_numpy(labs)}
+    jhp = jsteps.HParams(remat="none", **_opt())
+    jnew, jm = jax.jit(jsteps.build_train_step(jcfg, jhp))(
+        jax.tree.map(jnp.asarray, jst), jb)
+    tnew, tm = steps.build_train_step(tcfg, steps.HParams(**_opt()))(
+        _port_state(jst), tb)
+    jnew = jax.tree.map(np.asarray, jnew)
+    _check(jnew, {k: float(v) for k, v in jm.items()}, tnew,
+           {k: float(v) for k, v in tm.items()})
+    assert not tnew["opt"]["mu"]["embed"].any()
+    assert not np.asarray(jnew["opt"]["mu"]["embed"]).any()
+
+
 @pytest.mark.parametrize("arch", ["qwen3-8b", "mamba2-2.7b"])
 def test_remat_policies_give_the_same_gradients(arch):
     """``remat`` changes what is recomputed, not the gradients."""
