@@ -185,7 +185,10 @@ Phases (any failure exits non-zero; nothing is caught):
      qwen3-8b cut to 4 layers at phase 11's shape with the state placed at
      ``state_specs`` (flash_attention and its backward launched; loss
      within rtol 1e-5 and grad norm within rtol 1e-4 of the unsharded
-     step); the group is then destroyed;
+     step), and phase 7's served model cut to 4 layers: a sharded prefill
+     into a cache at ``cache_specs`` and 4 greedy decode steps, logits,
+     tokens and cache torch.equal to the unsharded steps; the group is
+     then destroyed;
   13. the dry run (``launch/dryrun.py``) on fake tensors, which launches
      nothing and allocates nothing on the card: phase 11's qwen3-8b step
      traced unsharded and on a 1 x 1 mesh of a one-rank fake process group
@@ -193,8 +196,11 @@ Phases (any failure exits non-zero; nothing is caught):
      predicted kernel calls equal to its launches per step, FLOPs beside
      the closed form), then the CLI in a subprocess on qwen3-8b x
      train_4k and the reference's test cell deepseek-moe-16b x decode_32k
-     (remat full) over 256 fake ranks: per-rank bytes, the fit in 80 GB,
-     the dominant roofline term;
+     (remat full) over 256 fake ranks: per-rank arguments, temporaries
+     and peak beside the whole-state design's, collective bytes by kind,
+     the fit in 80 GB, the dominant roofline term; it fails unless the
+     decode cell fits 80 GB with arguments within 1.05x the reference's
+     and the training cell's peak is at most 180 GB;
   14. the launches of every kernel on each path, counted from 0 just before
      the path and read just after it: phase 4 must launch region,
      fused_chain, stream_matmul and siren_layer, phase 5 region_stacked
@@ -297,6 +303,9 @@ TRAIN_SCAN_SHAPES = [(80, 32, 64, 128), (3, 5, 7, 9)]
 TRAIN_MODELS = [("qwen3-8b", 4), ("mamba2-2.7b", 8)]
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 1, 4096, 5
 TRAIN_GRAD_CHECKS = [("qwen3-8b", 1, 1024), ("mamba2-2.7b", 2, 512)]
+# phase 12d: phase 7's served model cut to these layers, its prompt length
+# and decode steps on the 1 x 1 mesh
+SHARD_LM_LAYERS, SHARD_LM_SEQ, SHARD_LM_STEPS = 4, 1024, 4
 
 
 def log(*a):
@@ -2648,6 +2657,8 @@ def sharding_phase(log, torch, dev, cfg, f, params, fleet, coords, fused_cfg,
     from repro_torch.kernels import common
     from repro_torch.launch import steps
     from repro_torch.launch.mesh import init_process_group
+    from repro_torch.models import zoo
+    from repro_torch.models.template import init_params
     from repro_torch.optim import adam
     from repro_torch.serve import (AsyncServingEngine, MultiINRArtifact,
                                    ServingEngine, bind_weights)
@@ -2769,6 +2780,50 @@ def sharding_phase(log, torch, dev, cfg, f, params, fleet, coords, fused_cfg,
                 and launched.get("flash_attention", 0) > 0
                 and launched.get("flash_attention_bwd", 0) > 0):
             raise AssertionError("the sharded train step disagrees")
+        del batch, pipe
+        torch.cuda.empty_cache()
+
+        # -- 12d. sharded prefill and decode of phase 7's served model ------
+        lm = dataclasses.replace(get_config(LM_ARCH),
+                                 n_layers=SHARD_LM_LAYERS)
+        hp = steps.HParams()
+        params = steps.serving_params(lm, hp, init_params(
+            zoo.model_template(lm), SEED, device=dev))
+        placed = steps.place(params, steps.param_specs(lm, policy),
+                             policy.mesh)
+        gen = np.random.default_rng(SEED)
+        prompt = {"tokens": torch.from_numpy(gen.integers(
+            0, lm.vocab_size, (2, SHARD_LM_SEQ))).to(dev)}
+        length = SHARD_LM_SEQ + SHARD_LM_STEPS
+        want_l, want_c = steps.build_prefill_step(lm, hp)(
+            params, prompt, cache_len=length)
+        (got_l, got_c), l_pre = count(lambda: steps.build_prefill_step(
+            lm, hp, policy)(placed, prompt, cache_len=length))
+        leaves = lambda c: [t for _, t in flat_items(c)]
+        equal = torch.equal(want_l, got_l) and all(
+            torch.equal(a, b.to_local())
+            for a, b in zip(leaves(want_c), leaves(got_c)))
+        one = steps.build_serve_step(lm, hp)
+        sharded = steps.build_serve_step(lm, hp, policy)
+        t1 = t2 = want_l.argmax(-1).to(torch.int32)
+        l_dec = collections.Counter()
+        for pos in range(SHARD_LM_SEQ, length):
+            t1, _ = one(params, want_c, t1, pos)
+            (t2, _), l = count(lambda: sharded(placed, got_c, t2, pos))
+            l_dec.update(l)
+            equal = equal and torch.equal(t1, t2)
+        equal = equal and all(torch.equal(a, b.to_local()) for a, b in zip(
+            leaves(want_c), leaves(got_c)))
+        log(f"[shard] {LM_ARCH}, full width, {SHARD_LM_LAYERS} layers, "
+            f"bf16: sharded prefill of B=2 S={SHARD_LM_SEQ} into a cache of "
+            f"{length} at cache_specs, then {SHARD_LM_STEPS} greedy decode "
+            f"steps: logits, tokens and cache torch.equal to the unsharded "
+            f"steps {equal}; launches prefill {l_pre}, decode "
+            f"{dict(l_dec)}; {card}")
+        if not equal or l_pre.get("flash_attention", 0) != SHARD_LM_LAYERS:
+            raise AssertionError("the sharded prefill / decode disagrees")
+        del params, placed, want_c, got_c
+        torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
         shutil.rmtree(pg_dir, ignore_errors=True)
@@ -2788,6 +2843,20 @@ DRYRUN_CELLS = [["--arch", "qwen3-8b", "--shape", "train_4k"],
                 ["--arch", "deepseek-moe-16b", "--shape", "decode_32k",
                  "--remat", "full"]]
 DRYRUN_TIMEOUT_S = 300
+# the same cells when the sharded steps held parameters, gradients and the
+# cache whole on every rank (per-rank bytes, chip_smoke.py phase 13 at
+# commit cbfd491, NVIDIA H100 80GB HBM3, 700 W), and the gates of steps
+# that hold shards: the decode cell within 80 GB and within 1.05x the
+# reference's arguments; the training cell's peak within 5% over the
+# 171.537 GB that steps holding shards give it (phase 13, NVIDIA H100
+# 80GB HBM3, 700 W), below the ~199 GB it would reach if each layer's
+# gather went back to whole float32 weights (0.772 GB a layer more, 36
+# layers)
+WHOLE_STATE_DRYRUN = {"qwen3-8b": {"arguments": 0.388e9, "peak": 283.957e9},
+                      "deepseek-moe-16b": {"arguments": 962.205e9,
+                                           "peak": 1958.037e9}}
+DECODE_ARGS_OVER_REFERENCE = 1.05
+TRAIN_PEAK_BYTES = 180e9
 
 
 def dryrun_phase(log, torch, dev, trained, card):
@@ -2890,28 +2959,47 @@ def dryrun_phase(log, torch, dev, trained, card):
                                      f"{r.stdout[-3000:]}{r.stderr[-3000:]}")
             rec = recs[0]
             mem, roof = rec["memory"], rec["roofline"]
+            args, peak = (mem["argument_size_in_bytes"],
+                          mem["peak_memory_in_bytes"])
+            was = WHOLE_STATE_DRYRUN[rec["arch"]]
+            colls = {k: f"{int(v['count'])} ops {v['bytes']:.4e} B"
+                     for k, v in rec["hlo_cost"]["collectives"].items()
+                     if v["count"]}
             vs_ref = ""
             if rec["arch"] == "deepseek-moe-16b":
                 ref = REFERENCE_TESTCELL_ARG_BYTES
                 vs_ref = (f"; arguments over the reference's "
-                          f"{ref / 1e9:.2f} GB: "
-                          f"{mem['argument_size_in_bytes'] / ref:.1f}x")
+                          f"{ref / 1e9:.4f} GB: {args / ref:.4f}x")
             log(f"[dryrun] {rec['arch']} x {rec['shape']} x single pod "
                 f"({rec['n_devices']} fake ranks, mesh {rec['mesh']}, remat "
                 f"{rec['hp']['remat']}, attn {rec['hp']['attn_impl']}): "
                 f"{time.perf_counter() - t0:.1f} s (traced in "
                 f"{rec['lower_s']} s); per rank: arguments "
-                f"{mem['argument_size_in_bytes'] / 1e9:.3f} GB, peak "
-                f"{mem['peak_memory_in_bytes'] / 1e9:.3f} GB, fits 80 GB "
-                f"{rec['fits_hbm']}; flops {rec['hlo_cost']['flops']:.4e}, "
-                f"bytes streamed {rec['hlo_cost']['bytes_streamed']:.4e}, "
-                f"collectives {rec['hlo_cost']['collective_bytes']:.4e} B; "
-                f"roofline compute {roof['t_compute']:.4f} s, memory "
+                f"{args / 1e9:.3f} GB (whole state: "
+                f"{was['arguments'] / 1e9:.3f}), temporaries "
+                f"{mem['temp_size_in_bytes'] / 1e9:.3f} GB, peak "
+                f"{peak / 1e9:.3f} GB (whole state: "
+                f"{was['peak'] / 1e9:.3f}), fits 80 GB {rec['fits_hbm']}; "
+                f"collectives by kind {colls}; flops "
+                f"{rec['hlo_cost']['flops']:.4e}, bytes streamed "
+                f"{rec['hlo_cost']['bytes_streamed']:.4e}, collectives "
+                f"{rec['hlo_cost']['collective_bytes']:.4e} B; roofline "
+                f"compute {roof['t_compute']:.4f} s, memory "
                 f"{roof['t_memory']:.4f} s, collective "
                 f"{roof['t_collective']:.4f} s: dominant {roof['dominant']}"
                 f"{vs_ref}; kernel calls {rec['kernel_calls']}")
             if rec["n_devices"] != 256:
                 raise AssertionError(f"dry run {cell}: {rec['n_devices']}")
+            if rec["arch"] == "deepseek-moe-16b" and not (
+                    rec["fits_hbm"] and args <= DECODE_ARGS_OVER_REFERENCE
+                    * REFERENCE_TESTCELL_ARG_BYTES):
+                raise AssertionError(
+                    f"dry run {cell}: arguments {args} B (the reference's "
+                    f"{REFERENCE_TESTCELL_ARG_BYTES}), peak {peak} B, fits "
+                    f"80 GB {rec['fits_hbm']}")
+            if rec["arch"] == "qwen3-8b" and peak > TRAIN_PEAK_BYTES:
+                raise AssertionError(f"dry run {cell}: peak {peak} B over "
+                                     f"{TRAIN_PEAK_BYTES:.0f}")
 
     torch.cuda.synchronize()
     launches = dict(common.LAUNCHES)

@@ -26,6 +26,9 @@ mesh and what a spec turns into:
 * ``local_shard`` / ``gather`` move between a full tensor and a rank's
   shard with plain tensors and explicit collectives; the kernels are
   always handed such local tensors, never a DTensor.
+* ``gather_block`` is the pair a sharded step runs on a parameter block:
+  an all-gather forward, a reduce-scatter of the whole gradient back into
+  the block backward (``_c10d_functional`` ops).
 """
 
 from __future__ import annotations
@@ -299,13 +302,20 @@ def distribute(t: torch.Tensor, spec, mesh):
     communication.  The block is ``t`` itself where it is the whole
     tensor, else a copy in storage of its own (a view would hold the
     whole of ``t`` alive on every rank)."""
-    from torch.distributed.tensor import DTensor
     block = local_shard(t, spec, mesh)
     block = block.contiguous() if block.numel() == t.numel() else \
         block.clone(memory_format=torch.contiguous_format)
+    return from_block(block, spec, mesh, t.shape)
+
+
+def from_block(block: torch.Tensor, spec, mesh, shape):
+    """A DTensor of global ``shape`` at ``spec`` whose local tensor on this
+    rank is ``block`` (no communication, no copy)."""
+    from torch.distributed.tensor import DTensor
+    shape = torch.Size(shape)
+    stride = torch.empty(shape, device="meta").stride()
     return DTensor.from_local(block, mesh.device_mesh, placements(spec, mesh),
-                              run_check=False, shape=t.shape,
-                              stride=t.contiguous().stride())
+                              run_check=False, shape=shape, stride=stride)
 
 
 def full_tensor(x):
@@ -329,3 +339,123 @@ def all_reduce_axes(t: torch.Tensor, mesh, axes) -> torch.Tensor:
         if mesh.shape.get(a, 1) > 1:
             dist.all_reduce(t, group=mesh.get_group(a))
     return t
+
+
+def only_axes(spec, axes) -> PartitionSpec:
+    """``spec`` with every mesh axis outside ``axes`` dropped (those dims
+    whole)."""
+    parts = []
+    for entry in spec:
+        kept = tuple(a for a in _axes_of(entry) if a in axes)
+        parts.append(None if not kept else kept if len(kept) > 1
+                     else kept[0])
+    while parts and parts[-1] is None:
+        parts.pop()
+    return PartitionSpec(*parts)
+
+
+def block_of(mesh, spec, dim: int, size: int) -> tuple[int, int] | None:
+    """(start, width) of this rank's block of a dim of ``size`` that
+    ``spec`` splits over one mesh axis of size > 1 alone; None where the
+    dim is whole or split over more than one such axis."""
+    axes = [a for a in _axes_of(spec[dim] if dim < len(spec) else None)
+            if mesh.shape[a] > 1]
+    if len(axes) != 1:
+        return None
+    width = size // mesh.shape[axes[0]]
+    return mesh.coordinate()[axes[0]] * width, width
+
+
+def _fc():
+    return torch.ops._c10d_functional
+
+
+def _all_gather_dim(t, dim: int, mesh, axis: str):
+    """The blocks of ``axis``' ranks concatenated along ``dim``."""
+    x = t.movedim(dim, 0).contiguous()
+    y = _fc().wait_tensor(_fc().all_gather_into_tensor(
+        x, mesh.shape[axis], mesh.get_group(axis).group_name))
+    return y.movedim(0, dim)
+
+
+def _reduce_scatter_dim(t, dim: int, mesh, axis: str):
+    """``t`` summed over ``axis``' ranks, each keeping its block of
+    ``dim``."""
+    x = t.movedim(dim, 0).contiguous()
+    y = _fc().wait_tensor(_fc().reduce_scatter_tensor(
+        x, "sum", mesh.shape[axis], mesh.get_group(axis).group_name))
+    return y.movedim(0, dim)
+
+
+def _narrow_rank(t, dim: int, mesh, axis: str):
+    n = mesh.shape[axis]
+    size = t.shape[dim] // n
+    return t.narrow(dim, mesh.coordinate()[axis] * size, size)
+
+
+def _gather_axes(block, spec, mesh):
+    """The whole tensor from its blocks: an all-gather over each sharded
+    axis of size > 1, innermost first (as ``gather``)."""
+    dims = spec_dims(spec)
+    t = block
+    for a in reversed(sharded_axes(spec, mesh)):
+        t = _all_gather_dim(t, dims[a], mesh, a)
+    return t
+
+
+def _scatter_grad(g, spec, mesh, sum_axes):
+    """The gradient of ``_gather_axes``' block from the whole gradient
+    ``g``: over an axis in ``sum_axes`` summed (a reduce-scatter where the
+    axis shards the block, an all-reduce where it does not), over the
+    others the rank's slice (their ranks hold the same gradient).  Slices
+    on dims no summed axis shares come first (fewer bytes to reduce);
+    the rest go outermost first, the inverse of the gather's order."""
+    dims = spec_dims(spec)
+    live = sharded_axes(spec, mesh)
+    summed = {dims[a] for a in live if a in sum_axes}
+    first = [a for a in live if a not in sum_axes and dims[a] not in summed]
+    for a in first:
+        g = _narrow_rank(g, dims[a], mesh, a)
+    for a in live:
+        if a in first:
+            continue
+        g = (_reduce_scatter_dim if a in sum_axes else _narrow_rank)(
+            g, dims[a], mesh, a)
+    for a in sum_axes:
+        if a not in live:
+            g = _fc().wait_tensor(_fc().all_reduce(
+                g.contiguous(), "sum", mesh.get_group(a).group_name))
+    if g.untyped_storage().nbytes() > g.numel() * g.element_size():
+        # a slice of the whole gradient: keep the block alone alive
+        g = g.clone(memory_format=torch.contiguous_format)
+    return g
+
+
+class _GatherBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, block, spec, mesh, sum_axes):
+        ctx.args = (spec, mesh, sum_axes)
+        t = _gather_axes(block, spec, mesh)
+        return t.view_as(t) if t is block else t
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_grad(g, *ctx.args), None, None, None
+
+
+def gather_block(block: torch.Tensor, spec, mesh, sum_axes=()):
+    """The whole tensor of a rank's ``block`` of a tensor at ``spec``: an
+    all-gather over each mesh axis of size > 1 that ``spec`` shards,
+    innermost first.  Its backward takes the whole gradient back into the
+    block: summed over the axes in ``sum_axes`` (the axes whose ranks
+    computed different parts of it: a reduce-scatter where the axis shards
+    the block, an all-reduce where it does not), the rank's slice over the
+    other axes (their ranks computed the same gradient).  With nothing to
+    gather or sum, ``block`` itself, no copy (as ``full_tensor``); outside
+    autograd, the gather alone."""
+    sums = tuple(a for a in sum_axes if mesh.shape.get(a, 1) > 1)
+    if not sharded_axes(spec, mesh) and not sums:
+        return block
+    if not (torch.is_grad_enabled() and block.requires_grad):
+        return _gather_axes(block, spec, mesh)
+    return _GatherBlock.apply(block, spec, mesh, sums)

@@ -42,7 +42,6 @@ import torch
 
 from repro_torch.configs.base import ARCH_IDS, SHAPES, get_config
 from repro_torch.distributed import hlo_cost
-from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.sharding import ShardingPolicy
 from repro_torch.kernels import common
 from repro_torch.launch import mesh as meshlib
@@ -74,13 +73,6 @@ def _tensors(tree) -> list:
     return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
 
 
-def _placed(tree, specs, mesh):
-    """``tree`` (full fake tensors) as DTensors at ``specs``: each rank's
-    block only."""
-    return steplib._spec_map(lambda s, t: shd.distribute(t, s, mesh),
-                             specs, tree)
-
-
 def _batch(cfg, shape, policy, device):
     """The cell's inputs: train and prefill leaves as DTensors at
     ``batch_specs`` (a rank holds its rows; whole without a policy);
@@ -93,7 +85,7 @@ def _batch(cfg, shape, policy, device):
         return full["tokens"], shape.seq_len - 1
     if policy is None:
         return full
-    return _placed(full, {k: v for k, v in steplib.batch_specs(
+    return steplib.place(full, {k: v for k, v in steplib.batch_specs(
         cfg, shape, policy).items() if k in full}, policy.mesh)
 
 
@@ -142,8 +134,8 @@ def lower_cell(arch: str, shape_name: str, mesh, hp: steplib.HParams, *,
         else:
             params = steplib.serving_params_struct(cfg, hp, device)
             if policy is not None:
-                params = _placed(params, steplib.param_specs(cfg, policy),
-                                 mesh)
+                params = steplib.place(
+                    params, steplib.param_specs(cfg, policy), mesh)
             if shape.kind == "prefill":
                 step = steplib.build_prefill_step(cfg, hp, policy)
                 args = (params, _batch(cfg, shape, policy, device))
@@ -151,6 +143,9 @@ def lower_cell(arch: str, shape_name: str, mesh, hp: steplib.HParams, *,
                 step = steplib.build_serve_step(cfg, hp, policy)
                 cache = zoo.init_cache(cfg, shape.global_batch,
                                        shape.seq_len, device=device)
+                if policy is not None:
+                    cache = steplib.place(cache, steplib.cache_specs(
+                        cfg, policy, cache), mesh)
                 tokens, pos = _batch(cfg, shape, policy, device)
                 args = (params, cache, tokens, pos)
         inputs = _tensors(list(args))
@@ -207,10 +202,12 @@ def lower_cell(arch: str, shape_name: str, mesh, hp: steplib.HParams, *,
 
 
 def _total(tracker, kind: str) -> int:
-    """The tracker's total bytes over every device (``kind``: "current"
-    or "peak")."""
-    return sum(snap["Total"] for snap in
-               tracker.get_tracker_snapshot(kind).values())
+    """The tracker's total bytes over every device but ``meta``, whose
+    tensors (a cache's shapes) hold no memory (``kind``: "current" or
+    "peak")."""
+    return sum(snap["Total"] for dev, snap in
+               tracker.get_tracker_snapshot(kind).items()
+               if torch.device(dev).type != "meta")
 
 
 def roofline_terms(rec: dict) -> dict:

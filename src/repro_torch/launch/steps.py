@@ -10,28 +10,53 @@ backward).
 
 Sharding (``policy``, a ``distributed.sharding.ShardingPolicy`` over a
 mesh of ranks, one process each).  The specs (``param_specs``,
-``state_specs``, ``batch_specs``, ``cache_specs``) are the reference's.
-torch has no compiler that partitions a step the way XLA does, so a step
-under a policy runs data-parallel with fully sharded storage:
+``state_specs``, ``batch_specs``, ``cache_specs``) are the reference's,
+and every sharded step keeps its state at them, as the reference's
+``jax.jit`` does: each rank holds its own blocks, and a tensor is whole
+only for the one layer that uses it, while that layer runs.
 
-* the state lives as DTensors at ``state_specs`` (``place_state``): each
-  rank keeps its block of every parameter and moment;
-* a step gathers each parameter whole (``sharding.full_tensor``, no copy
-  where every axis it is sharded over has size 1) and runs the loss,
-  forward and backward on this rank's rows of the batch (``batch_specs``:
-  rows over the data axes, whole where they do not divide), so every
-  kernel gets plain local tensors;
-* over a "model" axis of more than one rank the attention heads and the
-  dense MLPs' hidden units are split between its ranks
-  (``distributed/tensor_parallel.py``: the attention kernel runs on the
-  rank's heads); where that plan does not apply, the axis shards storage
-  only and its ranks repeat the compute;
-* the gradients are averaged over the data axes, their norm taken whole,
-  and each rank updates its own block of parameters and moments.
+* The state lives as DTensors at ``state_specs`` (``place_state``): each
+  rank keeps its block of every parameter and moment.  A step hands the
+  model the rank's blocks (plain local tensors) and a ``gather`` hook
+  (``distributed/tensor_parallel.BlockGather``) that ``models/zoo.py``
+  runs inside each layer's (recomputed) function: an all-gather of the
+  layer's blocks over the axes their specs shard (``_c10d_functional``
+  ``all_gather_into_tensor``; nothing where every such axis has size 1).
+  The embedding, final norm and head are gathered where they are used.
+* Train: the rows of the batch split over the data axes (``batch_specs``;
+  whole where they do not divide).  Over a "model" axis of more than one
+  rank the attention heads and the dense MLPs' hidden units split
+  (``tensor_parallel.plan``: the attention kernel runs on the rank's
+  heads; Megatron's all-reduces of the split blocks' outputs and input
+  gradients); where that plan does not apply the axis shards storage and
+  its ranks repeat the compute.  The backward of each gather takes the
+  whole gradient back into the block: a reduce-scatter over the data
+  axes (an all-reduce for a leaf they do not shard), a slice over the
+  axes whose ranks computed the same.  The block gradients are averaged
+  over the data axes; the global norm is a sum of squares over the
+  rank's blocks all-reduced over every axis, a leaf replicated over an
+  axis counted once; AdamW updates the blocks in place.
+* Prefill: the rank's rows, the attention heads split over "model" where
+  the cache's kv heads split over it (``tensor_parallel.attention_split``;
+  the MLPs whole).  It allocates only the rank's blocks of the cache and
+  returns the cache as DTensors at ``cache_specs``: rows over the data
+  axes, kv heads over "model" where they divide it, else the sequence;
+  mamba states' heads and conv channels over "model".  The last logits
+  are all-gathered whole (they are small).
+* Decode takes and returns the cache at ``cache_specs`` and writes only
+  the rank's blocks; no collective carries an attention cache block.
+  Heads split as in prefill; where the sequence splits, each rank attends
+  over its positions (``layers.decode_attention(..., offset=,
+  with_lse=True)``) and the ranks' parts merge over "model" by their log-sum-exp; only the rank that holds
+  ``pos`` writes the token's k and v.  A mamba layer's states are
+  gathered over "model" for the layer and the rank's blocks written
+  back.  The next tokens are all-gathered whole.
 
 The loss and the gradients are the unsharded step's up to summation
-order: the loss is a mean over equal row blocks.  (A MoE layer's capacity
-and aux loss follow the rows a rank holds.)
+order: the loss is a mean over equal row blocks.  A MoE layer groups the
+tokens of the whole batch (``_Rows``: where a group spans ranks, the
+ranks' expert choices are all-gathered for the queue positions); its aux
+loss is over the rank's rows.
 """
 
 from __future__ import annotations
@@ -163,15 +188,20 @@ def _to_shardings(mesh, spec_tree):
     return _spec_map(lambda s: shd.NamedSharding(mesh, s), spec_tree)
 
 
+def place(tree, specs, mesh):
+    """``tree`` (full tensors, the same on every rank: parameters, a
+    batch, a decode cache) as DTensors at ``specs``: each rank keeps its
+    blocks, no communication, and no copy where a block is the whole
+    tensor."""
+    return _spec_map(lambda s, t: shd.distribute(t, s, mesh), specs, tree)
+
+
 def place_state(state: dict, cfg: ModelConfig, policy: ShardingPolicy):
-    """``state`` (full tensors, the same on every rank) as DTensors at
-    ``state_specs``: each rank keeps its block, no communication, and no
-    copy where the block is the whole tensor.  ``step`` stays a host
-    scalar."""
+    """``state`` (full tensors) placed at ``state_specs``; ``step`` stays
+    a host scalar."""
     specs = state_specs(cfg, policy)
-    placed = _spec_map(lambda s, t: shd.distribute(t, s, policy.mesh),
-                       {k: specs[k] for k in ("params", "opt")},
-                       {k: state[k] for k in ("params", "opt")})
+    placed = place({k: state[k] for k in ("params", "opt")},
+                   {k: specs[k] for k in ("params", "opt")}, policy.mesh)
     return {**placed, "step": state["step"]}
 
 
@@ -229,6 +259,24 @@ def cache_specs(cfg: ModelConfig, policy: ShardingPolicy, cache_tree):
     return walk(cache_tree)
 
 
+def layer_specs(cfg: ModelConfig, policy: ShardingPolicy) -> dict:
+    """(whole shape, spec) of every parameter leaf with its stacked dims
+    dropped, by its path within its layer (a top-level leaf by its name):
+    the table ``tensor_parallel.BlockGather`` reads.  "stack" dims are
+    never sharded, so a layer's spec is its stacked leaf's spec without
+    them."""
+    out = {}
+    for path, ps in tree_items(zoo.model_template(cfg)):
+        k = 0
+        while k < len(ps.logical) and ps.logical[k] == "stack":
+            k += 1
+        key = path if k == 0 else path[1:] if path[0] == "layers" \
+            else path[2:]
+        shape = tuple(ps.shape[k:])
+        out[key] = (shape, policy.spec(shape, ps.logical[k:]))
+    return out
+
+
 def _leaves(tree) -> list:
     """A tree's leaves in the reference's flatten order (sorted keys)."""
     return [leaf for _, leaf in tree_items(tree)]
@@ -280,19 +328,21 @@ def make_constrain(cfg, policy=None, grad_cast=False):
 
 
 def loss_and_grads(cfg: ModelConfig, hp: HParams, params, batch,
-                   constrain=None, tp=None):
+                   constrain=None, tp=None, gather=None, rows=None):
     """(loss, gradient tree) of ``zoo.loss_fn`` at ``params`` (leaves of
     any float dtype; gradients in their dtypes): ``jax.value_and_grad`` of
     the reference's ``lf``.  ``constrain``: the residual-stream hook, by
-    default ``make_constrain(cfg, None, hp.grad_cast)``; ``tp``: the
-    tensor-parallel hooks (``zoo.forward``)."""
+    default ``make_constrain(cfg, None, hp.grad_cast)``; ``tp``,
+    ``gather`` and ``rows``: a sharded step's split and hooks
+    (``zoo.forward``), ``params`` then the rank's blocks."""
     if constrain is None:
         constrain = make_constrain(cfg, None, grad_cast=hp.grad_cast)
     leaves = tree_map(lambda p: p.detach().requires_grad_(
         p.is_floating_point()), params)
     loss = zoo.loss_fn(cfg, leaves, batch, remat=hp.remat,
                        attn_impl=hp.attn_impl, vocab_chunk=hp.vocab_chunk,
-                       aux_coef=hp.aux_coef, constrain=constrain, tp=tp)
+                       aux_coef=hp.aux_coef, constrain=constrain, tp=tp,
+                       gather=gather, rows=rows)
     flat = _leaves(leaves)
     # a leaf the loss does not use (the token table of a model fed
     # embeddings) gets zeros, as jax.value_and_grad gives it
@@ -302,10 +352,12 @@ def loss_and_grads(cfg: ModelConfig, hp: HParams, params, batch,
     return loss.detach(), tree_map(lambda p: by_id[id(p)], leaves)
 
 
-def _step_grads(cfg, hp, params, batch, constrain=None, tp=None):
+def _step_grads(cfg, hp, params, batch, constrain=None, tp=None,
+                gather=None, rows=None):
     """(loss, float32 gradients in ``_leaves`` order) of one step's batch:
     ``accum`` microbatches summed in float32 and divided by ``accum``;
-    with ``cast_once`` against a bf16 copy of the float32 master."""
+    with ``cast_once`` against a bf16 copy of the float32 master (of the
+    rank's blocks under ``gather``, so its gathers move bf16)."""
     if hp.cast_once:
         fwd = tree_map(lambda x: x.to(torch.bfloat16)
                        if x.dtype == torch.float32 else x, params)
@@ -319,7 +371,8 @@ def _step_grads(cfg, hp, params, batch, constrain=None, tp=None):
         for i in range(a):
             mb = {k: v.reshape(a, v.shape[0] // a, *v.shape[1:])[i]
                   for k, v in batch.items()}
-            loss, g = loss_and_grads(cfg, hp, fwd, mb, constrain, tp)
+            loss, g = loss_and_grads(cfg, hp, fwd, mb, constrain, tp,
+                                     gather, rows)
             for s, x in zip(gsum, _leaves(g)):
                 s.add_(x.to(torch.float32))
             losses.append(loss)
@@ -327,7 +380,8 @@ def _step_grads(cfg, hp, params, batch, constrain=None, tp=None):
         grads = [g / a for g in gsum]
         del gsum
         return torch.stack(losses).mean(), grads
-    loss, g = loss_and_grads(cfg, hp, fwd, batch, constrain, tp)
+    loss, g = loss_and_grads(cfg, hp, fwd, batch, constrain, tp, gather,
+                             rows)
     return loss, [x.to(torch.float32) for x in _leaves(g)]
 
 
@@ -366,6 +420,26 @@ def _rows_spec(dim: int, axes) -> P:
     return P(*([None] * dim + [tuple(axes)]))
 
 
+class _Rows:
+    """``zoo``'s ``rows`` hook (``layers.moe_ffn``): the model runs on
+    this rank's rows of a batch whose rows split over the mesh ``axes``
+    (none: the whole batch), ``n`` ranks' equal blocks, the rank's at
+    ``index``; ``whole`` gathers a tensor over the rank's tokens (dim 0,
+    rows major) from every block, in the batch's order."""
+
+    def __init__(self, mesh, axes):
+        self.mesh, self.spec = mesh, _rows_spec(0, axes)
+        coord = mesh.coordinate()
+        self.n, self.index = 1, 0
+        for a in mesh.axis_names:          # outer first, as local_shard
+            if a in axes:
+                self.n *= mesh.shape[a]
+                self.index = self.index * mesh.shape[a] + coord[a]
+
+    def whole(self, t):
+        return shd.gather(t, self.spec, self.mesh)
+
+
 def _step_of(state) -> int:
     """The step counter, a real 0-d host tensor, as an int: read outside
     any ``FakeTensorMode`` (``launch/dryrun.py`` traces the step on one)."""
@@ -383,9 +457,10 @@ def build_train_step(cfg: ModelConfig, hp: HParams, policy=None):
     step advanced.  metrics: loss, grad_norm and lr, 0-d tensors.
 
     Under ``policy`` (module docstring): ``state`` as ``place_state``
-    gives it (plain full tensors work too), ``batch`` the full batch on
-    every rank or DTensors at ``batch_specs``; every rank returns the same
-    metrics and updates its own blocks."""
+    gives it (plain full tensors work too: each rank then uses its block
+    of them and updates it), ``batch`` the full batch on every rank or
+    DTensors at ``batch_specs``; every rank returns the same metrics and
+    updates its own blocks."""
     policy = _policy(hp, policy)
     constrain = make_constrain(cfg, policy, grad_cast=hp.grad_cast)
 
@@ -407,103 +482,257 @@ def build_train_step(cfg: ModelConfig, hp: HParams, policy=None):
         return train_step
 
     mesh = policy.mesh
-    specs = _spec_leaves(param_specs(cfg, policy))
+    pspecs = param_specs(cfg, policy)
+    specs = _spec_leaves(pspecs)
+    table = layer_specs(cfg, policy)
     tp = tensor_parallel.plan(cfg, policy)
+    lcfg = cfg if tp is None else tp.cfg
 
     def train_step(state, batch):
         step = _step_of(state)
-        full = tree_map(shd.full_tensor, state["params"])
+        params = _blocks(state["params"], pspecs, mesh)
         local, dp = _local_batch(policy, batch, "train")
-        if tp is None:
-            loss, grads = _step_grads(cfg, hp, full, local, constrain)
-        else:
-            loss, grads = _step_grads(tp.cfg, hp, tp.localize(full), local,
-                                      constrain, tp.hooks)
-            grads = tp.assemble(full, grads)
-        del full, local
+        gather = tensor_parallel.BlockGather(mesh, table, dp, tp)
+        loss, grads = _step_grads(lcfg, hp, params, local, constrain, tp,
+                                  gather, _Rows(mesh, dp))
+        del local, gather
         n_dp = 1
         for a in dp:
             n_dp *= mesh.shape[a]
         if n_dp > 1:
             loss = shd.all_reduce_axes(loss.clone(), mesh, dp) / n_dp
             for g in grads:
-                shd.all_reduce_axes(g, mesh, dp).div_(n_dp)
-        gnorm = adam.global_norm(grads)
-        grads = [shd.local_shard(g, s, mesh) for g, s in zip(grads, specs)]
-        own = lambda tree: [_local(t) for t in _leaves(tree)]
-        return finish(state, own(state["params"]), grads, loss, step,
-                      {"mu": own(state["opt"]["mu"]),
-                       "nu": own(state["opt"]["nu"])}, gnorm)
+                g.div_(n_dp)
+        gnorm = _global_norm(grads, specs, mesh)
+        opt = {k: _leaves(_blocks(state["opt"][k], pspecs, mesh))
+               for k in ("mu", "nu")}
+        return finish(state, _leaves(params), grads, loss, step, opt, gnorm)
 
     return train_step
 
 
-def build_prefill_step(cfg: ModelConfig, hp: HParams, policy=None):
-    """``prefill_step(params, batch) -> (last logits, cache)``.  Under
-    ``policy`` each rank prefills its rows of the batch with the whole
-    parameters and every rank returns the whole logits and cache (an
-    all-gather of the rows)."""
-    policy = _policy(hp, policy)
-
-    def prefill_step(params, batch):
-        with torch.no_grad():
-            if policy is None:
-                return zoo.prefill(cfg, params, batch,
-                                   attn_impl=hp.attn_impl)
-            mesh = policy.mesh
-            full = tree_map(shd.full_tensor, params)
-            local, dp = _local_batch(policy, batch, "prefill")
-            logits, cache = zoo.prefill(cfg, full, local,
-                                        attn_impl=hp.attn_impl)
-            if not dp:
-                return logits, cache
-            rows = lambda key, t: shd.gather(
-                t, _rows_spec(_cache_batch_dim(cfg, policy, key, t), dp),
-                mesh)
-            return (shd.gather(logits, _rows_spec(0, dp), mesh),
-                    _cache_map(rows, cache))
-    return prefill_step
+def _blocks(tree, spec_tree, mesh):
+    """The rank's blocks of a parameter-shaped tree: a DTensor's local
+    tensor, a plain full tensor's block at its spec (a view)."""
+    from torch.distributed.tensor import DTensor
+    return _spec_map(lambda s, t: t.to_local() if isinstance(t, DTensor)
+                     else shd.local_shard(t, s, mesh), spec_tree, tree)
 
 
-def _cache_batch_dim(cfg, policy, key: str, t) -> int:
-    return _cache_logical(cfg, policy, key, t.dim()).index("batch")
+def _global_norm(grads, specs, mesh) -> torch.Tensor:
+    """The global norm of the whole gradients from the rank's blocks:
+    sums of squares in float32 grouped by the mesh axes the blocks shard,
+    each group summed over every axis of size > 1 with a group replicated
+    over an axis counted once (the rank at coordinate 0 of that axis adds
+    it).  Without such an axis, ``adam.global_norm``."""
+    import torch.distributed as dist
+    live = [a for a in mesh.axis_names if mesh.shape[a] > 1]
+    if not live:
+        return adam.global_norm(grads)
+    groups = {}
+    for g, spec in zip(grads, specs):
+        groups.setdefault(tuple(shd.sharded_axes(spec, mesh)), []).append(g)
+    keys = sorted(groups)
+    sums = torch.stack([sum(torch.sum(torch.square(t.float()))
+                            for t in groups[k]) for k in keys])
+    coord = mesh.coordinate()
+    for a in live:
+        keep = torch.tensor([float(a in k or coord[a] == 0) for k in keys],
+                            device=sums.device)
+        sums = sums * keep
+        dist.all_reduce(sums, group=mesh.get_group(a))
+    return torch.sqrt(sums.sum())
 
 
-def _cache_map(fn, tree, key=""):
+# the dims of one layer's cache leaf, by key
+_LAYER_DIMS = {"k": 4, "v": 4, "xk": 4, "xv": 4, "conv": 3, "ssm": 4}
+
+
+def _tree_leaf_items(tree, key=""):
+    """(leaf key, leaf) of a cache tree, in its own order."""
     if isinstance(tree, dict):
-        return {k: _cache_map(fn, v, k) for k, v in tree.items()}
-    return fn(key, tree)
+        for k, v in tree.items():
+            yield from _tree_leaf_items(v, k)
+    else:
+        yield key, tree
+
+
+class CacheLayout:
+    """How a sharded serve step's decode cache splits over ``policy``'s
+    mesh: ``cache_specs`` of a cache tree of the whole shapes (``cache``:
+    DTensors, or ``zoo.init_cache(..., abstract=True)``), and the hooks
+    ``zoo.prefill`` / ``zoo.decode_step`` take as ``layout``.  Kv heads
+    split over "model" where the specs split them: then ``tp`` is the
+    attention split (``cfg`` its head counts), else None and ``cfg`` the
+    model's."""
+
+    def __init__(self, cfg: ModelConfig, policy: ShardingPolicy, cache):
+        self.mesh = mesh = policy.mesh
+        self.specs = cache_specs(cfg, policy, cache)
+        self.shapes = {}        # key -> (whole layer shape, layer spec)
+        for (key, leaf), (_, spec) in zip(_tree_leaf_items(cache),
+                                          _tree_leaf_items(self.specs)):
+            lead = leaf.dim() - _LAYER_DIMS[key]
+            full = tuple(spec) + (None,) * (leaf.dim() - len(spec))
+            self.shapes[key] = (tuple(leaf.shape[lead:]),
+                                shd.only_axes(full[lead:], ("model",)))
+        heads = "k" in self.shapes and shd.spec_dims(
+            self.shapes["k"][1]).get("model") == 2
+        self.tp = tensor_parallel.attention_split(cfg, policy) \
+            if heads else None
+        self.cfg = cfg if self.tp is None else self.tp.cfg
+        self.gather = tensor_parallel.BlockGather(
+            mesh, layer_specs(cfg, policy), (), self.tp)
+
+    def _seq(self, key):
+        """(first position, length) of the rank's block of a kv leaf's
+        sequence, None where it is whole."""
+        shape, spec = self.shapes[key]
+        return shd.block_of(self.mesh, spec, 1, shape[1])
+
+    def kv(self, key: str) -> dict:
+        """``layers.attn_decode``'s keyword arguments for the layers whose
+        cache leaf is ``key``: ``offset`` and ``merge`` where the
+        sequence splits, none where it is whole."""
+        seq = self._seq(key)
+        return {} if seq is None else {"offset": seq[0],
+                                       "merge": self.merge}
+
+    def merge(self, out, lse):
+        """The ranks' partial attention (float32 out [B, 1, H, D], lse
+        [B, 1, H]) merged over "model": each part weighted by exp(lse)
+        less the ranks' largest lse (a block masked throughout weighs 0);
+        one all-reduce of the max, one of the weighted sums."""
+        import torch.distributed as dist
+        group = self.mesh.get_group("model")
+        top = lse.clone()
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+        w = torch.exp(lse - top)
+        both = torch.cat([(out * w[..., None]).flatten(), w.flatten()])
+        dist.all_reduce(both, group=group)
+        n = out.numel()
+        return both[:n].view(out.shape) / both[n:].view(w.shape)[..., None]
+
+    def put(self, key: str, dst, value):
+        """Write the rank's block of a layer's cache tensor ``value`` (the
+        rank's rows; whole over "model" but for split kv heads, which are
+        the rank's already; k and v from position 0, perhaps shorter than
+        the cache) into the layer's block ``dst``."""
+        if key in zoo.KV_KEYS:
+            seq = self._seq("xk" if key in ("xk", "xv") else "k")
+            zoo.put_kv(dst, value, 0 if seq is None else seq[0])
+        else:
+            dst.copy_(shd.local_shard(value, self.shapes[key][1],
+                                      self.mesh))
+
+    def read(self, key: str, block):
+        """A mamba layer's state whole over "model" from the rank's
+        block."""
+        return shd.gather(block, self.shapes[key][1], self.mesh)
+
+    def empty(self, cache, device):
+        """Zeros at the rank's blocks of ``cache``'s leaves (whole shapes),
+        as DTensors at ``cache_specs``: nothing whole is allocated."""
+        def leaf(spec, t):
+            shape = shd.local_shard(torch.empty(t.shape, device="meta"),
+                                    spec, self.mesh).shape
+            return shd.from_block(torch.zeros(shape, dtype=t.dtype,
+                                              device=device),
+                                  spec, self.mesh, t.shape)
+        return _spec_map(leaf, self.specs, cache)
+
+
+def _check_placed(cache, layout: CacheLayout):
+    """Raise unless every leaf of ``cache`` is a DTensor at
+    ``layout.specs``."""
+    from torch.distributed.tensor import DTensor
+    for (key, t), (_, spec) in zip(_tree_leaf_items(cache),
+                                   _tree_leaf_items(layout.specs)):
+        want = shd.placements(spec, layout.mesh)
+        if not isinstance(t, DTensor) or list(t.placements) != want:
+            raise TypeError(
+                f"cache leaf {key!r}: a sharded serve step takes the cache "
+                f"as DTensors at cache_specs ({want}; steps.place or the "
+                f"sharded prefill), got "
+                f"{getattr(t, 'placements', type(t).__name__)}")
+
+
+def _prompt(batch) -> tuple[int, int, torch.device]:
+    """(rows, length, device) of a prefill batch."""
+    t = batch["embeds"] if "embeds" in batch else batch["tokens"]
+    return t.shape[0], t.shape[1], t.device
+
+
+def build_prefill_step(cfg: ModelConfig, hp: HParams, policy=None):
+    """``prefill_step(params, batch, cache_len=None) -> (last logits,
+    cache)``; ``cache_len`` is the cache's length, by default the
+    prompt's (a longer cache leaves room for decode).  Under ``policy``
+    (module docstring) each rank prefills its rows of the batch with its
+    parameter blocks gathered a layer at a time and returns its blocks of
+    the cache as DTensors at ``cache_specs``; every rank returns the
+    whole logits."""
+    policy = _policy(hp, policy)
+    pspecs = None if policy is None else param_specs(cfg, policy)
+
+    def prefill_step(params, batch, cache_len=None):
+        with torch.no_grad():
+            B, S, device = _prompt(batch)
+            length = S if cache_len is None else cache_len
+            if policy is None:
+                cache = None if cache_len is None else zoo.init_cache(
+                    cfg, B, length, device=device)
+                return zoo.prefill(cfg, params, batch,
+                                   attn_impl=hp.attn_impl, cache=cache)
+            mesh = policy.mesh
+            shapes = zoo.init_cache(cfg, B, length, abstract=True)
+            layout = CacheLayout(cfg, policy, shapes)
+            blocks = _blocks(params, pspecs, mesh)
+            cache = layout.empty(shapes, _leaves(blocks)[0].device)
+            local, dp = _local_batch(policy, batch, "prefill")
+            logits, _ = zoo.prefill(layout.cfg, blocks, local,
+                                    attn_impl=hp.attn_impl,
+                                    gather=layout.gather, tp=layout.tp,
+                                    cache=tree_map(_local, cache),
+                                    layout=layout, rows=_Rows(mesh, dp))
+            if dp:
+                logits = shd.gather(logits, _rows_spec(0, dp), mesh)
+            return logits, cache
+    return prefill_step
 
 
 def build_serve_step(cfg: ModelConfig, hp: HParams, policy=None):
     """``serve_step(params, cache, tokens, pos) -> (next tokens, cache)``,
-    the cache written in place.  Under ``policy`` each rank decodes its
-    rows of ``tokens`` with the whole parameters, writing its rows of the
-    (whole, per-rank) cache; the rows are then all-gathered, so every rank
-    returns the whole next tokens and holds the whole cache."""
+    the cache written in place.  Under ``policy`` (module docstring) the
+    cache is DTensors at ``cache_specs`` (the sharded prefill's, or
+    ``place``; anything else raises): each rank decodes its rows of
+    ``tokens`` with its parameter blocks gathered a layer at a time,
+    writes only its cache blocks and returns the whole next tokens."""
     policy = _policy(hp, policy)
+    pspecs = None if policy is None else param_specs(cfg, policy)
+    layouts = {}            # whole leaf shapes -> CacheLayout
 
     def serve_step(params, cache, tokens, pos):
         with torch.no_grad():
             if policy is None:
                 return zoo.decode_step(cfg, params, cache, tokens, pos)
             mesh = policy.mesh
-            full = tree_map(shd.full_tensor, params)
+            key = tuple(tuple(t.shape) for _, t in _tree_leaf_items(cache))
+            if key not in layouts:
+                layouts[key] = CacheLayout(cfg, policy, cache)
+            layout = layouts[key]
+            _check_placed(cache, layout)
             spec = policy.act_spec(tuple(tokens.shape), ("batch",))
-            dp = shd.sharded_axes(spec, mesh) if spec else []
-            if not dp:
-                return zoo.decode_step(cfg, full, cache, tokens, pos)
-            rows = lambda key, t: _rows_spec(
-                _cache_batch_dim(cfg, policy, key, t), dp)
-            mine = _cache_map(lambda key, t: shd.local_shard(
-                t, rows(key, t), mesh), cache)
-            nxt, _ = zoo.decode_step(cfg, full, mine,
+            blocks = _blocks(params, pspecs, mesh)
+            nxt, _ = zoo.decode_step(layout.cfg, blocks,
+                                     tree_map(_local, cache),
                                      shd.local_shard(tokens, spec, mesh),
-                                     pos)
-            _cache_map(lambda key, t: t.copy_(shd.gather(
-                shd.local_shard(t, rows(key, t), mesh), rows(key, t),
-                mesh)), cache)
-            return shd.gather(nxt, spec, mesh), cache
+                                     pos, gather=layout.gather,
+                                     tp=layout.tp, layout=layout,
+                                     rows=_Rows(mesh, shd.sharded_axes(
+                                         spec, mesh)))
+            if shd.sharded_axes(spec, mesh):
+                nxt = shd.gather(nxt, spec, mesh)
+            return nxt, cache
     return serve_step
 
 

@@ -149,10 +149,17 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=None,
     return out.reshape(B, nq * q_block, H, D)[:, :Sq]
 
 
-def decode_attention(q, k_cache, v_cache, pos, *, window=0):
+def decode_attention(q, k_cache, v_cache, pos, *, window=0, offset=0,
+                     with_lse=False):
     """Single-token attention against a cache.
 
-    q: [B, 1, H, D]; caches: [B, Smax, KH, D]; pos: current position."""
+    q: [B, 1, H, D]; caches: [B, Smax, KH, D] holding positions
+    ``offset`` .. ``offset`` + Smax - 1 (a block of a cache split by
+    sequence); pos: current position.  With ``with_lse`` returns (out
+    [B, 1, H, D] in the accumulation dtype, the scores' log-sum-exp
+    [B, 1, H]) for a merge of blocks with weights exp(lse): a block with
+    every position masked gives an lse of about NEG_INF (its weight 0) and
+    finite values."""
     B, _, H, D = q.shape
     _, Smax, KH, _ = k_cache.shape
     G = H // KH
@@ -160,7 +167,7 @@ def decode_attention(q, k_cache, v_cache, pos, *, window=0):
     qi = q.reshape(B, KH, G, D)
     s = torch.einsum("bhgd,bkhd->bhgk", qi.to(acc_t), k_cache.to(acc_t)) \
         / math.sqrt(D)
-    k_pos = torch.arange(Smax, device=q.device)
+    k_pos = torch.arange(offset, offset + Smax, device=q.device)
     mask = k_pos <= pos
     if window > 0:
         mask = mask & ((pos - k_pos) < window)
@@ -168,8 +175,20 @@ def decode_attention(q, k_cache, v_cache, pos, *, window=0):
                                           device=q.device))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgk,bkhd->bhgd", p.to(v_cache.dtype).to(acc_t),
-                       v_cache.to(acc_t))
-    return out.reshape(B, 1, H, D).to(q.dtype)
+                       v_cache.to(acc_t)).reshape(B, 1, H, D)
+    if with_lse:
+        return out, torch.logsumexp(s, dim=-1).reshape(B, 1, H)
+    return out.to(q.dtype)
+
+
+def _decode_attend(q, k, v, pos, *, window=0, offset=0, merge=None):
+    """``decode_attention`` over a whole cache, or with ``merge`` over one
+    rank's block of a cache split by sequence from position ``offset``,
+    the ranks' parts combined by ``merge(out, lse)``."""
+    if merge is None:
+        return decode_attention(q, k, v, pos, window=window)
+    return merge(*decode_attention(q, k, v, pos, window=window,
+                                   offset=offset, with_lse=True)).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -211,17 +230,25 @@ def attn_forward(cfg, p, x, positions, *, window=0, attn_impl="flash"):
     return out @ p["o"].to(cdt), k, v
 
 
-def attn_decode(cfg, p, x, cache_k, cache_v, pos, *, window=0):
+def attn_decode(cfg, p, x, cache_k, cache_v, pos, *, window=0, offset=0,
+                merge=None):
     """x: [B, 1, D]; caches [B, Smax, KH, hd].  Writes this token's k and v
     into the caches IN PLACE at ``pos`` (the reference returns updated
     copies through ``dynamic_update_slice``) and returns (out, cache_k,
-    cache_v)."""
+    cache_v).  With ``merge`` the caches are one rank's block of a cache
+    split by sequence, from position ``offset``: the token's k and v are
+    written only where ``pos`` falls in the block, and ``merge(out, lse)``
+    combines the block's attention with the other ranks'
+    (``_decode_attend``)."""
     cdt = x.dtype
     positions = torch.full((1, 1), pos, dtype=torch.int64, device=x.device)
     q, k, v = _qkv(cfg, p, x, positions, cdt)
-    cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
-    out = decode_attention(q, cache_k, cache_v, pos, window=window)
+    at = pos - offset
+    if merge is None or 0 <= at < cache_k.shape[1]:
+        cache_k[:, at] = k[:, 0].to(cache_k.dtype)
+        cache_v[:, at] = v[:, 0].to(cache_v.dtype)
+    out = _decode_attend(q, cache_k, cache_v, pos, window=window,
+                         offset=offset, merge=merge)
     B = x.shape[0]
     out = out.reshape(B, 1, cfg.q_dim)
     return out @ p["o"].to(cdt), cache_k, cache_v
@@ -243,13 +270,16 @@ def cross_attn_forward(cfg, p, x, kv_src):
     return out @ p["o"].to(cdt), k, v
 
 
-def cross_attn_decode(cfg, p, x, k, v):
+def cross_attn_decode(cfg, p, x, k, v, *, offset=0, merge=None):
     """One token's cross attention to the cached patch keys and values
-    (every patch visible).  x: [B, 1, D]; k, v: [B, T, KH, hd]."""
+    (every patch visible).  x: [B, 1, D]; k, v: [B, T, KH, hd]; with
+    ``merge``, one rank's block of them from patch ``offset``
+    (``attn_decode``)."""
     cdt = x.dtype
     B = x.shape[0]
     q = (x @ p["q"].to(cdt)).reshape(B, 1, cfg.n_heads, cfg.head_dim)
-    out = decode_attention(q, k, v, k.shape[1] - 1)
+    out = _decode_attend(q, k, v, offset + k.shape[1] - 1, offset=offset,
+                         merge=merge)
     out = out.reshape(B, 1, cfg.q_dim)
     return out @ p["o"].to(cdt)
 
@@ -265,7 +295,8 @@ def _top_k(gates, k):
     return vals[..., :k], idx[..., :k]
 
 
-def moe_ffn(cfg, p, x, *, capacity_factor=1.25, group_tokens=4096):
+def moe_ffn(cfg, p, x, *, capacity_factor=1.25, group_tokens=4096,
+            rows=None):
     """Dropping MoE.  x: [B, S, D] -> (out [B, S, D], aux loss).
 
     Per group of Tg tokens each expert has C slots, taken by the (token,
@@ -277,7 +308,14 @@ def moe_ffn(cfg, p, x, *, capacity_factor=1.25, group_tokens=4096):
     their G·C rows, and each token sums its K gated expert rows in float32
     and rounds once, as the einsum's accumulation does.  Nothing here waits
     on the device: the dropped pairs write a scratch row and read a zero
-    gate instead of being filtered out."""
+    gate instead of being filtered out.
+
+    ``rows``: under a sharded step, x is one rank's rows of a batch whose
+    rows split over ``rows.n`` ranks (``launch/steps.py``), and the groups
+    are the whole batch's.  Where a group holds other ranks' tokens, the
+    queue positions count their choices too (``rows.whole`` gathers every
+    rank's top-k experts); the rank computes its own tokens' rows.  The
+    aux loss is over the rank's tokens."""
     B, S, D = x.shape
     cdt = x.dtype
     acc = _acc(cdt)
@@ -297,39 +335,48 @@ def moe_ffn(cfg, p, x, *, capacity_factor=1.25, group_tokens=4096):
     aux = E * torch.sum(density * gates.mean(0))
 
     # group tokens as the reference does, failing where it fails
-    g_tok = min(group_tokens, T)
-    G = max(T // g_tok, 1)
-    Tg = T // G
-    if G * Tg != T:
-        raise ValueError(f"moe_ffn: {T} tokens are not {G} groups of "
+    T_all = T if rows is None else T * rows.n
+    g_tok = min(group_tokens, T_all)
+    G = max(T_all // g_tok, 1)
+    Tg = T_all // G
+    if G * Tg != T_all:
+        raise ValueError(f"moe_ffn: {T_all} tokens are not {G} groups of "
                          f"{Tg} (group_tokens {group_tokens})")
     C = min(max(int(math.ceil(Tg * K / E * capacity_factor)), K), Tg)
 
     # each (t, k)'s place in its expert's queue: the earlier pairs of its
     # group, in (t, k) order, that chose the same expert (the one-hot is
-    # [G, E, Tg·K], so the count runs along the contiguous axis)
-    idx = top_i.reshape(G, Tg * K)
-    sel = torch.zeros((G, E, Tg * K), dtype=torch.int32,
+    # [groups, E, Tg·K], so the count runs along the contiguous axis);
+    # ``lo``: the rank's first token among the tokens counted
+    idx, lo = top_i, 0
+    if T % Tg:
+        idx, lo = rows.whole(top_i), rows.index * T
+    idx = idx.reshape(-1, Tg * K)
+    sel = torch.zeros((idx.shape[0], E, Tg * K), dtype=torch.int32,
                       device=dev).scatter_(1, idx[:, None, :], 1)
     pos = (sel.cumsum(2) - sel).gather(1, idx[:, None, :])[:, 0]
     del sel
+    pos = pos.reshape(-1)[lo * K:(lo + T) * K].reshape(T, K)
     keep = (pos < C).reshape(T * K)
-    # expert-major slots, row (e, g, c) of [E, G·C, D]; row E·G·C is the
-    # dropped pairs' scratch row
-    rows = E * G * C
-    grp = torch.arange(G, device=dev)[:, None]
-    slot = torch.where(keep, ((idx * G + grp) * C + pos).reshape(T * K),
-                       rows)
-    xe = x.new_zeros((rows + 1, D))
+    # expert-major slots of the Gr groups the rank's tokens fall in, row
+    # (e, g, c) of [E, Gr·C, D]; row E·Gr·C is the dropped pairs' scratch
+    # row
+    g0 = lo // Tg
+    Gr = (lo + T - 1) // Tg - g0 + 1
+    n_slots = E * Gr * C
+    grp = ((lo + torch.arange(T, device=dev)) // Tg - g0)[:, None]
+    slot = torch.where(keep, ((top_i * Gr + grp) * C + pos).reshape(T * K),
+                       n_slots)
+    xe = x.new_zeros((n_slots + 1, D))
     xe[slot] = xt.repeat_interleave(K, dim=0)
 
     act = _act(cfg.mlp_type)
-    xe = xe[:rows].reshape(E, G * C, D)
+    xe = xe[:n_slots].reshape(E, Gr * C, D)
     h = act(torch.bmm(xe, p["wg"].to(cdt))) * torch.bmm(xe, p["wi"].to(cdt))
-    ye = torch.bmm(h, p["wo"].to(cdt)).reshape(rows, D)
+    ye = torch.bmm(h, p["wo"].to(cdt)).reshape(n_slots, D)
 
     gate = torch.where(keep, top_g.to(cdt).to(acc).reshape(T * K), 0.0)
-    out = ye[slot.clamp(max=rows - 1)].to(acc) * gate[:, None]
+    out = ye[slot.clamp(max=n_slots - 1)].to(acc) * gate[:, None]
     out = out.reshape(T, K, D).sum(1).to(cdt).reshape(B, S, D)
 
     if cfg.n_shared_experts:

@@ -22,6 +22,13 @@ Training: ``forward`` / ``loss_fn`` take the reference's ``remat``
 products, ``"full"``: recompute everything) per layer through
 ``torch.utils.checkpoint``, and its ``constrain`` hooks.  Recomputation
 relaunches the forward kernels of the layer.
+
+Sharded steps (``launch/steps.py``) hand every pass the rank's parameter
+blocks and a ``gather`` hook (``distributed/tensor_parallel.BlockGather``)
+that makes a layer's tensors from them inside the layer's function, so a
+parameter is whole only while its layer runs; ``tp`` splits the attention
+(and in training the MLPs) over the "model" axis; the serving passes also
+take the rank's cache blocks and a ``layout`` that says how they split.
 """
 
 from __future__ import annotations
@@ -297,10 +304,17 @@ def _cache_entry(cfg: ModelConfig, cache, mixer: str, idx) -> dict:
     return {k: t[idx] for k, t in group.items()}
 
 
-def _embed(cfg, params, batch, cdt):
+def _top(params, name: str, gather):
+    """A top-level leaf, through ``gather`` where one is given."""
+    if gather is None:
+        return params[name]
+    return gather({name: params[name]})[name]
+
+
+def _embed(cfg, params, batch, cdt, gather=None):
     if cfg.embed_input:
         return batch["embeds"].to(cdt)
-    return params["embed"][batch["tokens"]].to(cdt)
+    return _top(params, "embed", gather)[batch["tokens"]].to(cdt)
 
 
 def _mixer_norm(cfg, p, x):
@@ -308,15 +322,16 @@ def _mixer_norm(cfg, p, x):
 
 
 def _attn_block(cfg, p, x, positions, window, attn_impl, tp=None):
-    """x + attention -> (x, k, v).  ``tp``: ``(into, out)``, applied to the
-    block's normed input and to its output projection (``forward``)."""
+    """x + attention -> (x, k, v).  ``tp``: the split, whose ``into`` and
+    ``out`` wrap the block's normed input and its output projection
+    (``forward``)."""
     h = _mixer_norm(cfg, p, x)
     if tp is not None:
-        h = tp[0](h)
+        h = tp.into(h)
     a, k, v = L.attn_forward(cfg, p["attn"], h, positions, window=window,
                              attn_impl=attn_impl)
     if tp is not None:
-        a = tp[1](a)
+        a = tp.out(a)
     return x + a, k, v
 
 
@@ -326,27 +341,35 @@ def _mamba_block(cfg, p, x, return_state=False):
     return x + y, state
 
 
-def _cross_block(cfg, p, x, image):
-    """x + tanh(gate) * cross attention -> (x, k, v of the image)."""
+def _cross_block(cfg, p, x, image, tp=None):
+    """x + tanh(gate) * cross attention -> (x, k, v of the image); ``tp``
+    as in ``_attn_block``."""
     h = L.rms_norm(x, p["lnx"], cfg.norm_eps)
+    if tp is not None:
+        h = tp.into(h)
     a, k, v = L.cross_attn_forward(cfg, p["xattn"], h, image)
+    if tp is not None:
+        a = tp.out(a)
     return x + torch.tanh(p["gate"].to(x.dtype)) * a, k, v
 
 
-def _ffn_block(cfg, p, x, tp=None):
+def _ffn_block(cfg, p, x, tp=None, rows=None):
     """The feed-forward half of a layer -> (x, aux loss); a pure mamba
     layer has none and returns x unchanged.  ``tp`` wraps a dense MLP as
-    it wraps attention (``_attn_block``); a MoE layer takes none."""
+    it wraps attention (``_attn_block``) where it splits the MLPs
+    (``tp.mlp``); a MoE layer takes none, and ``rows`` (``forward``)."""
+    tp = tp if tp is not None and tp.mlp else None
     if "moe" in p:
         f, aux = L.moe_ffn(cfg, p["moe"], L.rms_norm(x, p["ln2"],
-                                                     cfg.norm_eps))
+                                                     cfg.norm_eps),
+                           rows=rows)
     elif "mlp" in p:
         h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
         if tp is not None:
-            h = tp[0](h)
+            h = tp.into(h)
         f, aux = L.mlp(p["mlp"], h, cfg.mlp_type, x.dtype), 0.0
         if tp is not None:
-            f = tp[1](f)
+            f = tp.out(f)
     else:
         return x, 0.0
     return x + f, aux
@@ -386,19 +409,33 @@ def _remat(fn, policy: str):
 
 
 def forward(cfg: ModelConfig, params, batch, *, remat="dots",
-            attn_impl="flash", constrain=None, tp=None):
+            attn_impl="flash", constrain=None, tp=None, gather=None,
+            rows=None):
     """Training / scoring forward pass -> (logits [B, S, V] in the compute
     dtype, aux loss: the MoE layers' sum, float32).  ``remat`` is applied
     per layer (the reference's per scan body: a layer, or a hybrid block;
     the VLM cross layer is not recomputed, as there); ``constrain`` wraps
     the residual stream where the reference does (``_layers``' ``first``).
-    ``tp``: the tensor-parallel pair ``(into, out)`` of a sharded train
-    step (``distributed/tensor_parallel.py``), applied around every
-    attention and dense MLP block; None leaves the pass as it is."""
+    ``tp``: the tensor-parallel split of a sharded train step
+    (``distributed/tensor_parallel.py``), applied around every attention
+    and dense MLP block; None leaves the pass as it is.
+
+    ``gather``: a sharded step's hook from a tree of the rank's parameter
+    blocks to the tensors a layer computes with; it runs inside each
+    layer's (recomputed) function with the blocks as its argument, so
+    under remat "dots" and "full" the whole weights are not saved for the
+    backward and the recompute gathers again; under remat "none" the
+    products save the whole weights of every layer (as FSDP without a
+    reshard).  The embedding, final norm and head are gathered where they
+    are used.
+
+    ``rows``: a sharded step's hook where ``batch`` is the rank's rows of
+    a batch split over ranks, which the MoE layers group as the whole
+    batch (``layers.moe_ffn``)."""
     _check_family(cfg)
     cons = constrain if constrain is not None else (lambda a: a)
     cdt = _dtype(cfg.compute_dtype)
-    x = _embed(cfg, params, batch, cdt)
+    x = _embed(cfg, params, batch, cdt, gather)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     image = batch.get("image_embeds")
     if image is not None:
@@ -406,6 +443,8 @@ def forward(cfg: ModelConfig, params, batch, *, remat="dots",
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def layer_fn(mixer, window, first, x, lp):
+        if gather is not None:
+            lp = gather(lp)
         if first:
             x = cons(x)
         if mixer == "attn":
@@ -413,24 +452,47 @@ def forward(cfg: ModelConfig, params, batch, *, remat="dots",
                                   tp)
         else:
             x, _ = _mamba_block(cfg, lp, x)
-        return _ffn_block(cfg, lp, x, tp)
+        return _ffn_block(cfg, lp, x, tp, rows)
 
     for mixer, lp, window, _, first in _layers(cfg, params):
         if mixer == "cross":
+            if gather is not None:
+                lp = gather(lp)
             x, _, _ = _cross_block(cfg, lp, x, image)
-            x, aux = _ffn_block(cfg, lp, x, tp)
+            x, aux = _ffn_block(cfg, lp, x, tp, rows)
         else:
             x, aux = _remat(functools.partial(layer_fn, mixer, window, first),
                             remat)(x, lp)
         aux_total = aux_total + aux
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = x @ params["lm_head"].to(cdt)
+    x = L.rms_norm(x, _top(params, "final_norm", gather), cfg.norm_eps)
+    logits = x @ _top(params, "lm_head", gather).to(cdt)
     return logits, aux_total
+
+
+class _LogSumExp(torch.autograd.Function):
+    """``torch.logsumexp(x.to(float32), -1)`` whose backward keeps ``x``
+    rather than its float32 copy and builds exp(x - lse) * g in one
+    float32 buffer in place: autograd's own gradient, element for element
+    (the same subtraction, exp and product), with one float32 buffer of
+    the logits' size where autograd holds four."""
+
+    @staticmethod
+    def forward(ctx, x):
+        lse = torch.logsumexp(x.to(torch.float32), dim=-1)
+        ctx.save_for_backward(x, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lse = ctx.saved_tensors
+        t = x.to(torch.float32, copy=True)
+        t.sub_(lse[..., None]).exp_().mul_(g[..., None])
+        return t.to(x.dtype)
 
 
 def ce_loss(logits, labels, vocab_chunk=0):
     """Cross entropy in f32; optional vocab chunking to bound live
-    memory."""
+    memory.  Unchunked, the log-sum-exp is ``_LogSumExp``."""
     if vocab_chunk and logits.shape[-1] > vocab_chunk:
         V = logits.shape[-1]
         nc = math.ceil(V / vocab_chunk)
@@ -449,16 +511,18 @@ def ce_loss(logits, labels, vocab_chunk=0):
             m = m_new
         lse = m + torch.log(s)
     else:
-        lse = torch.logsumexp(logits.to(torch.float32), dim=-1)
+        lse = _LogSumExp.apply(logits)
     lab = torch.gather(logits, -1, labels[..., None].long())[..., 0].to(
         torch.float32)
     return (lse - lab).mean()
 
 
 def loss_fn(cfg, params, batch, *, remat="dots", attn_impl="flash",
-            vocab_chunk=0, aux_coef=0.01, constrain=None, tp=None):
+            vocab_chunk=0, aux_coef=0.01, constrain=None, tp=None,
+            gather=None, rows=None):
     logits, aux = forward(cfg, params, batch, remat=remat,
-                          attn_impl=attn_impl, constrain=constrain, tp=tp)
+                          attn_impl=attn_impl, constrain=constrain, tp=tp,
+                          gather=gather, rows=rows)
     return ce_loss(logits, batch["labels"], vocab_chunk) + aux_coef * aux
 
 
@@ -511,70 +575,127 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, *, device=None,
     return {"layers": kv(cfg.n_layers)}
 
 
-def decode_step(cfg: ModelConfig, params, cache, tokens, pos):
+# the cache leaves of attention layers
+KV_KEYS = ("k", "v", "xk", "xv")
+
+
+def put_kv(dst, value, start: int = 0):
+    """Copy positions ``start``.. of a layer's k or v ``value`` [B, S, KH,
+    hd] (from position 0) into the cache ``dst`` from its position 0, as
+    many as both hold (the cache may be longer than the prompt, or one
+    rank's block of a cache split by sequence from ``start``)."""
+    n = min(dst.shape[1], value.shape[1] - start)
+    if n > 0:
+        dst.narrow(1, 0, n).copy_(value.narrow(1, start, n))
+
+
+def _put(layout, key: str, dst, value):
+    """Write a layer's cache tensor ``value`` into its cache leaf ``dst``:
+    through ``layout.put`` under a sharded step, else in place."""
+    if layout is not None:
+        layout.put(key, dst, value)
+    elif key in KV_KEYS:
+        put_kv(dst, value)
+    else:
+        dst.copy_(value)
+
+
+def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
+                gather=None, tp=None, layout=None, rows=None):
     """One autoregressive step.  tokens: [B] integers; pos: int.
     Returns (next_tokens [B] int32, cache).  The cache is written IN PLACE
     (this token's k and v at ``pos``, each mamba layer's conv rows and
-    state) and returned; the reference returns an updated copy."""
+    state) and returned; the reference returns an updated copy.
+
+    A sharded serve step (``launch/steps.py``) passes the rank's rows of
+    ``tokens``, its parameter and cache blocks, ``gather`` as in
+    ``forward``, ``tp`` the attention split over "model" (``cfg`` then
+    holds the rank's head counts and the cache its kv heads) and
+    ``layout``: ``layout.kv(key)`` gives ``layers.attn_decode``'s keyword
+    arguments for a cache leaf split by sequence (the block's first
+    position and the merge of the ranks' parts), ``layout.read`` and
+    ``layout.put`` a mamba layer's states whole and the rank's block of
+    the new ones, and ``rows`` as ``forward``."""
     _check_family(cfg)
     pos = int(pos)
     cdt = _dtype(cfg.compute_dtype)
-    x = params["embed"][tokens].to(cdt)[:, None, :]
+    kv = (lambda key: {}) if layout is None else layout.kv
+    read = (lambda key, t: t) if layout is None else layout.read
+    x = _top(params, "embed", gather)[tokens].to(cdt)[:, None, :]
     for mixer, lp, window, idx, _ in _layers(cfg, params):
+        if gather is not None:
+            lp = gather(lp)
         c = _cache_entry(cfg, cache, mixer, idx)
         if mixer == "cross":
             h = L.rms_norm(x, lp["lnx"], cfg.norm_eps)
-            a = L.cross_attn_decode(cfg, lp["xattn"], h, c["xk"], c["xv"])
+            a = L.cross_attn_decode(cfg, lp["xattn"], h, c["xk"], c["xv"],
+                                    **kv("xk"))
+            if tp is not None:
+                a = tp.out(a)
             x, _ = _ffn_block(cfg, lp, x + torch.tanh(lp["gate"].to(x.dtype))
-                              * a)
+                              * a, rows=rows)
             continue
         h = _mixer_norm(cfg, lp, x)
         if mixer == "attn":
             a, _, _ = L.attn_decode(cfg, lp["attn"], h, c["k"], c["v"], pos,
-                                    window=window)
+                                    window=window, **kv("k"))
+            if tp is not None:
+                a = tp.out(a)
         else:
-            a, (conv, state) = L.mamba_layer(cfg, lp["mamba"], h,
-                                             conv_cache=c["conv"],
-                                             ssm_state=c["ssm"], decode=True)
-            c["conv"].copy_(conv)
-            c["ssm"].copy_(state)
-        x, _ = _ffn_block(cfg, lp, x + a)
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = (x[:, 0] @ params["lm_head"].to(cdt)).to(torch.float32)
+            a, (conv, state) = L.mamba_layer(
+                cfg, lp["mamba"], h, conv_cache=read("conv", c["conv"]),
+                ssm_state=read("ssm", c["ssm"]), decode=True)
+            _put(layout, "conv", c["conv"], conv)
+            _put(layout, "ssm", c["ssm"], state)
+        x, _ = _ffn_block(cfg, lp, x + a, rows=rows)
+    x = L.rms_norm(x, _top(params, "final_norm", gather), cfg.norm_eps)
+    logits = (x[:, 0] @ _top(params, "lm_head", gather).to(cdt)).to(
+        torch.float32)
     return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
 
-def prefill(cfg: ModelConfig, params, batch, *, attn_impl="flash"):
+def prefill(cfg: ModelConfig, params, batch, *, attn_impl="flash",
+            gather=None, tp=None, cache=None, layout=None, rows=None):
     """Prefill pass: forward over S tokens -> (last logits [B, V] float32,
-    the decode cache of ``init_cache(cfg, B, S)`` filled: every attention
-    layer's k and v, every mamba layer's last conv rows and final state,
-    every cross layer's image k and v)."""
+    the decode cache filled: every attention layer's k and v, every mamba
+    layer's last conv rows and final state, every cross layer's image k
+    and v).  ``cache``: the cache to fill, by default ``init_cache(cfg, B,
+    S)``; it may be longer than S (its later positions stay as they are).
+    A sharded prefill step passes ``gather``, ``tp`` and ``rows`` as
+    ``decode_step`` does, the rank's cache blocks and ``layout``, whose ``put`` writes the
+    rank's block of each layer's cache tensors (computed for the rank's
+    rows, whole over "model" but for the split heads)."""
     _check_family(cfg)
     cdt = _dtype(cfg.compute_dtype)
-    x = _embed(cfg, params, batch, cdt)
+    x = _embed(cfg, params, batch, cdt, gather)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None, :]
     image = batch.get("image_embeds")
     if image is not None:
         image = image.to(cdt)
-    cache = init_cache(cfg, B, S, device=x.device)
+    if cache is None:
+        cache = init_cache(cfg, B, S, device=x.device)
     for mixer, lp, window, idx, _ in _layers(cfg, params):
+        if gather is not None:
+            lp = gather(lp)
         c = _cache_entry(cfg, cache, mixer, idx)
         if mixer == "cross":
-            x, k, v = _cross_block(cfg, lp, x, image)
-            c["xk"].copy_(k)
-            c["xv"].copy_(v)
+            x, k, v = _cross_block(cfg, lp, x, image, tp)
+            _put(layout, "xk", c["xk"], k)
+            _put(layout, "xv", c["xv"], v)
         elif mixer == "attn":
-            x, k, v = _attn_block(cfg, lp, x, positions, window, attn_impl)
-            c["k"].copy_(k)
-            c["v"].copy_(v)
+            x, k, v = _attn_block(cfg, lp, x, positions, window, attn_impl,
+                                  tp)
+            _put(layout, "k", c["k"], k)
+            _put(layout, "v", c["v"], v)
         else:
             x, (conv, state) = _mamba_block(cfg, lp, x, return_state=True)
-            c["conv"].copy_(conv)
-            c["ssm"].copy_(state)
-        x, _ = _ffn_block(cfg, lp, x)
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = (x[:, -1] @ params["lm_head"].to(cdt)).to(torch.float32)
+            _put(layout, "conv", c["conv"], conv)
+            _put(layout, "ssm", c["ssm"], state)
+        x, _ = _ffn_block(cfg, lp, x, rows=rows)
+    x = L.rms_norm(x, _top(params, "final_norm", gather), cfg.norm_eps)
+    logits = (x[:, -1] @ _top(params, "lm_head", gather).to(cdt)).to(
+        torch.float32)
     return logits, cache
 
 

@@ -5,6 +5,7 @@ rank-local state, the CLI on the reference's test cell, the roofline
 terms, and imports free of jax and the reference."""
 
 import collections
+import dataclasses
 import json
 import os
 import subprocess
@@ -23,6 +24,10 @@ from repro_torch.launch import dryrun, mesh as meshlib, steps
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(REPO, "src")
 MESH = (4, 4)
+# the reference's arguments per device of deepseek-moe-16b x decode_32k x
+# single pod, remat full: ``argument_size_in_bytes`` of the record its
+# system test writes (``tests/test_system.py``: results/dryrun_testcell.json)
+REFERENCE_ARG_BYTES = 3_890_630_692
 
 
 def _local_bytes(t, spec, mesh) -> int:
@@ -34,15 +39,36 @@ def _local_bytes(t, spec, mesh) -> int:
 def _gather_bytes(shape, dtype, spec, mesh) -> int:
     """Operand bytes of gathering a leaf whole: one all-gather per mesh
     axis it is sharded over, each on what the ones before it gathered."""
-    total, n_all = 0, 1
-    axes = shd.sharded_axes(spec, mesh)
-    for a in axes:
-        n_all *= mesh.shape[a]
-    block = torch.Size(shape).numel() * dtype.itemsize // n_all
-    for a in axes:
-        total += block
-        block *= mesh.shape[a]
-    return total
+    return _moved(shape, dtype, spec, mesh,
+                  shd.sharded_axes(spec, mesh), ())[0]
+
+
+def _moved(shape, dtype, spec, mesh, gathered, summed) -> tuple:
+    """(all-gather, reduce-scatter, all-reduce) operand bytes of a leaf at
+    ``spec`` gathered over the axes ``gathered`` and whose gradient is
+    summed over ``summed``, by the design: the forward all-gathers the
+    rank's block over each gathered axis in turn; the backward slices the
+    whole gradient over the gathered axes not summed, reduce-scatters it
+    over the gathered axes summed, then all-reduces the block over the
+    summed axes the spec does not shard."""
+    size = torch.Size(shape).numel() * dtype.itemsize
+    for a in shd.sharded_axes(spec, mesh):
+        size //= mesh.shape[a]
+    ag = rs = ar = 0
+    for a in gathered:
+        ag += size
+        size *= mesh.shape[a]
+    for a in gathered:
+        if a not in summed:
+            size //= mesh.shape[a]
+    for a in gathered:
+        if a in summed:
+            rs += size
+            size //= mesh.shape[a]
+    for a in summed:
+        if a not in shd.sharded_axes(spec, mesh):
+            ar += size
+    return ag, rs, ar
 
 
 def _param_leaves(cfg, policy, dtype=None):
@@ -70,6 +96,32 @@ def _cell(arch, shape_name, **hp):
     return rec, get_config(arch).reduced(), shd.ShardingPolicy(mesh), mesh
 
 
+def _rank_rows(arch, shape_name, **hp) -> dict:
+    """The memory record of the unsharded step on one rank's rows of the
+    batch: its peak over its arguments is the activations (and whole
+    gradients) the sharded step's bound allows."""
+    cfg = get_config(arch).reduced()
+    shape = SHAPES[shape_name]
+    rows = dataclasses.replace(shape,
+                               global_batch=shape.global_batch // MESH[0])
+    return dryrun.lower_cell(arch, shape_name, None, steps.HParams(**hp),
+                             device="cpu", cfg=cfg, shape=rows)["memory"]
+
+
+def _layer_bytes(cfg, dtype=None) -> int:
+    """Bytes of one layer's parameters whole (the largest layer)."""
+    from repro_torch.models import zoo
+    per = collections.Counter()
+    for path, ps in tree_items(zoo.model_template(cfg)):
+        dt = getattr(torch, ps.dtype)
+        if dtype is not None and dt == torch.float32:
+            dt = dtype
+        n = torch.Size(ps.shape).numel() * dt.itemsize
+        if ps.logical[:1] == ("stack",):
+            per[path[0]] += n // ps.shape[0]
+    return max(per.values())
+
+
 def _batch_local(cfg, shape, policy, mesh) -> int:
     from repro_torch.models import zoo
     specs = steps.batch_specs(cfg, shape, policy)
@@ -78,37 +130,62 @@ def _batch_local(cfg, shape, policy, mesh) -> int:
                if k != "pos")
 
 
+# qwen3's tensor-parallel split on the (4, 4) mesh (one q head a rank, its
+# one kv head replicated): the leaves whose "model" block is the rank's
+# split block are gathered over "data" alone; k and v (a kv head spans
+# four "model" blocks) and the q / k norms a split block uses whole have
+# their gradients summed over "model" too
+_SPLIT = {("attn", "q"), ("attn", "o"), ("mlp", "wi"), ("mlp", "wg"),
+          ("mlp", "wo")}
+_SUM_MODEL = {("attn", "k"), ("attn", "v"), ("attn", "qn"), ("attn", "kn")}
+
+
 @pytest.mark.parametrize("arch,remat,tp_reduces", [
     ("mamba2-2.7b", "dots", 0), ("qwen3-8b", "none", 4),
     ("qwen3-8b", "dots", 5)])
 def test_train_cell(arch, remat, tp_reduces):
-    """The train step's collectives: every parameter's block gathered
-    whole, the loss and every whole float32 gradient all-reduced over
-    "data".  With the tensor-parallel split (qwen3) also, per layer, each
-    split block's output all-reduced over "model" in the forward and its
-    input's gradient in the backward (4); under remat "dots" the
-    recompute adds the attention block's (the non-reentrant checkpoint
-    stops once it has what the backward saved, before the MLP's); and
-    each leaf of a split block summed over "model" whole.  Arguments: the
-    rank-local params and moments, the step, the rank's rows of the
-    batch."""
+    """The train step's collectives, counted by hand for the step that
+    holds shards (``_moved``): each layer's blocks all-gathered in the
+    layer's function (again in the recompute under remat "dots"), the
+    embedding and head where they are used; in the backward each
+    gradient reduce-scattered into its block over "data" (sliced over
+    "model" where its ranks computed the same), a replicated leaf's
+    all-reduced; the loss and the norm's group sums all-reduced.  No whole
+    gradient is all-reduced.  With the tensor-parallel split (qwen3) also,
+    per layer, each split block's output all-reduced over "model" in the
+    forward and its input's gradient in the backward (4); under remat
+    "dots" the recompute adds the attention block's (the non-reentrant
+    checkpoint stops once it has what the backward saved, before the
+    MLP's).  Arguments: the rank-local params and moments, the step, the
+    rank's rows of the batch.  Peak: at most the arguments, plus one layer
+    gathered whole, plus the activations: the peak over its arguments of
+    the unsharded step on one rank's rows (``_rank_rows``)."""
     rec, cfg, policy, mesh = _cell(arch, "train_4k", remat=remat)
     shape = SHAPES["train_4k"]
     leaves = _param_leaves(cfg, policy)
-    gathers = sum(_gather_bytes(s, dt, sp, mesh) for _, s, dt, sp in leaves)
-    grads = sum(4 * torch.Size(s).numel() for _, s, _, _ in leaves)
-    reduce_ = grads + 4
+    ag = rs = ar = 0
+    for path, s, dt, sp in leaves:
+        live = shd.sharded_axes(sp, mesh)
+        if tp_reduces and path[-2:] in _SPLIT:
+            gathered, summed = [a for a in live if a != "model"], ("data",)
+        elif tp_reduces and path[-2:] in _SUM_MODEL:
+            gathered, summed = live, ("data", "model")
+        else:
+            gathered, summed = live, ("data",)
+        g, r, a = _moved(s, dt, sp, mesh, gathered, summed)
+        again = remat != "none" and path[0] == "layers"
+        ag, rs, ar = ag + (2 if again else 1) * g, rs + r, ar + a
+    groups = {tuple(shd.sharded_axes(sp, mesh)) for *_, sp in leaves}
+    ar += 4 + 4 * len(groups) * len(mesh.shape)
     if tp_reduces:
         rows = shape.global_batch // MESH[0]
         act = rows * shape.seq_len * cfg.d_model * torch.bfloat16.itemsize
-        reduce_ += tp_reduces * cfg.n_layers * act
-        reduce_ += sum(4 * torch.Size(s).numel() for p, s, _, _ in leaves
-                       if p[-2:-1] == ("attn",) or p[-2:] in (
-                           ("mlp", "wi"), ("mlp", "wg"), ("mlp", "wo")))
+        ar += tp_reduces * cfg.n_layers * act
     c = rec["hlo_cost"]["collectives"]
-    assert c["all-gather"]["bytes"] == gathers
-    assert c["all-reduce"]["bytes"] == reduce_
-    assert rec["hlo_cost"]["collective_bytes"] == gathers + reduce_
+    assert c["all-gather"]["bytes"] == ag
+    assert c["reduce-scatter"]["bytes"] == rs
+    assert c["all-reduce"]["bytes"] == ar
+    assert rec["hlo_cost"]["collective_bytes"] == ag + rs + ar
     state = 3 * sum(_local_bytes(torch.empty(s, device="meta"), sp, mesh)
                     for _, s, _, sp in leaves)
     assert rec["memory"]["argument_size_in_bytes"] == \
@@ -123,27 +200,47 @@ def test_train_cell(arch, remat, tp_reduces):
     assert mem["peak_memory_in_bytes"] == (
         mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
         + mem["output_size_in_bytes"] - state)
+    one = _rank_rows(arch, "train_4k", remat=remat)
+    assert mem["peak_memory_in_bytes"] <= mem["argument_size_in_bytes"] + \
+        _layer_bytes(cfg) + one["peak_memory_in_bytes"] \
+        - one["argument_size_in_bytes"]
 
 
 def test_prefill_and_decode_cells():
-    """Prefill gathers every parameter whole (bf16), then its logits and
-    each cache leaf by rows over "data"; decode gathers the parameters,
-    every cache leaf's rows and the next tokens.  Decode's arguments hold
-    the whole cache on every rank."""
+    """Serving holds the cache at ``cache_specs`` (reduced qwen3: one kv
+    head, so its sequence splits over "model").  Prefill gathers each
+    layer's blocks whole (bf16) where it runs and the logits' rows over
+    "data", and no cache leaf; decode gathers the parameters and the next
+    tokens, and all-reduces each attention layer's partial max and
+    weighted sums over "model" (the lse merge), and moves no cache block.
+    Arguments: parameter blocks plus, for decode, cache blocks (and the
+    whole tokens).  Peak: at most the arguments, plus one layer gathered
+    whole, plus the activations of the unsharded step on one rank's
+    rows."""
     rec, cfg, policy, mesh = _cell("qwen3-8b", "prefill_32k")
     leaves = _param_leaves(cfg, policy, torch.bfloat16)
     gathers = sum(_gather_bytes(s, dt, sp, mesh) for _, s, dt, sp in leaves)
     shape = SHAPES["prefill_32k"]
     rows = shape.global_batch // MESH[0]
-    kv = cfg.n_layers * rows * shape.seq_len * cfg.n_kv_heads \
-        * cfg.head_dim * 2
     logits = rows * cfg.vocab_size * 4
-    assert rec["hlo_cost"]["collectives"]["all-gather"]["bytes"] == \
-        gathers + logits + 2 * kv
+    c = rec["hlo_cost"]["collectives"]
+    assert c["all-gather"]["bytes"] == gathers + logits
+    assert c["all-reduce"]["count"] == c["reduce-scatter"]["count"] == 0
     params = sum(_local_bytes(torch.empty(s, dtype=dt, device="meta"), sp,
                               mesh) for _, s, dt, sp in leaves)
-    assert rec["memory"]["argument_size_in_bytes"] == \
+    mem = rec["memory"]
+    assert mem["argument_size_in_bytes"] == \
         params + _batch_local(cfg, shape, policy, mesh)
+    kv = cfg.n_layers * rows * shape.seq_len * cfg.n_kv_heads \
+        * cfg.head_dim * 2
+    # the rank's blocks of the new cache (rows over "data", the sequence
+    # over "model") and the whole logits
+    assert mem["output_size_in_bytes"] == \
+        2 * kv // MESH[1] + shape.global_batch * cfg.vocab_size * 4
+    one = _rank_rows("qwen3-8b", "prefill_32k")
+    layer = _layer_bytes(cfg, torch.bfloat16)
+    assert mem["peak_memory_in_bytes"] <= mem["argument_size_in_bytes"] + \
+        layer + one["peak_memory_in_bytes"] - one["argument_size_in_bytes"]
     assert rec["kernel_calls"] == {"flash_attention_fwd": cfg.n_layers}
 
     rec, *_ = _cell("qwen3-8b", "decode_32k")
@@ -151,11 +248,18 @@ def test_prefill_and_decode_cells():
     rows = shape.global_batch // MESH[0]
     kv = cfg.n_layers * rows * shape.seq_len * cfg.n_kv_heads \
         * cfg.head_dim * 2
-    assert rec["hlo_cost"]["collectives"]["all-gather"]["bytes"] == \
-        gathers + 2 * kv + 4 * rows
-    whole = 2 * MESH[0] * kv
-    assert rec["memory"]["argument_size_in_bytes"] == \
-        params + whole + 4 * shape.global_batch
+    c = rec["hlo_cost"]["collectives"]
+    assert c["all-gather"]["bytes"] == gathers + 4 * rows
+    heads = rows * cfg.n_heads
+    assert c["all-reduce"]["bytes"] == cfg.n_layers * 4 * (
+        heads + heads * cfg.head_dim + heads)
+    assert c["reduce-scatter"]["count"] == 0
+    mem = rec["memory"]
+    assert mem["argument_size_in_bytes"] == \
+        params + 2 * kv // MESH[1] + 4 * shape.global_batch
+    one = _rank_rows("qwen3-8b", "decode_32k")
+    assert mem["peak_memory_in_bytes"] <= mem["argument_size_in_bytes"] + \
+        layer + one["peak_memory_in_bytes"] - one["argument_size_in_bytes"]
     assert rec["kernel_calls"] == {} and rec["tokens"] == shape.global_batch
 
 
@@ -238,7 +342,11 @@ def test_cli_on_the_references_test_cell(tmp_path):
         jcfg.count_params(), jcfg.count_active_params(), 128)
     assert rec["hp"]["remat"] == "full" and rec["hp"]["attn_impl"] == \
         "pallas"
-    assert rec["fits_hbm"] is False
+    # the cache split 256 ways and a parameter shard, as the reference's
+    # own record of the cell (``REFERENCE_ARG_BYTES``)
+    got = rec["memory"]["argument_size_in_bytes"]
+    assert abs(got / REFERENCE_ARG_BYTES - 1) <= 0.05
+    assert rec["fits_hbm"] is True
     assert "[dryrun]" in r.stderr + r.stdout
 
 

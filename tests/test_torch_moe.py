@@ -11,10 +11,13 @@ evaluation (bf16-rounded inputs and weights) may be at most twice the
 reference's, and the aux loss is held within 1e-5.
 Cases: dropping (a small ``capacity_factor``), several groups (a small
 ``group_tokens``), decode size (T = B), shared experts on and off, and
-tied gates (``lax.top_k`` takes the lower index first).
+tied gates (``lax.top_k`` takes the lower index first).  Under a sharded
+step each rank holds some rows of the batch (the ``rows`` hook): the
+ranks' outputs, put together, are the reference's on the whole batch.
 """
 
 import dataclasses
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -141,3 +144,54 @@ def test_ragged_group_fails_as_the_reference_does():
         jlayers.moe_ffn(jcfg, jp, jnp.asarray(x), group_tokens=3)
     with pytest.raises(ValueError, match="groups"):
         tlayers.moe_ffn(tcfg, tp, torch.from_numpy(x), group_tokens=3)
+
+
+class _ThreadRows:
+    """``moe_ffn``'s ``rows`` hook for ``n`` threads, one rank's rows
+    each: ``whole`` exchanges the ranks' tensors through a barrier."""
+
+    def __init__(self, n, index, slots, barrier, calls):
+        self.n, self.index = n, index
+        self.slots, self.barrier, self.calls = slots, barrier, calls
+
+    def whole(self, t):
+        self.calls.append(self.index)
+        self.slots[self.index] = t
+        self.barrier.wait()
+        out = torch.cat(self.slots)
+        self.barrier.wait()
+        return out
+
+
+@pytest.mark.parametrize("n,B,S,kw,spans", [
+    # rank 1's 8 tokens straddle the two groups of 12
+    (3, 3, 8, {"group_tokens": 12, "capacity_factor": 0.7}, True),
+    (4, 4, 1, {}, True),                                   # decode size
+    (2, 4, 4, {"group_tokens": 8}, False),                 # groups local
+])
+def test_rank_rows_group_as_the_whole_batch(n, B, S, kw, spans):
+    """Each of ``n`` ranks runs its B / n rows with the ``rows`` hook: the
+    outputs, concatenated, are the reference's on the whole batch within
+    1e-5 (fp32), tokens dropped alike; the ranks exchange their expert
+    choices only where a group spans ranks."""
+    jcfg, tcfg, jp, tp = _setup("deepseek-moe-16b", "float32")
+    x = np.random.default_rng(5).standard_normal(
+        (B, S, tcfg.d_model)).astype(np.float32)
+    want, _ = jlayers.moe_ffn(jcfg, jp, jnp.asarray(x), **kw)
+    parts, calls = [None] * n, []
+    slots, barrier = [None] * n, threading.Barrier(n)
+
+    def rank(r):
+        rows = _ThreadRows(n, r, slots, barrier, calls)
+        block = torch.from_numpy(x).chunk(n)[r]
+        parts[r], _ = tlayers.moe_ffn(tcfg, tp, block, rows=rows, **kw)
+
+    threads = [threading.Thread(target=rank, args=(r,)) for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    got = torch.cat(parts).double().numpy()
+    want = np.asarray(want, np.float64)
+    assert _scaled(got, want) <= 1e-5
+    assert sorted(calls) == (list(range(n)) if spans else [])

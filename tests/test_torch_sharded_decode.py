@@ -1,0 +1,124 @@
+"""Sharded prefill and decode that keep the cache at ``cache_specs`` on
+four gloo ranks (a 2 x 2 ("data", "model") mesh): each rank holds and
+writes its blocks of the cache alone.
+
+Two layouts: the kv heads split over "model" (reduced gemma3: two kv
+heads, local windows) and the sequence split over it (reduced qwen3: one
+kv head, a window of 8 in its first layer, so that a rank's whole block
+falls outside the window).  The other families run through both: reduced
+jamba (mamba states split over "model", gathered a layer at a time and
+their blocks written back; MoE layers; its one kv head splits the
+sequence), the reduced VLM with two kv heads (self and cross layers split
+by heads) and with its one (the cached patch keys and values split by
+sequence, merged over "model"), reduced deepseek-moe (MoE layers under the
+attention-only head split) and reduced musicgen (an embedding prompt).
+
+Every rank builds the parameters and the prompt from the same seeds, runs
+the unsharded steps itself and holds the sharded ones to them: greedy
+tokens ``torch.equal``, the prefill's last logits within 1e-5 of
+max|logits|, each rank's cache block within 1e-5 of max|cache| of the
+matching block of the unsharded cache after the prefill and after each
+decode step, no cache leaf larger than its block, and no collective of a
+decode step reading or writing an attention cache block.
+"""
+
+import pytest
+
+from test_torch_sharding import run_ranks
+
+# case -> (arch, overrides of its reduced config, how the kv cache splits
+# over "model")
+_CASES = {
+    "heads": ("gemma3-4b", {}, "heads"),
+    "sequence": ("qwen3-8b", {"sliding_window": 8, "global_every": 2},
+                 "sequence"),
+    "hybrid": ("jamba-v0.1-52b", {}, "sequence"),
+    "vlm-heads": ("llama-3.2-vision-90b", {"n_kv_heads": 2}, "heads"),
+    "vlm-sequence": ("llama-3.2-vision-90b", {}, "sequence"),
+    "moe-heads": ("deepseek-moe-16b", {}, "heads"),
+    "embeds": ("musicgen-medium", {}, "heads"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_CASES))
+def test_prefill_then_decode_hold_cache_blocks(case):
+    arch, over, layout = _CASES[case]
+    outs = run_ranks(f"""
+import dataclasses
+import numpy as np
+from torch.distributed.tensor import DTensor
+from torch.utils._pytree import tree_flatten
+from torch.utils._python_dispatch import TorchDispatchMode
+from repro_torch.checkpoint.ckpt import tree_items
+from repro_torch.configs import get_config
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch import steps
+from repro_torch.models import zoo
+
+cfg = dataclasses.replace(get_config({arch!r}).reduced(),
+                          compute_dtype="float32", **{over!r})
+hp = steps.HParams(attn_impl="flash")
+params = steps.init_state(cfg, 0, device="cpu")["params"]
+prompt = {{k: v for k, v in zoo.make_inputs(cfg, 4, 3, seq=12,
+                                           device="cpu").items()
+          if k != "labels"}}
+mesh = shd.make_mesh((2, 2), ("data", "model"))
+pol = shd.ShardingPolicy(mesh)
+placed = steps.place(params, steps.param_specs(cfg, pol), mesh)
+
+
+class Moved(TorchDispatchMode):
+    # the storages every collective reads or writes
+    def __init__(self):
+        super().__init__()
+        self.storages = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.namespace in ("c10d", "_c10d_functional"):
+            for t in tree_flatten((args, kwargs))[0]:
+                if isinstance(t, torch.Tensor):
+                    self.storages.add(t.untyped_storage().data_ptr())
+        return func(*args, **(kwargs or {{}}))
+
+
+want_l, want_c = steps.build_prefill_step(cfg, hp)(params, prompt,
+                                                   cache_len=16)
+got_l, got_c = steps.build_prefill_step(cfg, hp, pol)(placed, prompt,
+                                                      cache_len=16)
+scale = float(want_l.abs().max())
+assert float((got_l - want_l).abs().max()) <= 1e-5 * scale, \
+    float((got_l - want_l).abs().max()) / scale
+specs = steps._spec_leaves(steps.cache_specs(cfg, pol, want_c))
+layout = steps.CacheLayout(cfg, pol, want_c)
+split = "heads" if layout.tp is not None else "sequence"
+assert split == {layout!r}, split
+
+
+def check(when):
+    for (k, w), (_, g), spec in zip(tree_items(want_c), tree_items(got_c),
+                                    specs):
+        want = shd.local_shard(w, spec, mesh)
+        assert isinstance(g, DTensor) and g.shape == w.shape, k
+        block = g.to_local()
+        assert block.shape == want.shape and block.numel() * 4 == w.numel(), \\
+            (k, block.shape, w.shape)
+        err = float((block - want).abs().max())
+        assert err <= 1e-5 * float(w.abs().max()), (when, k, err)
+
+
+check("prefill")
+blocks = {{g.to_local().untyped_storage().data_ptr()
+          for k, g in tree_items(got_c) if k[-1] in zoo.KV_KEYS}}
+one = steps.build_serve_step(cfg, hp)
+sharded = steps.build_serve_step(cfg, hp, pol)
+t1 = t2 = torch.argmax(want_l, -1).to(torch.int32)
+for pos in range(12, 16):
+    t1, _ = one(params, want_c, t1, pos)
+    with Moved() as moved:
+        t2, _ = sharded(placed, got_c, t2, pos)
+    assert torch.equal(t1, t2), (pos, t1, t2)
+    assert moved.storages and blocks and not moved.storages & blocks, pos
+    check(pos)
+print("DECODE_OK", split)
+""", 4)
+    assert all(o.split() == ["DECODE_OK", layout] for o in outs)

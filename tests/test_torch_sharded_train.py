@@ -15,6 +15,7 @@ to the reference in ``test_torch_train.py``.
 import os
 
 import numpy as np
+import pytest
 import torch
 
 from repro_torch.checkpoint import ckpt as C
@@ -23,6 +24,7 @@ from repro_torch.launch import steps
 from test_torch_sharding import run_ranks
 
 _MODEL = """
+import collections
 import dataclasses
 import numpy as np
 from repro_torch.checkpoint.ckpt import tree_items
@@ -80,7 +82,8 @@ for group in ("params", "opt"):
         np.testing.assert_allclose(y.full_tensor().numpy(), x.numpy(),
                                    rtol=2e-4, atol=1e-6)
 
-# prefill and decode: rows split over "data", the outputs gathered
+# prefill and decode: rows split over "data", the cache at cache_specs
+# (its sequence over "model": one kv head), the logits and tokens whole
 params = tree_map(torch.clone, state["params"])
 pl = steps.place_state(copy(state), cfg, pol)["params"]
 pb = {"tokens": batch["tokens"]}
@@ -90,9 +93,12 @@ np.testing.assert_allclose(got_l.numpy(), want_l.numpy(), rtol=1e-5,
                            atol=1e-5)
 for (k, x), (_, y) in zip(tree_items(want_c),
                           tree_items(got_c)):
-    np.testing.assert_allclose(y.numpy(), x.numpy(), rtol=1e-5, atol=1e-5)
+    assert isinstance(y, DTensor) and y.to_local().numel() * 4 == x.numel()
+    np.testing.assert_allclose(y.full_tensor().numpy(), x.numpy(),
+                               rtol=1e-5, atol=1e-5)
 cache = zoo.init_cache(cfg, 4, 40, device="cpu")
-cache2 = zoo.init_cache(cfg, 4, 40, device="cpu")
+cache2 = steps.place(zoo.init_cache(cfg, 4, 40, device="cpu"),
+                     steps.cache_specs(cfg, pol, cache), pol.mesh)
 tok = batch["tokens"][:, 0]
 for pos in range(3):
     t1, _ = steps.build_serve_step(cfg, hp)(params, cache, tok, pos)
@@ -100,12 +106,65 @@ for pos in range(3):
     assert torch.equal(t1, t2), (t1, t2)
     for (k, x), (_, y) in zip(tree_items(cache),
                               tree_items(cache2)):
-        np.testing.assert_allclose(y.numpy(), x.numpy(), rtol=1e-5,
-                                   atol=1e-5)
+        np.testing.assert_allclose(y.full_tensor().numpy(), x.numpy(),
+                                   rtol=1e-5, atol=1e-5)
     tok = t1
 print("SHARDED_OK", float(m1["loss"]), float(m2["loss"]))
 """, 4)
     assert all(o.startswith("SHARDED_OK") for o in outs)
+
+
+@pytest.mark.parametrize("remat,accum", [("none", 1), ("dots", 1),
+                                         ("full", 1), ("dots", 2)])
+def test_block_step_matches_one_rank(remat, accum):
+    """The 2 x 2 ("data", "model") step that holds shards: each layer's
+    blocks gathered inside its (recomputed) function, the gradients
+    reduce-scattered into the blocks, the norm summed over the blocks,
+    AdamW on the blocks.  Under remat "none", "dots" and "full" and with
+    2 microbatches (reduced qwen3, fp32, its kv head replicated over
+    "model"): loss rtol 1e-5, grad norm rtol 1e-4 and the parameters and
+    moments after AdamW within 1e-5 of one rank's; no rank holds more
+    than its blocks, and the backward moves the gradients by
+    reduce-scatter."""
+    outs = run_ranks(_MODEL + f"""
+from torch.distributed.tensor import DTensor
+calls = collections.Counter()
+real = shd._fc()
+
+
+class Spy:
+    # the functional collectives, each call counted
+    def __getattr__(self, name):
+        def call(*args):
+            calls[name] += 1
+            return getattr(real, name)(*args)
+        return call
+
+
+shd._fc = Spy
+h = dataclasses.replace(hp, remat={remat!r}, accum={accum})
+one, m1 = steps.build_train_step(cfg, h)(copy(state), batch)
+mesh = shd.make_mesh((2, 2), ("data", "model"))
+pol = shd.ShardingPolicy(mesh)
+placed = steps.place_state(copy(state), cfg, pol)
+new, m2 = steps.build_train_step(cfg, h, pol)(placed, batch)
+np.testing.assert_allclose(float(m2["loss"]), float(m1["loss"]), rtol=1e-5)
+np.testing.assert_allclose(float(m2["grad_norm"]), float(m1["grad_norm"]),
+                           rtol=1e-4)
+assert calls["all_gather_into_tensor"] > 0
+assert calls["reduce_scatter_tensor"] > 0
+specs = steps._spec_leaves(steps.param_specs(cfg, pol))
+for a, b in ((one["params"], new["params"]),
+             (one["opt"]["mu"], new["opt"]["mu"]),
+             (one["opt"]["nu"], new["opt"]["nu"])):
+    for (k, x), y, spec in zip(tree_items(a), steps._leaves(b), specs):
+        assert isinstance(y, DTensor)
+        assert y.to_local().shape == shd.local_shard(x, spec, mesh).shape
+        np.testing.assert_allclose(y.full_tensor().numpy(), x.numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=str(k))
+print("BLOCK_OK", dict(calls))
+""", 4)
+    assert all(o.startswith("BLOCK_OK") for o in outs)
 
 
 def test_tensor_parallel_step_matches_one_rank():
