@@ -194,13 +194,16 @@ Phases (any failure exits non-zero; nothing is caught):
      traced unsharded and on a 1 x 1 mesh of a one-rank fake process group
      (predicted peak within 15% of phase 11's ``max_memory_allocated``,
      predicted kernel calls equal to its launches per step, FLOPs beside
-     the closed form), then the CLI in a subprocess on qwen3-8b x
-     train_4k and the reference's test cell deepseek-moe-16b x decode_32k
-     (remat full) over 256 fake ranks: per-rank arguments, temporaries
-     and peak beside the whole-state design's, collective bytes by kind,
-     the fit in 80 GB, the dominant roofline term; it fails unless the
-     decode cell fits 80 GB with arguments within 1.05x the reference's
-     and the training cell's peak is at most 180 GB;
+     the closed form), then the CLI, one subprocess a cell, all at once,
+     on qwen3-8b x train_4k, the reference's test cell deepseek-moe-16b x
+     decode_32k (remat full) and deepseek-moe-16b x train_4k over 256
+     fake ranks: per-rank arguments, temporaries, peak, FLOPs and
+     collective bytes by kind beside the parent commit's (before the
+     "model" axis split the head, the cross entropy and the experts), the
+     fit in 80 GB, the dominant roofline term; it fails unless qwen3's
+     training peak is at most 100 GB, the decode cell fits 80 GB with
+     arguments within 1.05x the reference's and all-gathers at most 0.5
+     GB, and deepseek's training cell fits 80 GB;
   14. the launches of every kernel on each path, counted from 0 just before
      the path and read just after it: phase 4 must launch region,
      fused_chain, stream_matmul and siren_layer, phase 5 region_stacked
@@ -2841,22 +2844,35 @@ def sharding_phase(log, torch, dev, cfg, f, params, fleet, coords, fused_cfg,
 REFERENCE_TESTCELL_ARG_BYTES = 3_890_630_692
 DRYRUN_CELLS = [["--arch", "qwen3-8b", "--shape", "train_4k"],
                 ["--arch", "deepseek-moe-16b", "--shape", "decode_32k",
-                 "--remat", "full"]]
+                 "--remat", "full"],
+                ["--arch", "deepseek-moe-16b", "--shape", "train_4k"]]
 DRYRUN_TIMEOUT_S = 300
-# the same cells when the sharded steps held parameters, gradients and the
-# cache whole on every rank (per-rank bytes, chip_smoke.py phase 13 at
-# commit cbfd491, NVIDIA H100 80GB HBM3, 700 W), and the gates of steps
-# that hold shards: the decode cell within 80 GB and within 1.05x the
-# reference's arguments; the training cell's peak within 5% over the
-# 171.537 GB that steps holding shards give it (phase 13, NVIDIA H100
-# 80GB HBM3, 700 W), below the ~199 GB it would reach if each layer's
-# gather went back to whole float32 weights (0.772 GB a layer more, 36
-# layers)
-WHOLE_STATE_DRYRUN = {"qwen3-8b": {"arguments": 0.388e9, "peak": 283.957e9},
-                      "deepseek-moe-16b": {"arguments": 962.205e9,
-                                           "peak": 1958.037e9}}
+# the same cells at commit 359ecfb, when the head, the logits and the
+# experts were whole over "model" on every rank (per-rank bytes and FLOPs,
+# chip_smoke.py phase 13 and ``python -m repro_torch.launch.dryrun --all
+# --mesh single`` on fake CUDA tensors, NVIDIA H100 80GB HBM3, 700 W)
+PARENT_DRYRUN = {
+    ("qwen3-8b", "train_4k"): {
+        "arguments": 0.388e9, "peak": 171.537e9, "flops": 4.4608e14,
+        "all-gather": 6.9866e8, "all-reduce": 9.6638e10,
+        "reduce-scatter": 3.2556e9},
+    ("deepseek-moe-16b", "decode_32k"): {
+        "arguments": 3.891e9, "peak": 5.507e9, "flops": 4.8377e11,
+        "all-gather": 2.1831e9, "all-reduce": 9.1750e5,
+        "reduce-scatter": 0.0},
+    ("deepseek-moe-16b", "train_4k"): {
+        "arguments": 0.796e9, "peak": 114.764e9, "flops": 1.2485e15,
+        "all-gather": 8.6208e9, "all-reduce": 2.2549e10,
+        "reduce-scatter": 4.2336e9}}
+# the gates of steps that keep the vocab and the experts split over
+# "model": the decode cell within 80 GB, within 1.05x the reference's
+# arguments and all-gathering at most 0.5 GB a step (2.18 GB at 359ecfb,
+# the experts gathered whole); qwen3's training peak at most 100 GB
+# (171.537 GB at 359ecfb, the head whole); deepseek's training cell
+# within 80 GB (114.764 GB at 359ecfb)
 DECODE_ARGS_OVER_REFERENCE = 1.05
-TRAIN_PEAK_BYTES = 180e9
+DECODE_ALL_GATHER_BYTES = 0.5e9
+TRAIN_PEAK_BYTES = 100e9
 
 
 def dryrun_phase(log, torch, dev, trained, card):
@@ -2941,65 +2957,85 @@ def dryrun_phase(log, torch, dev, trained, card):
                                  f"peak ratio {ratio:.4f}, calls "
                                  f"{rec['kernel_calls']} vs {calls_want}")
 
-    # -- 13b. production cells through the CLI ----------------------------
+    # -- 13b. production cells through the CLI, one process a cell -------
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                REPRO_LOG_LEVEL="info")
     with tempfile.TemporaryDirectory() as tmp:
-        for i, cell in enumerate(DRYRUN_CELLS):
-            out = Path(tmp) / f"cell{i}.json"
-            t0 = time.perf_counter()
-            r = subprocess.run(
-                [sys.executable, "-m", "repro_torch.launch.dryrun", *cell,
-                 "--mesh", "single", "--device", dev.type, "--out",
-                 str(out)], capture_output=True, text=True, env=env,
-                cwd=ROOT, timeout=DRYRUN_TIMEOUT_S)
+        t0 = time.perf_counter()
+        procs = []
+        try:
+            for i, cell in enumerate(DRYRUN_CELLS):
+                out = Path(tmp) / f"cell{i}.json"
+                procs.append((cell, out, subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun",
+                     *cell, "--mesh", "single", "--device", dev.type,
+                     "--out", str(out)], stdout=subprocess.PIPE,
+                    stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)))
+            done = [(cell, out, p, *p.communicate(
+                timeout=max(1.0, DRYRUN_TIMEOUT_S
+                            - (time.perf_counter() - t0))))
+                for cell, out, p in procs]
+        finally:
+            for _, _, p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        wall = time.perf_counter() - t0
+        for cell, out, p, stdout, stderr in done:
             recs = json.loads(out.read_text()) if out.exists() else []
-            if r.returncode != 0 or len(recs) != 1 or "error" in recs[0]:
-                raise AssertionError(f"dry run {cell}: rc {r.returncode}\n"
-                                     f"{r.stdout[-3000:]}{r.stderr[-3000:]}")
+            if p.returncode != 0 or len(recs) != 1 or "error" in recs[0]:
+                raise AssertionError(f"dry run {cell}: rc {p.returncode}\n"
+                                     f"{stdout[-3000:]}{stderr[-3000:]}")
             rec = recs[0]
-            mem, roof = rec["memory"], rec["roofline"]
+            mem, roof, cost = rec["memory"], rec["roofline"], rec["hlo_cost"]
             args, peak = (mem["argument_size_in_bytes"],
                           mem["peak_memory_in_bytes"])
-            was = WHOLE_STATE_DRYRUN[rec["arch"]]
-            colls = {k: f"{int(v['count'])} ops {v['bytes']:.4e} B"
-                     for k, v in rec["hlo_cost"]["collectives"].items()
-                     if v["count"]}
+            was = PARENT_DRYRUN[rec["arch"], rec["shape"]]
+            colls = {k: f"{int(v['count'])} ops {v['bytes']:.4e} B "
+                     f"(parent {was.get(k, 0.0):.4e})"
+                     for k, v in cost["collectives"].items()
+                     if v["count"] or was.get(k)}
             vs_ref = ""
-            if rec["arch"] == "deepseek-moe-16b":
+            if rec["shape"] == "decode_32k":
                 ref = REFERENCE_TESTCELL_ARG_BYTES
                 vs_ref = (f"; arguments over the reference's "
                           f"{ref / 1e9:.4f} GB: {args / ref:.4f}x")
             log(f"[dryrun] {rec['arch']} x {rec['shape']} x single pod "
                 f"({rec['n_devices']} fake ranks, mesh {rec['mesh']}, remat "
                 f"{rec['hp']['remat']}, attn {rec['hp']['attn_impl']}): "
-                f"{time.perf_counter() - t0:.1f} s (traced in "
-                f"{rec['lower_s']} s); per rank: arguments "
-                f"{args / 1e9:.3f} GB (whole state: "
+                f"{len(DRYRUN_CELLS)} cells at once in {wall:.1f} s (traced "
+                f"in {rec['lower_s']} s); per rank: arguments "
+                f"{args / 1e9:.3f} GB (parent "
                 f"{was['arguments'] / 1e9:.3f}), temporaries "
                 f"{mem['temp_size_in_bytes'] / 1e9:.3f} GB, peak "
-                f"{peak / 1e9:.3f} GB (whole state: "
-                f"{was['peak'] / 1e9:.3f}), fits 80 GB {rec['fits_hbm']}; "
-                f"collectives by kind {colls}; flops "
-                f"{rec['hlo_cost']['flops']:.4e}, bytes streamed "
-                f"{rec['hlo_cost']['bytes_streamed']:.4e}, collectives "
-                f"{rec['hlo_cost']['collective_bytes']:.4e} B; roofline "
+                f"{peak / 1e9:.3f} GB (parent {was['peak'] / 1e9:.3f}), fits "
+                f"80 GB {rec['fits_hbm']}; collectives by kind {colls}; "
+                f"flops {cost['flops']:.4e} (parent {was['flops']:.4e}), "
+                f"bytes streamed {cost['bytes_streamed']:.4e}, collectives "
+                f"{cost['collective_bytes']:.4e} B; roofline "
                 f"compute {roof['t_compute']:.4f} s, memory "
                 f"{roof['t_memory']:.4f} s, collective "
                 f"{roof['t_collective']:.4f} s: dominant {roof['dominant']}"
                 f"{vs_ref}; kernel calls {rec['kernel_calls']}")
+            gathered = cost["collectives"]["all-gather"]["bytes"]
             if rec["n_devices"] != 256:
                 raise AssertionError(f"dry run {cell}: {rec['n_devices']}")
-            if rec["arch"] == "deepseek-moe-16b" and not (
+            if rec["shape"] == "decode_32k" and not (
                     rec["fits_hbm"] and args <= DECODE_ARGS_OVER_REFERENCE
-                    * REFERENCE_TESTCELL_ARG_BYTES):
+                    * REFERENCE_TESTCELL_ARG_BYTES
+                    and gathered <= DECODE_ALL_GATHER_BYTES):
                 raise AssertionError(
                     f"dry run {cell}: arguments {args} B (the reference's "
                     f"{REFERENCE_TESTCELL_ARG_BYTES}), peak {peak} B, fits "
-                    f"80 GB {rec['fits_hbm']}")
+                    f"80 GB {rec['fits_hbm']}, all-gather {gathered} B "
+                    f"(at most {DECODE_ALL_GATHER_BYTES:.0f})")
             if rec["arch"] == "qwen3-8b" and peak > TRAIN_PEAK_BYTES:
                 raise AssertionError(f"dry run {cell}: peak {peak} B over "
                                      f"{TRAIN_PEAK_BYTES:.0f}")
+            if rec["arch"] == "deepseek-moe-16b" and rec["shape"] == \
+                    "train_4k" and not rec["fits_hbm"]:
+                raise AssertionError(f"dry run {cell}: peak {peak} B does "
+                                     f"not fit 80 GB")
 
     torch.cuda.synchronize()
     launches = dict(common.LAUNCHES)

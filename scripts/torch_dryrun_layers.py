@@ -11,8 +11,9 @@ of a fake group of 256 ranks on the single pod's 16 x 16 mesh, so nothing
 is allocated or computed and a cut takes seconds.  Every per-rank figure
 of a step grows by the same amount a layer, so the first two cuts give the
 figures at the architecture's own depth: f(L) = f(a) + (L - a) (f(b) -
-f(a)) / (b - a).  Prints one JSON line: each cut's memory record (GB) and
-collective bytes by kind (GB), and the extrapolation.
+f(a)) / (b - a).  Prints one JSON line: each cut's memory record (GB),
+collective bytes by kind (GB) and FLOPs (``tflop``, 1e12), and the
+extrapolation.
 """
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ def main() -> int:
         figures.update({k: v["bytes"] / 1e9 for k, v in
                         rec["hlo_cost"]["collectives"].items()
                         if v["count"]})
+        figures["tflop"] = rec["hlo_cost"]["flops"] / 1e12
         cuts[n] = figures
     (a, fa), (b, fb) = list(cuts.items())[:2]
     L = base.n_layers

@@ -3,37 +3,44 @@ gather of parameter blocks, for the sharded steps (``launch/steps.py``).
 
 The reference lets XLA partition a step from the parameters' specs; torch
 has no such pass, so the port splits the blocks the "model" axis shards
-(``q_dim``, ``kv_dim``, ``o_in``, ``ff``) by hand, Megatron's way:
+by hand, Megatron's way.  The residual stream is whole and the same on
+every rank of the axis; ``into`` (identity forward, all-reduce of the
+gradient) takes a split block's input into the split, ``out`` (all-reduce
+forward, identity backward) sums the blocks' partial outputs.
 
-* each rank of the axis runs its block of the attention heads (q, k and v
-  columns, the output projection's rows) and, in training, of the dense
-  MLP's hidden units (``wi`` / ``wg`` columns, ``wo`` rows), through the
-  same layer code with a config of its local head counts: the attention
-  kernel sees the rank's heads only;
-* ``into`` (identity forward, all-reduce of the gradient) takes a block's
-  normed input into the split, ``out`` (all-reduce forward, identity
-  backward) sums the blocks' partial outputs, so the residual stream is
-  whole and the same on every rank of the axis;
-* where the kv heads do not split over the axis but each rank's q heads
-  share one kv head (grouped-query attention with fewer kv heads than
-  ranks), every rank runs that kv head, as Megatron replicates them.
+* ``TensorParallel`` (``plan``, ``attention_split``): each rank of the
+  axis runs its block of the attention heads (q, k and v columns, the
+  output projection's rows) and, in training, of the dense MLP's hidden
+  units (``wi`` / ``wg`` columns, ``wo`` rows), through the same layer
+  code with a config of its local head counts: the attention kernel sees
+  the rank's heads only.  Where the kv heads do not split over the axis
+  but each rank's q heads share one kv head (grouped-query attention with
+  fewer kv heads than ranks), every rank runs that kv head, as Megatron
+  replicates them.  The VLM's cross layers read the global head counts,
+  so the VLM trains with attention unsplit, as do configurations whose
+  heads or hidden units the axis does not divide (``plan``).  Serving
+  splits the attention alone wherever the cache's kv heads split over the
+  axis (``attention_split``; the VLM's cross layers too).
+* ``ModelSplit`` (``model_split``), in every family and every sharded
+  step, with or without the attention split: the blocks the specs shard
+  over "model" of the vocab (Megatron's vocab-parallel embedding, head
+  and cross entropy: ``lookup``, ``merge_lse``, ``label_logit``,
+  ``argmax``, ``columns``) and of the MoE experts and shared experts
+  (expert parallelism, ``layers.moe_ffn``) stay the rank's own; a leaf
+  the specs leave whole over "model" is computed whole.
 
-Everything else (embeddings, norms, the head, MoE experts, mamba layers)
-runs whole on every rank.  The VLM's cross layers read the global head
-counts, so the VLM trains unsplit, as do configurations whose heads or
-hidden units the axis does not divide (``plan``).  Serving splits the
-attention alone wherever the cache's kv heads split over the axis
-(``attention_split``; the VLM's cross layers too).
+The dense MLPs of the serving steps, the norms and the mamba layers run
+whole on every rank.
 
 ``BlockGather`` is the ``gather`` hook of ``models/zoo.py``: it makes a
 layer's working tensors from the rank's blocks while the layer runs
-(``sharding.gather_block``).  A split leaf whose block over "model" is the
-rank's split block is gathered over the other axes only; any other leaf
-is gathered whole and, if split, narrowed.  In the backward each block
-gets its gradient summed over the axes whose ranks computed different
-parts of it (the data axes the rows are split over; "model" where the
-rank computed a part of a leaf that is not its own block) and sliced over
-the axes whose ranks computed the same.
+(``sharding.gather_block``).  A leaf whose block over "model" is the
+rank's split block (of either split) is gathered over the other axes
+only; any other leaf is gathered whole and, if split, narrowed.  In the
+backward each block gets its gradient summed over the axes whose ranks
+computed different parts of it (the data axes the rows are split over;
+"model" where the rank computed a part of a leaf that is not its own
+block) and sliced over the axes whose ranks computed the same.
 """
 
 from __future__ import annotations
@@ -79,6 +86,90 @@ class _Out(torch.autograd.Function):
         return g, None
 
 
+class _Sum(torch.autograd.Function):
+    """The group's all-reduce with an all-reduce of the gradient: the sum
+    a term of every rank's own loss reads (the transpose of a psum), so
+    the ranks' gradients, summed over the group, count the term once for
+    each rank that adds it."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+        ctx.group = group
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def psum(x, groups):
+    """``x`` summed over each process group of ``groups`` in turn, its
+    gradient too (``_Sum``)."""
+    for group in groups:
+        x = _Sum.apply(x, group)
+    return x
+
+
+def _own(idx, start: int, width: int):
+    """(``idx`` as indices into the block [start, start + width), clamped
+    into it; whether each falls in it)."""
+    local = idx.long() - start
+    own = (local >= 0) & (local < width)
+    return local.clamp(0, width - 1), own
+
+
+class _Lookup(torch.autograd.Function):
+    """The rows of ``tokens`` from a block of an embedding table that
+    starts at row ``start``, in ``dtype``, zeros for the tokens outside
+    it.  It keeps ``tokens`` alone for the backward (the indices and the
+    mask are made again there), as the plain lookup keeps its index."""
+
+    @staticmethod
+    def forward(ctx, table, tokens, start, dtype):
+        local, own = _own(tokens, start, table.shape[0])
+        ctx.save_for_backward(tokens)
+        ctx.start, ctx.table = start, (table.shape, table.dtype)
+        return table[local].to(dtype).masked_fill_(~own[..., None], 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        tokens, = ctx.saved_tensors
+        shape, dtype = ctx.table
+        local, own = _own(tokens, ctx.start, shape[0])
+        grad = torch.zeros(shape, dtype=dtype, device=g.device)
+        grad.index_put_((local,), g.masked_fill(~own[..., None], 0).to(
+            dtype), accumulate=True)
+        return grad, None, None, None
+
+
+class _MergeLse(torch.autograd.Function):
+    """The log-sum-exp over every rank's columns from each rank's own:
+    the largest all-reduced (max), the exps below it all-reduced (sum).
+    Backward: exp(own - whole) * g, no collective."""
+
+    @staticmethod
+    def forward(ctx, lse, group):
+        import torch.distributed as dist
+        top = lse.clone()
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+        s = torch.exp(lse - top)
+        dist.all_reduce(s, group=group)
+        whole = top + torch.log(s)
+        ctx.save_for_backward(lse, whole)
+        return whole
+
+    @staticmethod
+    def backward(ctx, g):
+        lse, whole = ctx.saved_tensors
+        return g * torch.exp(lse - whole), None
+
+
 @dataclass(frozen=True)
 class TensorParallel:
     """One rank's split: ``cfg`` with the rank's head counts, the column
@@ -117,6 +208,104 @@ class TensorParallel:
                     "wo": (-2, self.ff)}.get(name)
             return None if cols is None else (cols[0],) + cols[1]
         return None
+
+
+@dataclass(frozen=True)
+class ModelSplit:
+    """The blocks over the "model" axis a sharded step keeps the rank's
+    own, (start, width) each, None where the specs leave the dim whole:
+    ``embed`` the rank's rows of the embedding table, ``vocab`` its
+    columns of the head (so of the logits), ``experts`` its MoE experts,
+    ``shared`` its shared experts' hidden units."""
+    mesh: object
+    embed: tuple[int, int] | None
+    vocab: tuple[int, int] | None
+    experts: tuple[int, int] | None
+    shared: tuple[int, int] | None
+
+    # leaf path (within a layer) -> (the split's field, the dim it splits)
+    _DIMS = {("embed",): ("embed", 0), ("lm_head",): ("vocab", 1),
+             ("moe", "wi"): ("experts", 0), ("moe", "wg"): ("experts", 0),
+             ("moe", "wo"): ("experts", 0),
+             ("moe", "shared", "wi"): ("shared", 1),
+             ("moe", "shared", "wg"): ("shared", 1),
+             ("moe", "shared", "wo"): ("shared", 0)}
+
+    @property
+    def group(self):
+        return self.mesh.get_group("model")
+
+    def into(self, x):
+        return _Into.apply(x, self.group)
+
+    def out(self, x):
+        return _Out.apply(x, self.group)
+
+    def rule(self, path):
+        """As ``TensorParallel.rule``: (dim, start, width) of the rank's
+        block of the leaf at ``path``, None where the leaf is whole."""
+        for key in (tuple(path[-3:]), tuple(path[-2:])):
+            if key in self._DIMS:
+                field, dim = self._DIMS[key]
+                block = getattr(self, field)
+                return None if block is None else (dim,) + block
+        return None
+
+    def lookup(self, table, tokens, dtype):
+        """The embedding of ``tokens`` from the rank's rows of the table
+        (in ``dtype``): the rows the rank holds, zeros for the others
+        (``_Lookup``), summed over "model"."""
+        return self.out(_Lookup.apply(table, tokens, self.embed[0], dtype))
+
+    def merge_lse(self, lse):
+        """The log-sum-exp over the whole vocab from the rank's columns'
+        (``_MergeLse``)."""
+        return _MergeLse.apply(lse, self.group)
+
+    def label_logit(self, logits, labels):
+        """float32 logit of each label from the rank's columns
+        [..., V/m]: the rank that holds the label's column gives it, the
+        others 0, summed over "model"."""
+        local, own = _own(labels, *self.vocab)
+        lab = torch.gather(logits, -1, local[..., None])[..., 0]
+        return self.out(torch.where(own, lab.to(torch.float32), 0.0))
+
+    def columns(self, logits):
+        """Logits [B, V] from each rank's columns [B, V/m] (an
+        all-gather over "model")."""
+        return shd.gather(logits, shd.P(None, "model"), self.mesh)
+
+    def argmax(self, logits):
+        """Each row's index of its largest logit over every rank's
+        columns [B, V/m], int64; the lowest index on ties, as
+        ``torch.argmax``: each rank's first largest, then the first rank
+        (the lowest columns) holding the largest of them."""
+        idx = torch.argmax(logits, dim=-1)
+        best = torch.gather(logits, -1, idx[:, None])[:, 0]
+        both = torch.stack([best.to(torch.float32),
+                            (idx + self.vocab[0]).to(torch.float32)])
+        every = shd.gather(both[None], shd.P("model"), self.mesh)
+        rank = torch.argmax(every[:, 0], dim=0)
+        return every[:, 1].gather(0, rank[None])[0].to(torch.int64)
+
+
+def model_split(mesh, specs) -> ModelSplit | None:
+    """The rank's ``ModelSplit`` from ``specs`` (``BlockGather``'s table:
+    a leaf's whole shape and spec by its path in its layer); None over a
+    "model" axis of one rank or where no such leaf splits over it."""
+    if mesh.shape.get("model", 1) <= 1:
+        return None
+
+    blocks = dict.fromkeys(("embed", "vocab", "experts", "shared"))
+    for path, (field, dim) in ModelSplit._DIMS.items():
+        if path in specs:
+            shape, spec = specs[path]
+            if shd.spec_dims(spec).get("model") == dim:
+                blocks[field] = shd.block_of(
+                    mesh, shd.only_axes(spec, ("model",)), dim, shape[dim])
+    if not any(blocks.values()):
+        return None
+    return ModelSplit(mesh, **blocks)
 
 
 def _split(cfg, mesh, h: int, kh: int, kv0: int, ff):
@@ -173,13 +362,15 @@ class BlockGather:
     path within its layer (a top-level leaf's name) to its (whole shape,
     spec) with the stacked dims dropped (``launch/steps.layer_specs``);
     ``partial`` names the axes whose ranks hold different rows; ``tp`` is
-    the rank's split or None."""
+    the rank's attention split or None, ``split`` its ``ModelSplit`` or
+    None."""
 
-    def __init__(self, mesh, specs: dict, partial=(), tp=None):
+    def __init__(self, mesh, specs: dict, partial=(), tp=None, split=None):
         self.mesh = mesh
         self.specs = specs
         self.partial = tuple(partial)
         self.tp = tp
+        self.split = split
 
     def __call__(self, tree, path=()):
         if isinstance(tree, dict):
@@ -189,6 +380,8 @@ class BlockGather:
     def leaf(self, path, block):
         shape, spec = self.specs[path]
         rule = None if self.tp is None else self.tp.rule(path)
+        if rule is None and self.split is not None:
+            rule = self.split.rule(path)
         if rule is None:
             return shd.gather_block(block, spec, self.mesh, self.partial)
         both = self.partial + ("model",)

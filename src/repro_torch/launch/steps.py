@@ -23,13 +23,26 @@ only for the one layer that uses it, while that layer runs.
   layer's blocks over the axes their specs shard (``_c10d_functional``
   ``all_gather_into_tensor``; nothing where every such axis has size 1).
   The embedding, final norm and head are gathered where they are used.
+* Every sharded step, in every family, keeps the blocks the specs shard
+  over "model" of the vocab and of the MoE experts the rank's own
+  (``tensor_parallel.ModelSplit``), gathered over the data axes alone:
+  the embedding looks up the rank's rows of the table and sums the
+  lookups over "model"; the head computes the rank's columns of the
+  logits; a MoE layer runs the rank's E/m experts (and shared experts'
+  hidden units) on every token's rows routed to them and sums the
+  partial outputs over "model" (expert parallelism, ``layers.moe_ffn``).
+  A leaf whose spec leaves it whole over "model" (a vocab or an expert
+  count the axis does not divide) is computed whole.
 * Train: the rows of the batch split over the data axes (``batch_specs``;
-  whole where they do not divide).  Over a "model" axis of more than one
-  rank the attention heads and the dense MLPs' hidden units split
-  (``tensor_parallel.plan``: the attention kernel runs on the rank's
-  heads; Megatron's all-reduces of the split blocks' outputs and input
-  gradients); where that plan does not apply the axis shards storage and
-  its ranks repeat the compute.  The backward of each gather takes the
+  whole where they do not divide).  The cross entropy merges the ranks'
+  log-sum-exps over "model" and takes each label's logit from the rank
+  that holds its column; the logits' gradient is the rank's columns'.
+  Over a "model" axis of more than one rank the attention heads and the
+  dense MLPs' hidden units split too (``tensor_parallel.plan``: the
+  attention kernel runs on the rank's heads; Megatron's all-reduces of
+  the split blocks' outputs and input gradients); where that plan does
+  not apply the axis shards their storage and its ranks repeat their
+  compute.  The backward of each gather takes the
   whole gradient back into the block: a reduce-scatter over the data
   axes (an all-reduce for a leaf they do not shard), a slice over the
   axes whose ranks computed the same.  The block gradients are averaged
@@ -38,11 +51,12 @@ only for the one layer that uses it, while that layer runs.
   axis counted once; AdamW updates the blocks in place.
 * Prefill: the rank's rows, the attention heads split over "model" where
   the cache's kv heads split over it (``tensor_parallel.attention_split``;
-  the MLPs whole).  It allocates only the rank's blocks of the cache and
-  returns the cache as DTensors at ``cache_specs``: rows over the data
-  axes, kv heads over "model" where they divide it, else the sequence;
-  mamba states' heads and conv channels over "model".  The last logits
-  are all-gathered whole (they are small).
+  the dense MLPs whole).  It allocates only the rank's blocks of the cache
+  and returns the cache as DTensors at ``cache_specs``: rows over the
+  data axes, kv heads over "model" where they divide it, else the
+  sequence; mamba states' heads and conv channels over "model".  The
+  last logits, the rank's columns, are all-gathered whole (they are
+  small).
 * Decode takes and returns the cache at ``cache_specs`` and writes only
   the rank's blocks; no collective carries an attention cache block.
   Heads split as in prefill; where the sequence splits, each rank attends
@@ -50,13 +64,23 @@ only for the one layer that uses it, while that layer runs.
   with_lse=True)``) and the ranks' parts merge over "model" by their log-sum-exp; only the rank that holds
   ``pos`` writes the token's k and v.  A mamba layer's states are
   gathered over "model" for the layer and the rank's blocks written
-  back.  The next tokens are all-gathered whole.
+  back.  The next token of a row is the argmax merged over the ranks'
+  columns (each rank's largest logit and its index all-gathered over
+  "model", the lowest index on ties), and the next tokens are
+  all-gathered whole.
 
 The loss and the gradients are the unsharded step's up to summation
 order: the loss is a mean over equal row blocks.  A MoE layer groups the
 tokens of the whole batch (``_Rows``: where a group spans ranks, the
-ranks' expert choices are all-gathered for the queue positions); its aux
-loss is over the rank's rows.
+ranks' expert choices are all-gathered for the queue positions), and its
+aux loss is the whole batch's: the expert counts and the gates' sums are
+all-reduced over the data axes the rows split over (``_Rows.psum``).
+Every data rank then adds the same aux term to its loss, and the step
+sums the ranks' gradients and divides them by ``n_dp``; so the
+all-reduce's backward all-reduces the gradient too
+(``tensor_parallel.psum``): each rank's gradient of its own gates is
+counted ``n_dp`` times, and after the division once, as in the unsharded
+step.
 """
 
 from __future__ import annotations
@@ -328,12 +352,13 @@ def make_constrain(cfg, policy=None, grad_cast=False):
 
 
 def loss_and_grads(cfg: ModelConfig, hp: HParams, params, batch,
-                   constrain=None, tp=None, gather=None, rows=None):
+                   constrain=None, tp=None, gather=None, rows=None,
+                   split=None):
     """(loss, gradient tree) of ``zoo.loss_fn`` at ``params`` (leaves of
     any float dtype; gradients in their dtypes): ``jax.value_and_grad`` of
     the reference's ``lf``.  ``constrain``: the residual-stream hook, by
     default ``make_constrain(cfg, None, hp.grad_cast)``; ``tp``,
-    ``gather`` and ``rows``: a sharded step's split and hooks
+    ``gather``, ``rows`` and ``split``: a sharded step's splits and hooks
     (``zoo.forward``), ``params`` then the rank's blocks."""
     if constrain is None:
         constrain = make_constrain(cfg, None, grad_cast=hp.grad_cast)
@@ -342,7 +367,7 @@ def loss_and_grads(cfg: ModelConfig, hp: HParams, params, batch,
     loss = zoo.loss_fn(cfg, leaves, batch, remat=hp.remat,
                        attn_impl=hp.attn_impl, vocab_chunk=hp.vocab_chunk,
                        aux_coef=hp.aux_coef, constrain=constrain, tp=tp,
-                       gather=gather, rows=rows)
+                       gather=gather, rows=rows, split=split)
     flat = _leaves(leaves)
     # a leaf the loss does not use (the token table of a model fed
     # embeddings) gets zeros, as jax.value_and_grad gives it
@@ -353,7 +378,7 @@ def loss_and_grads(cfg: ModelConfig, hp: HParams, params, batch,
 
 
 def _step_grads(cfg, hp, params, batch, constrain=None, tp=None,
-                gather=None, rows=None):
+                gather=None, rows=None, split=None):
     """(loss, float32 gradients in ``_leaves`` order) of one step's batch:
     ``accum`` microbatches summed in float32 and divided by ``accum``;
     with ``cast_once`` against a bf16 copy of the float32 master (of the
@@ -372,7 +397,7 @@ def _step_grads(cfg, hp, params, batch, constrain=None, tp=None,
             mb = {k: v.reshape(a, v.shape[0] // a, *v.shape[1:])[i]
                   for k, v in batch.items()}
             loss, g = loss_and_grads(cfg, hp, fwd, mb, constrain, tp,
-                                     gather, rows)
+                                     gather, rows, split)
             for s, x in zip(gsum, _leaves(g)):
                 s.add_(x.to(torch.float32))
             losses.append(loss)
@@ -381,7 +406,7 @@ def _step_grads(cfg, hp, params, batch, constrain=None, tp=None,
         del gsum
         return torch.stack(losses).mean(), grads
     loss, g = loss_and_grads(cfg, hp, fwd, batch, constrain, tp, gather,
-                             rows)
+                             rows, split)
     return loss, [x.to(torch.float32) for x in _leaves(g)]
 
 
@@ -425,19 +450,26 @@ class _Rows:
     this rank's rows of a batch whose rows split over the mesh ``axes``
     (none: the whole batch), ``n`` ranks' equal blocks, the rank's at
     ``index``; ``whole`` gathers a tensor over the rank's tokens (dim 0,
-    rows major) from every block, in the batch's order."""
+    rows major) from every block, in the batch's order; ``psum`` sums a
+    tensor over the blocks, its gradient too
+    (``tensor_parallel.psum``)."""
 
     def __init__(self, mesh, axes):
         self.mesh, self.spec = mesh, _rows_spec(0, axes)
         coord = mesh.coordinate()
-        self.n, self.index = 1, 0
+        self.n, self.index, self.groups = 1, 0, []
         for a in mesh.axis_names:          # outer first, as local_shard
             if a in axes:
                 self.n *= mesh.shape[a]
                 self.index = self.index * mesh.shape[a] + coord[a]
+                if mesh.shape[a] > 1:
+                    self.groups.append(mesh.get_group(a))
 
     def whole(self, t):
         return shd.gather(t, self.spec, self.mesh)
+
+    def psum(self, t):
+        return tensor_parallel.psum(t, self.groups)
 
 
 def _step_of(state) -> int:
@@ -486,15 +518,16 @@ def build_train_step(cfg: ModelConfig, hp: HParams, policy=None):
     specs = _spec_leaves(pspecs)
     table = layer_specs(cfg, policy)
     tp = tensor_parallel.plan(cfg, policy)
+    split = tensor_parallel.model_split(mesh, table)
     lcfg = cfg if tp is None else tp.cfg
 
     def train_step(state, batch):
         step = _step_of(state)
         params = _blocks(state["params"], pspecs, mesh)
         local, dp = _local_batch(policy, batch, "train")
-        gather = tensor_parallel.BlockGather(mesh, table, dp, tp)
+        gather = tensor_parallel.BlockGather(mesh, table, dp, tp, split)
         loss, grads = _step_grads(lcfg, hp, params, local, constrain, tp,
-                                  gather, _Rows(mesh, dp))
+                                  gather, _Rows(mesh, dp), split)
         del local, gather
         n_dp = 1
         for a in dp:
@@ -581,8 +614,10 @@ class CacheLayout:
         self.tp = tensor_parallel.attention_split(cfg, policy) \
             if heads else None
         self.cfg = cfg if self.tp is None else self.tp.cfg
-        self.gather = tensor_parallel.BlockGather(
-            mesh, layer_specs(cfg, policy), (), self.tp)
+        table = layer_specs(cfg, policy)
+        self.split = tensor_parallel.model_split(mesh, table)
+        self.gather = tensor_parallel.BlockGather(mesh, table, (), self.tp,
+                                                  self.split)
 
     def _seq(self, key):
         """(first position, length) of the rank's block of a kv leaf's
@@ -693,7 +728,8 @@ def build_prefill_step(cfg: ModelConfig, hp: HParams, policy=None):
                                     attn_impl=hp.attn_impl,
                                     gather=layout.gather, tp=layout.tp,
                                     cache=tree_map(_local, cache),
-                                    layout=layout, rows=_Rows(mesh, dp))
+                                    layout=layout, rows=_Rows(mesh, dp),
+                                    split=layout.split)
             if dp:
                 logits = shd.gather(logits, _rows_spec(0, dp), mesh)
             return logits, cache
@@ -729,7 +765,7 @@ def build_serve_step(cfg: ModelConfig, hp: HParams, policy=None):
                                      pos, gather=layout.gather,
                                      tp=layout.tp, layout=layout,
                                      rows=_Rows(mesh, shd.sharded_axes(
-                                         spec, mesh)))
+                                         spec, mesh)), split=layout.split)
             if shd.sharded_axes(spec, mesh):
                 nxt = shd.gather(nxt, spec, mesh)
             return nxt, cache

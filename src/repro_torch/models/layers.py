@@ -296,7 +296,7 @@ def _top_k(gates, k):
 
 
 def moe_ffn(cfg, p, x, *, capacity_factor=1.25, group_tokens=4096,
-            rows=None):
+            rows=None, split=None, with_aux=True):
     """Dropping MoE.  x: [B, S, D] -> (out [B, S, D], aux loss).
 
     Per group of Tg tokens each expert has C slots, taken by the (token,
@@ -308,14 +308,28 @@ def moe_ffn(cfg, p, x, *, capacity_factor=1.25, group_tokens=4096,
     their G·C rows, and each token sums its K gated expert rows in float32
     and rounds once, as the einsum's accumulation does.  Nothing here waits
     on the device: the dropped pairs write a scratch row and read a zero
-    gate instead of being filtered out.
+    gate instead of being filtered out.  Without ``with_aux`` the aux loss
+    is not computed (0.0).
 
     ``rows``: under a sharded step, x is one rank's rows of a batch whose
     rows split over ``rows.n`` ranks (``launch/steps.py``), and the groups
     are the whole batch's.  Where a group holds other ranks' tokens, the
     queue positions count their choices too (``rows.whole`` gathers every
     rank's top-k experts); the rank computes its own tokens' rows.  The
-    aux loss is over the rank's tokens."""
+    aux loss is the whole batch's, as the unsharded step's: the expert
+    counts and the gates' sums are summed over the ranks (``rows.psum``,
+    whose backward sums the gradient too).
+
+    ``split``: the rank's ``ModelSplit``.  Where its ``experts`` block is
+    set (the specs shard the experts over "model"), every rank of "model"
+    routes every token as above (the same choices, queue positions,
+    capacity and kept pairs), copies only the rows of its own experts'
+    slots, runs its E/m experts and combines its gated rows into a
+    float32 partial output; where ``shared`` is set the shared experts run
+    the rank's hidden units into a partial output too.  The partial
+    outputs are summed over "model" in one all-reduce, in float32 before
+    the one cast; the input's and the gates' gradients, partial on each
+    rank, are all-reduced over "model" (``ModelSplit.into``)."""
     B, S, D = x.shape
     cdt = x.dtype
     acc = _acc(cdt)
@@ -323,19 +337,34 @@ def moe_ffn(cfg, p, x, *, capacity_factor=1.25, group_tokens=4096,
     E, K = cfg.n_experts, cfg.top_k
     T = B * S
     xt = x.reshape(T, D)
+    e0, El = (0, E) if split is None or split.experts is None \
+        else split.experts
+    shared_split = bool(cfg.n_shared_experts) and split is not None \
+        and split.shared is not None
+    # the input of the rank's parts of split experts, its gradient summed
+    # over "model"
+    xi = split.into(x) if El < E or shared_split else x
 
     logits = xt.to(acc) @ p["router"].to(acc)
     gates = torch.softmax(logits, dim=-1)                     # [T, E]
     top_g, top_i = _top_k(gates, K)                           # [T, K]
     top_g = top_g / torch.clamp_min(top_g.sum(-1, keepdim=True), 1e-9)
 
-    # load-balance aux loss (switch-style)
-    density = torch.zeros(E, dtype=acc, device=dev).index_add_(
-        0, top_i[:, 0], torch.ones(T, dtype=acc, device=dev)) / T
-    aux = E * torch.sum(density * gates.mean(0))
+    # load-balance aux loss (switch-style) over the whole batch
+    n = 1 if rows is None else rows.n
+    aux = 0.0
+    if with_aux:
+        counts = torch.zeros(E, dtype=acc, device=dev).index_add_(
+            0, top_i[:, 0], torch.ones(T, dtype=acc, device=dev))
+        if n == 1:
+            density, mean = counts / T, gates.mean(0)
+        else:
+            both = rows.psum(torch.cat([counts, gates.sum(0)])) / (T * n)
+            density, mean = both[:E], both[E:]
+        aux = E * torch.sum(density * mean)
 
     # group tokens as the reference does, failing where it fails
-    T_all = T if rows is None else T * rows.n
+    T_all = T * n
     g_tok = min(group_tokens, T_all)
     G = max(T_all // g_tok, 1)
     Tg = T_all // G
@@ -357,30 +386,44 @@ def moe_ffn(cfg, p, x, *, capacity_factor=1.25, group_tokens=4096,
     pos = (sel.cumsum(2) - sel).gather(1, idx[:, None, :])[:, 0]
     del sel
     pos = pos.reshape(-1)[lo * K:(lo + T) * K].reshape(T, K)
-    keep = (pos < C).reshape(T * K)
+    # the kept pairs of the rank's experts
+    keep = ((pos < C) & (top_i >= e0) & (top_i < e0 + El)).reshape(T * K)
     # expert-major slots of the Gr groups the rank's tokens fall in, row
-    # (e, g, c) of [E, Gr·C, D]; row E·Gr·C is the dropped pairs' scratch
-    # row
+    # (e, g, c) of [El, Gr·C, D] for the rank's e-th expert; row El·Gr·C
+    # is the other pairs' scratch row
     g0 = lo // Tg
     Gr = (lo + T - 1) // Tg - g0 + 1
-    n_slots = E * Gr * C
+    n_slots = El * Gr * C
     grp = ((lo + torch.arange(T, device=dev)) // Tg - g0)[:, None]
-    slot = torch.where(keep, ((top_i * Gr + grp) * C + pos).reshape(T * K),
-                       n_slots)
+    slot = torch.where(
+        keep, (((top_i - e0) * Gr + grp) * C + pos).reshape(T * K), n_slots)
     xe = x.new_zeros((n_slots + 1, D))
-    xe[slot] = xt.repeat_interleave(K, dim=0)
+    xe[slot] = (xi if El < E else x).reshape(T, D).repeat_interleave(
+        K, dim=0)
 
     act = _act(cfg.mlp_type)
-    xe = xe[:n_slots].reshape(E, Gr * C, D)
+    xe = xe[:n_slots].reshape(El, Gr * C, D)
     h = act(torch.bmm(xe, p["wg"].to(cdt))) * torch.bmm(xe, p["wi"].to(cdt))
     ye = torch.bmm(h, p["wo"].to(cdt)).reshape(n_slots, D)
 
+    top_g = split.into(top_g) if El < E else top_g
     gate = torch.where(keep, top_g.to(cdt).to(acc).reshape(T * K), 0.0)
     out = ye[slot.clamp(max=n_slots - 1)].to(acc) * gate[:, None]
-    out = out.reshape(T, K, D).sum(1).to(cdt).reshape(B, S, D)
+    out = out.reshape(T, K, D).sum(1)                 # float32 [T, D]
 
+    shared = None
     if cfg.n_shared_experts:
-        out = out + mlp(p["shared"], x, cfg.mlp_type, cdt)
+        shared = mlp(p["shared"], xi if shared_split else x, cfg.mlp_type,
+                     cdt)
+    if shared_split and El < E:
+        out, shared = split.out(out + shared.reshape(T, D).to(acc)), None
+    elif El < E:
+        out = split.out(out)
+    elif shared_split:
+        shared = split.out(shared)
+    out = out.to(cdt).reshape(B, S, D)
+    if shared is not None:
+        out = out + shared
     return out, aux
 
 

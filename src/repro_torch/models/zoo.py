@@ -27,7 +27,9 @@ Sharded steps (``launch/steps.py``) hand every pass the rank's parameter
 blocks and a ``gather`` hook (``distributed/tensor_parallel.BlockGather``)
 that makes a layer's tensors from them inside the layer's function, so a
 parameter is whole only while its layer runs; ``tp`` splits the attention
-(and in training the MLPs) over the "model" axis; the serving passes also
+(and in training the MLPs) over the "model" axis, ``split`` (a
+``distributed/tensor_parallel.ModelSplit``) the vocab (embedding, head,
+logits and cross entropy) and the MoE experts; the serving passes also
 take the rank's cache blocks and a ``layout`` that says how they split.
 """
 
@@ -311,10 +313,27 @@ def _top(params, name: str, gather):
     return gather({name: params[name]})[name]
 
 
-def _embed(cfg, params, batch, cdt, gather=None):
+def _lookup(params, tokens, cdt, gather=None, split=None):
+    """The embedding of ``tokens`` in ``cdt``; under a vocab ``split``
+    from the rank's rows of the table (``ModelSplit.lookup``)."""
+    table = _top(params, "embed", gather)
+    if split is None or split.embed is None:
+        return table[tokens].to(cdt)
+    return split.lookup(table, tokens, cdt)
+
+
+def _embed(cfg, params, batch, cdt, gather=None, split=None):
     if cfg.embed_input:
         return batch["embeds"].to(cdt)
-    return _top(params, "embed", gather)[batch["tokens"]].to(cdt)
+    return _lookup(params, batch["tokens"], cdt, gather, split)
+
+
+def _head(params, x, cdt, gather=None, split=None):
+    """Logits of the normed ``x`` in ``cdt``: under a vocab ``split`` the
+    rank's columns, its input's gradient summed over "model"."""
+    if split is not None and split.vocab is not None:
+        x = split.into(x)
+    return x @ _top(params, "lm_head", gather).to(cdt)
 
 
 def _mixer_norm(cfg, p, x):
@@ -353,16 +372,17 @@ def _cross_block(cfg, p, x, image, tp=None):
     return x + torch.tanh(p["gate"].to(x.dtype)) * a, k, v
 
 
-def _ffn_block(cfg, p, x, tp=None, rows=None):
+def _ffn_block(cfg, p, x, tp=None, rows=None, split=None, with_aux=True):
     """The feed-forward half of a layer -> (x, aux loss); a pure mamba
     layer has none and returns x unchanged.  ``tp`` wraps a dense MLP as
     it wraps attention (``_attn_block``) where it splits the MLPs
-    (``tp.mlp``); a MoE layer takes none, and ``rows`` (``forward``)."""
+    (``tp.mlp``); a MoE layer takes ``rows`` and ``split`` (``forward``)
+    instead, and computes no aux loss without ``with_aux`` (0.0)."""
     tp = tp if tp is not None and tp.mlp else None
     if "moe" in p:
         f, aux = L.moe_ffn(cfg, p["moe"], L.rms_norm(x, p["ln2"],
                                                      cfg.norm_eps),
-                           rows=rows)
+                           rows=rows, split=split, with_aux=with_aux)
     elif "mlp" in p:
         h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
         if tp is not None:
@@ -410,7 +430,7 @@ def _remat(fn, policy: str):
 
 def forward(cfg: ModelConfig, params, batch, *, remat="dots",
             attn_impl="flash", constrain=None, tp=None, gather=None,
-            rows=None):
+            rows=None, split=None):
     """Training / scoring forward pass -> (logits [B, S, V] in the compute
     dtype, aux loss: the MoE layers' sum, float32).  ``remat`` is applied
     per layer (the reference's per scan body: a layer, or a hybrid block;
@@ -431,11 +451,16 @@ def forward(cfg: ModelConfig, params, batch, *, remat="dots",
 
     ``rows``: a sharded step's hook where ``batch`` is the rank's rows of
     a batch split over ranks, which the MoE layers group as the whole
-    batch (``layers.moe_ffn``)."""
+    batch and whose aux loss they take over it (``layers.moe_ffn``).
+
+    ``split``: a sharded step's ``ModelSplit``: the embedding looks up
+    the rank's rows of the table, the logits are the rank's columns
+    [B, S, V/m] where the vocab splits over "model", and the MoE layers
+    run the rank's experts."""
     _check_family(cfg)
     cons = constrain if constrain is not None else (lambda a: a)
     cdt = _dtype(cfg.compute_dtype)
-    x = _embed(cfg, params, batch, cdt, gather)
+    x = _embed(cfg, params, batch, cdt, gather, split)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     image = batch.get("image_embeds")
     if image is not None:
@@ -452,21 +477,20 @@ def forward(cfg: ModelConfig, params, batch, *, remat="dots",
                                   tp)
         else:
             x, _ = _mamba_block(cfg, lp, x)
-        return _ffn_block(cfg, lp, x, tp, rows)
+        return _ffn_block(cfg, lp, x, tp, rows, split)
 
     for mixer, lp, window, _, first in _layers(cfg, params):
         if mixer == "cross":
             if gather is not None:
                 lp = gather(lp)
             x, _, _ = _cross_block(cfg, lp, x, image)
-            x, aux = _ffn_block(cfg, lp, x, tp, rows)
+            x, aux = _ffn_block(cfg, lp, x, tp, rows, split)
         else:
             x, aux = _remat(functools.partial(layer_fn, mixer, window, first),
                             remat)(x, lp)
         aux_total = aux_total + aux
     x = L.rms_norm(x, _top(params, "final_norm", gather), cfg.norm_eps)
-    logits = x @ _top(params, "lm_head", gather).to(cdt)
-    return logits, aux_total
+    return _head(params, x, cdt, gather, split), aux_total
 
 
 class _LogSumExp(torch.autograd.Function):
@@ -490,9 +514,13 @@ class _LogSumExp(torch.autograd.Function):
         return t.to(x.dtype)
 
 
-def ce_loss(logits, labels, vocab_chunk=0):
+def ce_loss(logits, labels, vocab_chunk=0, split=None):
     """Cross entropy in f32; optional vocab chunking to bound live
-    memory.  Unchunked, the log-sum-exp is ``_LogSumExp``."""
+    memory.  Unchunked, the log-sum-exp is ``_LogSumExp``.  Under a vocab
+    ``split`` (``forward``) ``logits`` are the rank's columns: their
+    log-sum-exp (chunked within them) is merged over "model" and the
+    label's logit comes from the rank that holds its column
+    (``ModelSplit``); the logits' gradient is the rank's columns' own."""
     if vocab_chunk and logits.shape[-1] > vocab_chunk:
         V = logits.shape[-1]
         nc = math.ceil(V / vocab_chunk)
@@ -512,6 +540,9 @@ def ce_loss(logits, labels, vocab_chunk=0):
         lse = m + torch.log(s)
     else:
         lse = _LogSumExp.apply(logits)
+    if split is not None and split.vocab is not None:
+        return (split.merge_lse(lse)
+                - split.label_logit(logits, labels)).mean()
     lab = torch.gather(logits, -1, labels[..., None].long())[..., 0].to(
         torch.float32)
     return (lse - lab).mean()
@@ -519,11 +550,12 @@ def ce_loss(logits, labels, vocab_chunk=0):
 
 def loss_fn(cfg, params, batch, *, remat="dots", attn_impl="flash",
             vocab_chunk=0, aux_coef=0.01, constrain=None, tp=None,
-            gather=None, rows=None):
+            gather=None, rows=None, split=None):
     logits, aux = forward(cfg, params, batch, remat=remat,
                           attn_impl=attn_impl, constrain=constrain, tp=tp,
-                          gather=gather, rows=rows)
-    return ce_loss(logits, batch["labels"], vocab_chunk) + aux_coef * aux
+                          gather=gather, rows=rows, split=split)
+    return ce_loss(logits, batch["labels"], vocab_chunk, split) \
+        + aux_coef * aux
 
 
 # ---------------------------------------------------------------------------
@@ -601,7 +633,7 @@ def _put(layout, key: str, dst, value):
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
-                gather=None, tp=None, layout=None, rows=None):
+                gather=None, tp=None, layout=None, rows=None, split=None):
     """One autoregressive step.  tokens: [B] integers; pos: int.
     Returns (next_tokens [B] int32, cache).  The cache is written IN PLACE
     (this token's k and v at ``pos``, each mamba layer's conv rows and
@@ -615,13 +647,15 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
     arguments for a cache leaf split by sequence (the block's first
     position and the merge of the ranks' parts), ``layout.read`` and
     ``layout.put`` a mamba layer's states whole and the rank's block of
-    the new ones, and ``rows`` as ``forward``."""
+    the new ones, and ``rows`` and ``split`` as ``forward``: under a vocab
+    split the next tokens are the argmax merged over the ranks' columns
+    (``ModelSplit.argmax``)."""
     _check_family(cfg)
     pos = int(pos)
     cdt = _dtype(cfg.compute_dtype)
     kv = (lambda key: {}) if layout is None else layout.kv
     read = (lambda key, t: t) if layout is None else layout.read
-    x = _top(params, "embed", gather)[tokens].to(cdt)[:, None, :]
+    x = _lookup(params, tokens, cdt, gather, split)[:, None, :]
     for mixer, lp, window, idx, _ in _layers(cfg, params):
         if gather is not None:
             lp = gather(lp)
@@ -633,7 +667,7 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
             if tp is not None:
                 a = tp.out(a)
             x, _ = _ffn_block(cfg, lp, x + torch.tanh(lp["gate"].to(x.dtype))
-                              * a, rows=rows)
+                              * a, rows=rows, split=split, with_aux=False)
             continue
         h = _mixer_norm(cfg, lp, x)
         if mixer == "attn":
@@ -647,27 +681,32 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
                 ssm_state=read("ssm", c["ssm"]), decode=True)
             _put(layout, "conv", c["conv"], conv)
             _put(layout, "ssm", c["ssm"], state)
-        x, _ = _ffn_block(cfg, lp, x + a, rows=rows)
+        x, _ = _ffn_block(cfg, lp, x + a, rows=rows, split=split,
+                          with_aux=False)
     x = L.rms_norm(x, _top(params, "final_norm", gather), cfg.norm_eps)
-    logits = (x[:, 0] @ _top(params, "lm_head", gather).to(cdt)).to(
-        torch.float32)
+    logits = _head(params, x[:, 0], cdt, gather, split).to(torch.float32)
+    if split is not None and split.vocab is not None:
+        return split.argmax(logits).to(torch.int32), cache
     return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
 
 def prefill(cfg: ModelConfig, params, batch, *, attn_impl="flash",
-            gather=None, tp=None, cache=None, layout=None, rows=None):
+            gather=None, tp=None, cache=None, layout=None, rows=None,
+            split=None):
     """Prefill pass: forward over S tokens -> (last logits [B, V] float32,
     the decode cache filled: every attention layer's k and v, every mamba
     layer's last conv rows and final state, every cross layer's image k
     and v).  ``cache``: the cache to fill, by default ``init_cache(cfg, B,
     S)``; it may be longer than S (its later positions stay as they are).
     A sharded prefill step passes ``gather``, ``tp`` and ``rows`` as
-    ``decode_step`` does, the rank's cache blocks and ``layout``, whose ``put`` writes the
-    rank's block of each layer's cache tensors (computed for the rank's
-    rows, whole over "model" but for the split heads)."""
+    ``decode_step`` does, the rank's cache blocks, ``layout``, whose
+    ``put`` writes the rank's block of each layer's cache tensors
+    (computed for the rank's rows, whole over "model" but for the split
+    heads), and ``split``: under a vocab split the last logits are
+    computed on the rank's columns and all-gathered over "model"."""
     _check_family(cfg)
     cdt = _dtype(cfg.compute_dtype)
-    x = _embed(cfg, params, batch, cdt, gather)
+    x = _embed(cfg, params, batch, cdt, gather, split)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None, :]
     image = batch.get("image_embeds")
@@ -692,10 +731,12 @@ def prefill(cfg: ModelConfig, params, batch, *, attn_impl="flash",
             x, (conv, state) = _mamba_block(cfg, lp, x, return_state=True)
             _put(layout, "conv", c["conv"], conv)
             _put(layout, "ssm", c["ssm"], state)
-        x, _ = _ffn_block(cfg, lp, x, rows=rows)
+        x, _ = _ffn_block(cfg, lp, x, rows=rows, split=split,
+                          with_aux=False)
     x = L.rms_norm(x, _top(params, "final_norm", gather), cfg.norm_eps)
-    logits = (x[:, -1] @ _top(params, "lm_head", gather).to(cdt)).to(
-        torch.float32)
+    logits = _head(params, x[:, -1], cdt, gather, split).to(torch.float32)
+    if split is not None and split.vocab is not None:
+        logits = split.columns(logits)
     return logits, cache
 
 

@@ -130,45 +130,70 @@ def _batch_local(cfg, shape, policy, mesh) -> int:
                if k != "pos")
 
 
-# qwen3's tensor-parallel split on the (4, 4) mesh (one q head a rank, its
-# one kv head replicated): the leaves whose "model" block is the rank's
-# split block are gathered over "data" alone; k and v (a kv head spans
-# four "model" blocks) and the q / k norms a split block uses whole have
-# their gradients summed over "model" too
-_SPLIT = {("attn", "q"), ("attn", "o"), ("mlp", "wi"), ("mlp", "wg"),
-          ("mlp", "wo")}
-_SUM_MODEL = {("attn", "k"), ("attn", "v"), ("attn", "qn"), ("attn", "kn")}
+# the tensor-parallel split on the (4, 4) mesh: the leaves whose "model"
+# block is the rank's split block are gathered over "data" alone; qwen3
+# (one q head a rank, its one kv head replicated) sums the gradients of k
+# and v (a kv head spans four "model" blocks) and of the q / k norms a
+# split block uses whole over "model" too; deepseek-moe's four kv heads
+# split, one a rank
+_SPLIT = {"qwen3-8b": {("attn", "q"), ("attn", "o"), ("mlp", "wi"),
+                       ("mlp", "wg"), ("mlp", "wo")},
+          "deepseek-moe-16b": {("attn", "q"), ("attn", "k"), ("attn", "v"),
+                               ("attn", "o")}}
+_SUM_MODEL = {"qwen3-8b": {("attn", "k"), ("attn", "v"), ("attn", "qn"),
+                           ("attn", "kn")},
+              "deepseek-moe-16b": set()}
+
+
+def _model_block(path) -> bool:
+    """A leaf every sharded step keeps the rank's block of over "model"
+    where its spec shards it (the reduced vocab of 128, 4 experts and 48
+    shared-expert units divide 4): the embedding, the head, the experts
+    and the shared experts."""
+    return path in (("embed",), ("lm_head",)) or (
+        "moe" in path and path[-1] in ("wi", "wg", "wo"))
 
 
 @pytest.mark.parametrize("arch,remat,tp_reduces", [
     ("mamba2-2.7b", "dots", 0), ("qwen3-8b", "none", 4),
-    ("qwen3-8b", "dots", 5)])
+    ("qwen3-8b", "dots", 5), ("deepseek-moe-16b", "dots", 4)])
 def test_train_cell(arch, remat, tp_reduces):
     """The train step's collectives, counted by hand for the step that
     holds shards (``_moved``): each layer's blocks all-gathered in the
     layer's function (again in the recompute under remat "dots"), the
-    embedding and head where they are used; in the backward each
+    embedding and head where they are used, over "data" alone (their
+    vocab splits over "model"), as are the experts; in the backward each
     gradient reduce-scattered into its block over "data" (sliced over
     "model" where its ranks computed the same), a replicated leaf's
     all-reduced; the loss and the norm's group sums all-reduced.  No whole
-    gradient is all-reduced.  With the tensor-parallel split (qwen3) also,
+    gradient is all-reduced.  Over "model", the vocab-parallel embedding's
+    output and the head's input gradient (bf16 activations), the
+    log-sum-exp's max and sum and the label's logit (float32, a token
+    each).  With the tensor-parallel split (qwen3, deepseek-moe) also,
     per layer, each split block's output all-reduced over "model" in the
-    forward and its input's gradient in the backward (4); under remat
-    "dots" the recompute adds the attention block's (the non-reentrant
-    checkpoint stops once it has what the backward saved, before the
-    MLP's).  Arguments: the rank-local params and moments, the step, the
-    rank's rows of the batch.  Peak: at most the arguments, plus one layer
-    gathered whole, plus the activations: the peak over its arguments of
-    the unsharded step on one rank's rows (``_rank_rows``)."""
+    forward and its input's gradient in the backward (qwen3: attention
+    and MLP, 4; deepseek-moe: the attention's 2 and the MoE input's
+    gradient); under remat "dots" the recompute adds the attention
+    block's (the non-reentrant checkpoint stops once it has what the
+    backward saved, before the MLP's or the MoE's output).  A MoE layer
+    also all-reduces its float32 partial output in the forward, its
+    gates' gradient [T, K] in the backward, and its expert counts and
+    gate sums (2 E floats) over "data" in the forward, the recompute and
+    the backward.  Arguments: the rank-local params and moments, the
+    step, the rank's rows of the batch.  Peak: at most the arguments,
+    plus one layer gathered whole, plus the activations: the peak over
+    its arguments of the unsharded step on one rank's rows
+    (``_rank_rows``)."""
     rec, cfg, policy, mesh = _cell(arch, "train_4k", remat=remat)
     shape = SHAPES["train_4k"]
     leaves = _param_leaves(cfg, policy)
     ag = rs = ar = 0
     for path, s, dt, sp in leaves:
         live = shd.sharded_axes(sp, mesh)
-        if tp_reduces and path[-2:] in _SPLIT:
+        if _model_block(path) or (tp_reduces
+                                  and path[-2:] in _SPLIT[arch]):
             gathered, summed = [a for a in live if a != "model"], ("data",)
-        elif tp_reduces and path[-2:] in _SUM_MODEL:
+        elif tp_reduces and path[-2:] in _SUM_MODEL[arch]:
             gathered, summed = live, ("data", "model")
         else:
             gathered, summed = live, ("data",)
@@ -177,10 +202,12 @@ def test_train_cell(arch, remat, tp_reduces):
         ag, rs, ar = ag + (2 if again else 1) * g, rs + r, ar + a
     groups = {tuple(shd.sharded_axes(sp, mesh)) for *_, sp in leaves}
     ar += 4 + 4 * len(groups) * len(mesh.shape)
-    if tp_reduces:
-        rows = shape.global_batch // MESH[0]
-        act = rows * shape.seq_len * cfg.d_model * torch.bfloat16.itemsize
-        ar += tp_reduces * cfg.n_layers * act
+    tokens = shape.global_batch // MESH[0] * shape.seq_len
+    act = tokens * cfg.d_model * torch.bfloat16.itemsize
+    ar += (2 + tp_reduces * cfg.n_layers) * act + 3 * tokens * 4
+    if cfg.n_experts:
+        aux = (3 if remat == "dots" else 2) * 2 * cfg.n_experts * 4
+        ar += cfg.n_layers * (2 * act + tokens * cfg.top_k * 4 + aux)
     c = rec["hlo_cost"]["collectives"]
     assert c["all-gather"]["bytes"] == ag
     assert c["reduce-scatter"]["bytes"] == rs
@@ -209,23 +236,31 @@ def test_train_cell(arch, remat, tp_reduces):
 def test_prefill_and_decode_cells():
     """Serving holds the cache at ``cache_specs`` (reduced qwen3: one kv
     head, so its sequence splits over "model").  Prefill gathers each
-    layer's blocks whole (bf16) where it runs and the logits' rows over
-    "data", and no cache leaf; decode gathers the parameters and the next
-    tokens, and all-reduces each attention layer's partial max and
-    weighted sums over "model" (the lse merge), and moves no cache block.
-    Arguments: parameter blocks plus, for decode, cache blocks (and the
-    whole tokens).  Peak: at most the arguments, plus one layer gathered
-    whole, plus the activations of the unsharded step on one rank's
-    rows."""
+    layer's blocks whole (bf16) where it runs, the embedding and the head
+    over "data" alone (the vocab splits over "model"), the last logits'
+    columns over "model" and their rows over "data", and no cache leaf;
+    it all-reduces the vocab-parallel embedding's output over "model".
+    Decode gathers the parameters as prefill does, the next tokens, and
+    each row's largest logit and its index over "model" (the merged
+    argmax), and all-reduces the embedding's output and each attention
+    layer's partial max and weighted sums over "model" (the lse merge),
+    and moves no cache block.  Arguments: parameter blocks plus, for
+    decode, cache blocks (and the whole tokens).  Peak: at most the
+    arguments, plus one layer gathered whole, plus the activations of the
+    unsharded step on one rank's rows."""
     rec, cfg, policy, mesh = _cell("qwen3-8b", "prefill_32k")
     leaves = _param_leaves(cfg, policy, torch.bfloat16)
-    gathers = sum(_gather_bytes(s, dt, sp, mesh) for _, s, dt, sp in leaves)
+    gathers = sum(_moved(s, dt, sp, mesh, [a for a in shd.sharded_axes(
+        sp, mesh) if a != "model" or not _model_block(path)], ())[0]
+        for path, s, dt, sp in leaves)
     shape = SHAPES["prefill_32k"]
     rows = shape.global_batch // MESH[0]
     logits = rows * cfg.vocab_size * 4
     c = rec["hlo_cost"]["collectives"]
-    assert c["all-gather"]["bytes"] == gathers + logits
-    assert c["all-reduce"]["count"] == c["reduce-scatter"]["count"] == 0
+    assert c["all-gather"]["bytes"] == gathers + logits // MESH[1] + logits
+    assert c["all-reduce"]["bytes"] == \
+        rows * shape.seq_len * cfg.d_model * 2
+    assert c["reduce-scatter"]["count"] == 0
     params = sum(_local_bytes(torch.empty(s, dtype=dt, device="meta"), sp,
                               mesh) for _, s, dt, sp in leaves)
     mem = rec["memory"]
@@ -249,10 +284,10 @@ def test_prefill_and_decode_cells():
     kv = cfg.n_layers * rows * shape.seq_len * cfg.n_kv_heads \
         * cfg.head_dim * 2
     c = rec["hlo_cost"]["collectives"]
-    assert c["all-gather"]["bytes"] == gathers + 4 * rows
+    assert c["all-gather"]["bytes"] == gathers + 4 * rows + 2 * 4 * rows
     heads = rows * cfg.n_heads
     assert c["all-reduce"]["bytes"] == cfg.n_layers * 4 * (
-        heads + heads * cfg.head_dim + heads)
+        heads + heads * cfg.head_dim + heads) + rows * cfg.d_model * 2
     assert c["reduce-scatter"]["count"] == 0
     mem = rec["memory"]
     assert mem["argument_size_in_bytes"] == \

@@ -148,19 +148,26 @@ def test_ragged_group_fails_as_the_reference_does():
 
 class _ThreadRows:
     """``moe_ffn``'s ``rows`` hook for ``n`` threads, one rank's rows
-    each: ``whole`` exchanges the ranks' tensors through a barrier."""
+    each: ``whole`` and ``psum`` exchange the ranks' tensors through a
+    barrier (``calls`` counts ``whole``'s)."""
 
     def __init__(self, n, index, slots, barrier, calls):
         self.n, self.index = n, index
         self.slots, self.barrier, self.calls = slots, barrier, calls
 
-    def whole(self, t):
-        self.calls.append(self.index)
+    def _every(self, t):
         self.slots[self.index] = t
         self.barrier.wait()
-        out = torch.cat(self.slots)
+        out = list(self.slots)
         self.barrier.wait()
         return out
+
+    def whole(self, t):
+        self.calls.append(self.index)
+        return torch.cat(self._every(t))
+
+    def psum(self, t):
+        return sum(self._every(t))
 
 
 @pytest.mark.parametrize("n,B,S,kw,spans", [
@@ -172,19 +179,21 @@ class _ThreadRows:
 def test_rank_rows_group_as_the_whole_batch(n, B, S, kw, spans):
     """Each of ``n`` ranks runs its B / n rows with the ``rows`` hook: the
     outputs, concatenated, are the reference's on the whole batch within
-    1e-5 (fp32), tokens dropped alike; the ranks exchange their expert
-    choices only where a group spans ranks."""
+    1e-5 (fp32), tokens dropped alike, and every rank's aux loss is the
+    reference's over the whole batch (rtol 1e-5); the ranks exchange
+    their expert choices only where a group spans ranks."""
     jcfg, tcfg, jp, tp = _setup("deepseek-moe-16b", "float32")
     x = np.random.default_rng(5).standard_normal(
         (B, S, tcfg.d_model)).astype(np.float32)
-    want, _ = jlayers.moe_ffn(jcfg, jp, jnp.asarray(x), **kw)
-    parts, calls = [None] * n, []
+    want, jaux = jlayers.moe_ffn(jcfg, jp, jnp.asarray(x), **kw)
+    parts, auxes, calls = [None] * n, [None] * n, []
     slots, barrier = [None] * n, threading.Barrier(n)
 
     def rank(r):
         rows = _ThreadRows(n, r, slots, barrier, calls)
         block = torch.from_numpy(x).chunk(n)[r]
-        parts[r], _ = tlayers.moe_ffn(tcfg, tp, block, rows=rows, **kw)
+        parts[r], auxes[r] = tlayers.moe_ffn(tcfg, tp, block, rows=rows,
+                                             **kw)
 
     threads = [threading.Thread(target=rank, args=(r,)) for r in range(n)]
     for t in threads:
@@ -194,4 +203,6 @@ def test_rank_rows_group_as_the_whole_batch(n, B, S, kw, spans):
     got = torch.cat(parts).double().numpy()
     want = np.asarray(want, np.float64)
     assert _scaled(got, want) <= 1e-5
+    assert [float(a) for a in auxes] == pytest.approx([float(jaux)] * n,
+                                                      rel=1e-5)
     assert sorted(calls) == (list(range(n)) if spans else [])

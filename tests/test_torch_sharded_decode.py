@@ -11,7 +11,10 @@ their blocks written back; MoE layers; its one kv head splits the
 sequence), the reduced VLM with two kv heads (self and cross layers split
 by heads) and with its one (the cached patch keys and values split by
 sequence, merged over "model"), reduced deepseek-moe (MoE layers under the
-attention-only head split) and reduced musicgen (an embedding prompt).
+attention-only head split), reduced dbrx (MoE layers under the sequence
+split) and reduced musicgen (an embedding prompt).  Their vocab of 128 and
+4 experts split over "model": every rank computes its columns of the
+logits and runs its 2 experts.
 
 Every rank builds the parameters and the prompt from the same seeds, runs
 the unsharded steps itself and holds the sharded ones to them: greedy
@@ -24,6 +27,7 @@ decode step reading or writing an attention cache block.
 
 import pytest
 
+from test_torch_sharded_train import SEEN
 from test_torch_sharding import run_ranks
 
 # case -> (arch, overrides of its reduced config, how the kv cache splits
@@ -36,6 +40,7 @@ _CASES = {
     "vlm-heads": ("llama-3.2-vision-90b", {"n_kv_heads": 2}, "heads"),
     "vlm-sequence": ("llama-3.2-vision-90b", {}, "sequence"),
     "moe-heads": ("deepseek-moe-16b", {}, "heads"),
+    "moe-sequence": ("dbrx-132b", {}, "sequence"),
     "embeds": ("musicgen-medium", {}, "heads"),
 }
 
@@ -122,3 +127,55 @@ for pos in range(12, 16):
 print("DECODE_OK", split)
 """, 4)
     assert all(o.split() == ["DECODE_OK", layout] for o in outs)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "jamba-v0.1-52b"])
+def test_moe_serving_keeps_model_blocks(arch):
+    """Sharded prefill and three decode steps of reduced MoE models (fp32,
+    a vocab of 200 that no other dim shares) on the 2 x 2 mesh, their
+    vocab and experts split over "model": the one-rank logits (within
+    1e-5 of max|logits|) and tokens (``torch.equal``); no rank makes a
+    tensor as wide as the vocab but the last logits gathered whole (the
+    rank's rows, then every row) in the prefill, none in decode; no
+    all-gather over "model" carries an expert leaf, the head or the
+    embedding; the expert products run on the rank's 2 of 4 experts."""
+    outs = run_ranks(SEEN + f"""
+import dataclasses
+from repro_torch.configs import get_config
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch import steps
+from repro_torch.models import zoo
+
+cfg = dataclasses.replace(get_config({arch!r}).reduced(),
+                          compute_dtype="float32", vocab_size=200)
+hp = steps.HParams(attn_impl="flash")
+params = steps.init_state(cfg, 0, device="cpu")["params"]
+prompt = {{"tokens": zoo.make_inputs(cfg, 4, 3, seq=12,
+                                    device="cpu")["tokens"]}}
+mesh = shd.make_mesh((2, 2), ("data", "model"))
+pol = shd.ShardingPolicy(mesh)
+placed = steps.place(params, steps.param_specs(cfg, pol), mesh)
+want_l, want_c = steps.build_prefill_step(cfg, hp)(params, prompt,
+                                                   cache_len=16)
+with Seen(cfg, mesh.get_group("model")) as pre:
+    got_l, got_c = steps.build_prefill_step(cfg, hp, pol)(placed, prompt,
+                                                          cache_len=16)
+scale = float(want_l.abs().max())
+assert float((got_l - want_l).abs().max()) <= 1e-5 * scale
+assert {{s for _, s in pre.vocab}} <= {{(2, 200), (4, 200)}}, pre.vocab
+one = steps.build_serve_step(cfg, hp)
+sharded = steps.build_serve_step(cfg, hp, pol)
+t1 = t2 = torch.argmax(want_l, -1).to(torch.int32)
+dec = Seen(cfg, mesh.get_group("model"))
+for pos in range(12, 15):
+    t1, _ = one(params, want_c, t1, pos)
+    with dec:
+        t2, _ = sharded(placed, got_c, t2, pos)
+    assert torch.equal(t1, t2), (pos, t1, t2)
+assert not dec.vocab, dec.vocab
+for seen in (pre, dec):
+    assert not seen.over_model, seen.over_model
+    assert seen.experts == {{2}}, seen.experts
+print("MOE_SERVE_OK")
+""", 4)
+    assert all(o.startswith("MOE_SERVE_OK") for o in outs)

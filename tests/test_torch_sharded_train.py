@@ -170,9 +170,10 @@ print("BLOCK_OK", dict(calls))
 def test_tensor_parallel_step_matches_one_rank():
     """A (1, 2) mesh splits heads and MLP units over "model": qwen3 (its
     one kv head on both ranks) with remat "dots" and 2 microbatches,
-    gemma3 (kv heads split, local windows), deepseek-moe (experts whole)
-    and jamba (mamba whole); each rank's attention sees its 2 of 4 heads,
-    and the loss and grad norm are one rank's."""
+    gemma3 (kv heads split, local windows), deepseek-moe (experts split)
+    and jamba (experts split, mamba whole), the vocab split too; each
+    rank's attention sees its 2 of 4 heads, and the loss and grad norm are
+    one rank's."""
     outs = run_ranks(_MODEL + """
 from repro_torch.distributed import tensor_parallel
 from repro_torch.kernels import flash_attention as fa
@@ -212,6 +213,84 @@ assert tensor_parallel.plan(vlm, pol) is None
 print("TP_OK")
 """, 2)
     assert all(o.startswith("TP_OK") for o in outs)
+
+
+# what a rank computes under a sharded step, seen op by op: ``vocab`` the
+# ops whose result has a dim of the vocab's size (whole logits, a whole
+# head or embedding); ``over_model`` the all-gathers over "model" whose
+# result leads with the expert count or spans the vocab (an expert leaf,
+# the head or the embedding gathered whole over "model"); ``experts`` the
+# expert count of every expert ``bmm`` (its weight [E, D, F] or [E, F, D])
+SEEN = """
+from torch.utils._pytree import tree_flatten
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.distributed.tensor import DTensor
+
+
+class Seen(TorchDispatchMode):
+    def __init__(self, cfg, group):
+        super().__init__()
+        self.cfg, self.group = cfg, group.group_name
+        self.vocab, self.over_model, self.experts = [], [], set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        name = str(func._schema.name)
+        V, E = self.cfg.vocab_size, self.cfg.n_experts
+        for t in tree_flatten(out)[0]:
+            if isinstance(t, torch.Tensor) and not isinstance(t, DTensor) \\
+                    and V in t.shape:
+                self.vocab.append((name, tuple(t.shape)))
+        if name.endswith("all_gather_into_tensor") and args[2] == self.group \\
+                and (out.shape[0] == E or V in out.shape):
+            self.over_model.append(tuple(out.shape))
+        D, F = self.cfg.d_model, self.cfg.d_expert
+        if name == "aten::bmm" and tuple(args[1].shape[1:]) in ((D, F),
+                                                              (F, D)):
+            self.experts.add(args[1].shape[0])
+        return out
+"""
+
+
+@pytest.mark.parametrize("arch,shape", [
+    ("deepseek-moe-16b", (2, 1)), ("deepseek-moe-16b", (2, 2)),
+    ("jamba-v0.1-52b", (2, 1)), ("jamba-v0.1-52b", (2, 2))])
+def test_moe_step_matches_one_rank(arch, shape):
+    """Reduced MoE models (fp32, remat "dots", a vocab of 200 that no
+    other dim shares; jamba's cross entropy in chunks of 64 columns) on
+    ("data", "model") meshes whose data axis splits the rows: the loss
+    within rtol 1e-5 and the grad norm within rtol 1e-4 of one rank's, the
+    MoE aux loss being the whole batch's.  Where
+    "model" has two ranks the vocab and the experts split over it: no rank
+    makes a tensor as wide as the vocab, no all-gather over "model"
+    carries an expert leaf, the head or the embedding, and the expert
+    products run on the rank's 2 of 4 experts."""
+    outs = run_ranks(_MODEL + SEEN + f"""
+cfg = dataclasses.replace(get_config({arch!r}).reduced(),
+                          compute_dtype="float32", vocab_size=200)
+h = dataclasses.replace(hp, remat="dots",
+                        vocab_chunk=64 if "jamba" in cfg.name else 0)
+st = steps.init_state(cfg, 0, device="cpu")
+st["step"] = torch.tensor(1, dtype=torch.int32)
+b = zoo.make_inputs(cfg, 4, 3, seq=32, device="cpu")
+b["labels"] = torch.from_numpy(np.random.default_rng(9).integers(
+    0, cfg.vocab_size, (4, 32)))
+_, m1 = steps.build_train_step(cfg, h)(copy(st), b)
+mesh = shd.make_mesh({shape!r}, ("data", "model"))
+pol = shd.ShardingPolicy(mesh)
+placed = steps.place_state(copy(st), cfg, pol)
+with Seen(cfg, mesh.get_group("model")) as seen:
+    _, m2 = steps.build_train_step(cfg, h, pol)(placed, b)
+np.testing.assert_allclose(float(m2["loss"]), float(m1["loss"]), rtol=1e-5)
+np.testing.assert_allclose(float(m2["grad_norm"]), float(m1["grad_norm"]),
+                           rtol=1e-4)
+if mesh.shape["model"] == 2:
+    assert not seen.vocab, seen.vocab[:4]
+    assert not seen.over_model, seen.over_model
+    assert seen.experts == {{cfg.n_experts // 2}}, seen.experts
+print("MOE_OK", float(m1["loss"]), float(m2["loss"]))
+""", shape[0] * shape[1])
+    assert all(o.startswith("MOE_OK") for o in outs)
 
 
 def test_sharded_train_loop_checkpoints_and_resumes(tmp_path):
