@@ -2845,7 +2845,9 @@ REFERENCE_TESTCELL_ARG_BYTES = 3_890_630_692
 DRYRUN_CELLS = [["--arch", "qwen3-8b", "--shape", "train_4k"],
                 ["--arch", "deepseek-moe-16b", "--shape", "decode_32k",
                  "--remat", "full"],
-                ["--arch", "deepseek-moe-16b", "--shape", "train_4k"]]
+                ["--arch", "deepseek-moe-16b", "--shape", "train_4k"],
+                ["--arch", "mamba2-2.7b", "--shape", "train_4k"],
+                ["--arch", "jamba-v0.1-52b", "--shape", "train_4k"]]
 DRYRUN_TIMEOUT_S = 300
 # the same cells at commit 359ecfb, when the head, the logits and the
 # experts were whole over "model" on every rank (per-rank bytes and FLOPs,
@@ -2863,16 +2865,31 @@ PARENT_DRYRUN = {
     ("deepseek-moe-16b", "train_4k"): {
         "arguments": 0.796e9, "peak": 114.764e9, "flops": 1.2485e15,
         "all-gather": 8.6208e9, "all-reduce": 2.2549e10,
-        "reduce-scatter": 4.2336e9}}
+        "reduce-scatter": 4.2336e9},
+    # at commit a935b21, the mamba layers whole on every "model" rank (the
+    # same CLI on fake CUDA tensors, NVIDIA H100 80GB HBM3, 700.00 W)
+    ("mamba2-2.7b", "train_4k"): {
+        "arguments": 0.351e9, "peak": 166.906e9, "flops": 1.1337e15,
+        "all-gather": 1.4299e9, "all-reduce": 2.3819e6,
+        "reduce-scatter": 1.8299e9},
+    ("jamba-v0.1-52b", "train_4k"): {
+        "arguments": 2.423e9, "peak": 161.105e9, "flops": 1.4533e15,
+        "all-gather": 3.0358e9, "all-reduce": 5.0477e10,
+        "reduce-scatter": 1.3016e10}}
 # the gates of steps that keep the vocab and the experts split over
 # "model": the decode cell within 80 GB, within 1.05x the reference's
 # arguments and all-gathering at most 0.5 GB a step (2.18 GB at 359ecfb,
 # the experts gathered whole); qwen3's training peak at most 100 GB
 # (171.537 GB at 359ecfb, the head whole); deepseek's training cell
-# within 80 GB (114.764 GB at 359ecfb)
+# within 80 GB (114.764 GB at 359ecfb).  Of steps that split the mamba
+# heads over "model": mamba2's training peak at most 100 GB and its FLOPs
+# at most half its parent's (the mamba layers whole on every rank at
+# a935b21); jamba's training peak and FLOPs below its parent's; and
+# every ``ssd_scan`` call of both on the rank's rows and nh/16 heads
 DECODE_ARGS_OVER_REFERENCE = 1.05
 DECODE_ALL_GATHER_BYTES = 0.5e9
 TRAIN_PEAK_BYTES = 100e9
+MAMBA_FLOPS_OVER_PARENT = 0.5
 
 
 def dryrun_phase(log, torch, dev, trained, card):
@@ -2885,15 +2902,17 @@ def dryrun_phase(log, torch, dev, trained, card):
     a 1 x 1 mesh of a one-rank fake group: the predicted peak beside phase
     11's measured ``max_memory_allocated`` (within 15%), the custom ops'
     calls beside phase 11's launches per step (equal), the FLOPs beside
-    the closed form.  13b: the CLI in a subprocess on two production
-    cells of the single pod's 256 ranks: per-rank peak, whether it fits,
-    the dominant roofline term, and for the reference's test cell the
-    argument bytes against the reference's."""
+    the closed form.  13b: the CLI in a subprocess a cell, all at once,
+    on ``DRYRUN_CELLS`` over the single pod's 256 ranks: per-rank peak,
+    whether it fits, the dominant roofline term, FLOPs and collectives
+    beside the parent's, for the reference's test cell the argument bytes
+    against the reference's, and for the mamba cells ``ssd_scan``'s call
+    shapes (the rank's rows and heads)."""
     import dataclasses
     import os
     import tempfile
 
-    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.configs import SHAPES, ShapeConfig, get_config
     from repro_torch.distributed.sharding import make_mesh
     from repro_torch.kernels import common
     from repro_torch.kernels.flash_attention import visible_pairs
@@ -3036,6 +3055,38 @@ def dryrun_phase(log, torch, dev, trained, card):
                     "train_4k" and not rec["fits_hbm"]:
                 raise AssertionError(f"dry run {cell}: peak {peak} B does "
                                      f"not fit 80 GB")
+            mcfg = get_config(rec["arch"])
+            if mcfg.ssm_state:
+                # ssd_scan on [rows x heads, chunks, p, n] of the rank's
+                # rows and its nh / model heads, forward and backward
+                rows = SHAPES[rec["shape"]].global_batch // rec["mesh"][
+                    "data"]
+                heads = mcfg.ssm_heads // rec["mesh"]["model"]
+                scans = {k: rec["kernel_shapes"].get(k, []) for k in
+                         ("ssd_scan", "ssd_scan_bwd")}
+                log(f"[dryrun] {rec['arch']} x {rec['shape']}: ssd_scan "
+                    f"call shapes {scans} (want {rows} rows x {heads} of "
+                    f"{mcfg.ssm_heads} heads = {rows * heads})")
+                if not all(v and {s[0] for s in v} == {rows * heads}
+                           for v in scans.values()):
+                    raise AssertionError(f"dry run {cell}: ssd_scan shapes "
+                                         f"{scans}, want {rows * heads} "
+                                         f"rows x heads")
+                flops = cost["flops"]
+                if rec["arch"] == "mamba2-2.7b" and (
+                        peak > TRAIN_PEAK_BYTES or flops
+                        > MAMBA_FLOPS_OVER_PARENT * was["flops"]):
+                    raise AssertionError(
+                        f"dry run {cell}: peak {peak} B (at most "
+                        f"{TRAIN_PEAK_BYTES:.0f}), flops {flops:.4e} (at "
+                        f"most {MAMBA_FLOPS_OVER_PARENT} x the parent's "
+                        f"{was['flops']:.4e})")
+                if rec["arch"] == "jamba-v0.1-52b" and not (
+                        peak < was["peak"] and flops < was["flops"]):
+                    raise AssertionError(
+                        f"dry run {cell}: peak {peak} B, flops "
+                        f"{flops:.4e}, not below the parent's "
+                        f"{was['peak']:.0f} B, {was['flops']:.4e}")
 
     torch.cuda.synchronize()
     launches = dict(common.LAUNCHES)

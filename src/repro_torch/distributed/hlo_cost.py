@@ -147,9 +147,11 @@ class Cost:
     by_kind: dict = field(default_factory=dict)      # kind -> streamed bytes
     # beyond the reference's record: the matrix products' and custom ops'
     # share of ``flops`` (what ``FlopCounterMode`` counts), the calls of
-    # each custom op, and the ops seen
+    # each custom op and the shapes of their first operand, and the ops
+    # seen
     dot_flops: float = 0.0
     kernel_calls: dict = field(default_factory=collections.Counter)
+    kernel_shapes: dict = field(default_factory=dict)
     n_ops: int = 0
 
     def _bk(self, kind: str, nbytes: float):
@@ -180,6 +182,7 @@ class _Op:
     rbytes: int               # result bytes
     operands: list            # producers (op indices) of tensor operands
     cbytes: int = 0           # a collective's operand bytes
+    shape: tuple = ()         # a custom op's first operand's shape
 
 
 def _tensors(x) -> list:
@@ -265,6 +268,7 @@ class CostMode(TorchDispatchMode):
         elif func._overloadpacket in flop_registry:
             op.rule = "custom" if ns != "aten" else "dot"
             op.kind = name if ns != "aten" else "dot"
+            op.shape = tuple(ins[0].shape) if ins else ()
             op.flops = float(flop_registry[func._overloadpacket](
                 *args, **kwargs, out_val=out))
         elif base in _REDUCTIONS:
@@ -288,6 +292,7 @@ class CostMode(TorchDispatchMode):
         elif ns != "aten":
             # a custom op without a flop formula: its bytes only
             op.rule, op.kind, op.flops = "custom", name, 0.0
+            op.shape = tuple(ins[0].shape) if ins else ()
         self.ops.append(op)
         for t in outs + _written(func, args, kwargs):
             self._producer[t] = idx
@@ -306,6 +311,7 @@ class CostMode(TorchDispatchMode):
                 c.dot_flops += op.flops
             if op.rule == "custom":
                 c.kernel_calls[op.kind] += 1
+                c.kernel_shapes.setdefault(op.kind, set()).add(op.shape)
             if op.rule == "collective":
                 c.collectives[op.kind]["count"] += 1
                 c.collectives[op.kind]["bytes"] += op.cbytes

@@ -16,21 +16,30 @@ forward, identity backward) sums the blocks' partial outputs.
   the rank's heads only.  Where the kv heads do not split over the axis
   but each rank's q heads share one kv head (grouped-query attention with
   fewer kv heads than ranks), every rank runs that kv head, as Megatron
-  replicates them.  The VLM's cross layers read the global head counts,
-  so the VLM trains with attention unsplit, as do configurations whose
-  heads or hidden units the axis does not divide (``plan``).  Serving
-  splits the attention alone wherever the cache's kv heads split over the
-  axis (``attention_split``; the VLM's cross layers too).
+  replicates them.  The VLM's self and cross layers split alike (the
+  image embeddings are batch inputs, whole on every rank).
+  Configurations whose heads or hidden units the axis does not divide
+  train with attention unsplit (``plan``).  Serving splits the attention
+  alone wherever the cache's kv heads split over the axis
+  (``attention_split``; the VLM's cross layers too).
 * ``ModelSplit`` (``model_split``), in every family and every sharded
   step, with or without the attention split: the blocks the specs shard
   over "model" of the vocab (Megatron's vocab-parallel embedding, head
   and cross entropy: ``lookup``, ``merge_lse``, ``label_logit``,
-  ``argmax``, ``columns``) and of the MoE experts and shared experts
-  (expert parallelism, ``layers.moe_ffn``) stay the rank's own; a leaf
-  the specs leave whole over "model" is computed whole.
+  ``argmax``, ``columns``), of the MoE experts and shared experts
+  (expert parallelism, ``layers.moe_ffn``) and of the mamba heads
+  (``heads``, ``inner``: ``layers.mamba_layer`` runs the rank's nh/m
+  heads on its ``wz`` / ``wx`` / ``wdt`` columns and ``wo`` rows, uses
+  ``wb``, ``wc`` and the conv whole and the per-head scalars and the
+  norm narrowed to its heads, and all-reduces its gated norm's sum of
+  squares over "model", ``psum``) stay the rank's own; a leaf the specs
+  leave whole over "model" is computed whole.  The mamba rules live here
+  because, unlike the attention split, they need no config of local
+  widths and hold in every step: ``mamba_layer`` reads its widths from
+  the split.
 
-The dense MLPs of the serving steps, the norms and the mamba layers run
-whole on every rank.
+The dense MLPs of the serving steps and the norms run whole on every
+rank, as do the mamba layers whose heads the axis does not divide.
 
 ``BlockGather`` is the ``gather`` hook of ``models/zoo.py``: it makes a
 layer's working tensors from the rank's blocks while the layer runs
@@ -52,7 +61,7 @@ import torch
 
 from repro_torch.distributed import sharding as shd
 
-_FAMILIES = ("dense", "audio", "moe", "hybrid")
+_FAMILIES = ("dense", "audio", "moe", "hybrid", "vlm")
 
 
 class _Into(torch.autograd.Function):
@@ -216,12 +225,15 @@ class ModelSplit:
     own, (start, width) each, None where the specs leave the dim whole:
     ``embed`` the rank's rows of the embedding table, ``vocab`` its
     columns of the head (so of the logits), ``experts`` its MoE experts,
-    ``shared`` its shared experts' hidden units."""
+    ``shared`` its shared experts' hidden units, ``heads`` its mamba heads
+    and ``inner`` their channels (``heads`` times the head dim)."""
     mesh: object
     embed: tuple[int, int] | None
     vocab: tuple[int, int] | None
     experts: tuple[int, int] | None
     shared: tuple[int, int] | None
+    heads: tuple[int, int] | None = None
+    inner: tuple[int, int] | None = None
 
     # leaf path (within a layer) -> (the split's field, the dim it splits)
     _DIMS = {("embed",): ("embed", 0), ("lm_head",): ("vocab", 1),
@@ -229,7 +241,16 @@ class ModelSplit:
              ("moe", "wo"): ("experts", 0),
              ("moe", "shared", "wi"): ("shared", 1),
              ("moe", "shared", "wg"): ("shared", 1),
-             ("moe", "shared", "wo"): ("shared", 0)}
+             ("moe", "shared", "wo"): ("shared", 0),
+             ("mamba", "wz"): ("inner", 1), ("mamba", "wx"): ("inner", 1),
+             ("mamba", "wdt"): ("heads", 1), ("mamba", "wo"): ("inner", 0)}
+    # the leaves the mamba split uses whole, by the dim it narrows them
+    # on (None: whole; the conv's rank channels are ``layers.mamba_layer``'s
+    # choice): their gradients are summed over "model"
+    _WHOLE = {("mamba", "a_log"): ("heads", 0), ("mamba", "d"): ("heads", 0),
+              ("mamba", "dt_bias"): ("heads", 0),
+              ("mamba", "norm"): ("inner", 0), ("mamba", "wb"): None,
+              ("mamba", "wc"): None, ("mamba", "conv"): None}
 
     @property
     def group(self):
@@ -243,13 +264,25 @@ class ModelSplit:
 
     def rule(self, path):
         """As ``TensorParallel.rule``: (dim, start, width) of the rank's
-        block of the leaf at ``path``, None where the leaf is whole."""
-        for key in (tuple(path[-3:]), tuple(path[-2:])):
+        block of the leaf at ``path``, None where the leaf is whole, dim
+        None for a leaf the split uses whole."""
+        key = tuple(path[-2:])
+        if key in self._WHOLE:
+            if self.heads is None:
+                return None
+            how = self._WHOLE[key]
+            return (None, 0, 0) if how is None else \
+                (how[1],) + getattr(self, how[0])
+        for key in (tuple(path[-3:]), key):
             if key in self._DIMS:
                 field, dim = self._DIMS[key]
                 block = getattr(self, field)
                 return None if block is None else (dim,) + block
         return None
+
+    def psum(self, x):
+        """``x`` summed over "model", its gradient too (``psum``)."""
+        return psum(x, [self.group])
 
     def lookup(self, table, tokens, dtype):
         """The embedding of ``tokens`` from the rank's rows of the table
@@ -296,13 +329,17 @@ def model_split(mesh, specs) -> ModelSplit | None:
     if mesh.shape.get("model", 1) <= 1:
         return None
 
-    blocks = dict.fromkeys(("embed", "vocab", "experts", "shared"))
+    blocks = dict.fromkeys(("embed", "vocab", "experts", "shared", "heads",
+                            "inner"))
     for path, (field, dim) in ModelSplit._DIMS.items():
         if path in specs:
             shape, spec = specs[path]
             if shd.spec_dims(spec).get("model") == dim:
                 blocks[field] = shd.block_of(
                     mesh, shd.only_axes(spec, ("model",)), dim, shape[dim])
+    if blocks["heads"] is None or blocks["inner"] is None:
+        # the mamba layers split by heads, or run whole
+        blocks["heads"] = blocks["inner"] = None
     if not any(blocks.values()):
         return None
     return ModelSplit(mesh, **blocks)

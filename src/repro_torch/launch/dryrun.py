@@ -15,6 +15,9 @@ records:
   * hlo_cost  -> FLOPs, bytes and collective bytes per rank, counted from
                  the dispatcher (``distributed/hlo_cost.py``)
   * roofline  -> the three terms on the H100 constants of ``launch/mesh.py``
+  * kernel_calls, kernel_shapes -> the custom ops' calls and the distinct
+                 shapes of their first operand (the heads a rank's
+                 attention or ``ssd_scan`` kernel would run)
 
 Two private torch modules carry it: the fake process group
 (``torch.testing._internal.distributed.fake_pg``) and the memory tracker
@@ -197,6 +200,8 @@ def lower_cell(arch: str, shape_name: str, mesh, hp: steplib.HParams, *,
         "hlo_cost": cost.as_dict(),
         "dot_flops": cost.dot_flops,
         "kernel_calls": dict(cost.kernel_calls),
+        "kernel_shapes": {k: sorted(list(s) for s in v)
+                          for k, v in cost.kernel_shapes.items()},
         "lower_s": round(t_lower, 2),
     }
 

@@ -30,9 +30,13 @@ only for the one layer that uses it, while that layer runs.
   lookups over "model"; the head computes the rank's columns of the
   logits; a MoE layer runs the rank's E/m experts (and shared experts'
   hidden units) on every token's rows routed to them and sums the
-  partial outputs over "model" (expert parallelism, ``layers.moe_ffn``).
-  A leaf whose spec leaves it whole over "model" (a vocab or an expert
-  count the axis does not divide) is computed whole.
+  partial outputs over "model" (expert parallelism, ``layers.moe_ffn``);
+  a mamba layer runs the rank's nh/m heads (``layers.mamba_layer``: its
+  columns of ``wz`` / ``wx`` / ``wdt`` and rows of ``wo``, ``ssd_scan`` on
+  [B·nh/m, nc, p, n]; its input's gradient and its output summed over
+  "model", its gated norm's sum of squares all-reduced).  A leaf whose
+  spec leaves it whole over "model" (a vocab, an expert count or mamba
+  heads the axis does not divide) is computed whole.
 * Train: the rows of the batch split over the data axes (``batch_specs``;
   whole where they do not divide).  The cross entropy merges the ranks'
   log-sum-exps over "model" and takes each label's logit from the rank
@@ -54,17 +58,27 @@ only for the one layer that uses it, while that layer runs.
   the dense MLPs whole).  It allocates only the rank's blocks of the cache
   and returns the cache as DTensors at ``cache_specs``: rows over the
   data axes, kv heads over "model" where they divide it, else the
-  sequence; mamba states' heads and conv channels over "model".  The
-  last logits, the rank's columns, are all-gathered whole (they are
-  small).
+  sequence; mamba states' heads and conv channels over "model".  Where
+  the mamba heads split, a rank's SSM state block is its heads' state,
+  which it computes and writes as it is.  The conv cache's blocks over
+  "model" are (di + 2n)/m contiguous channels, which do not line up with
+  a rank's x channels: the rank all-gathers each layer's new x rows
+  [B_local, 3, di/m] over "model", puts the B / C rows it computed
+  itself beside them, and writes its spec block of that (one small
+  all-gather a layer; a write of exactly the spec block needs the other
+  ranks' rows of it).  The last logits, the rank's columns, are
+  all-gathered whole (they are small).
 * Decode takes and returns the cache at ``cache_specs`` and writes only
   the rank's blocks; no collective carries an attention cache block.
   Heads split as in prefill; where the sequence splits, each rank attends
   over its positions (``layers.decode_attention(..., offset=,
-  with_lse=True)``) and the ranks' parts merge over "model" by their log-sum-exp; only the rank that holds
-  ``pos`` writes the token's k and v.  A mamba layer's states are
-  gathered over "model" for the layer and the rank's blocks written
-  back.  The next token of a row is the argmax merged over the ranks'
+  with_lse=True)``) and the ranks' parts merge over "model" by their
+  log-sum-exp; only the rank that holds ``pos`` writes the token's k and
+  v.  A mamba layer's conv rows are all-gathered whole over "model" for
+  the layer and the rank's block written back as in prefill; its SSM
+  state, split by heads, is read and written in place, and no collective
+  carries it (whole over "model", gathered, where the heads do not
+  split).  The next token of a row is the argmax merged over the ranks'
   columns (each rank's largest logit and its index all-gathered over
   "model", the lowest index on ties), and the next tokens are
   all-gathered whole.
@@ -597,7 +611,9 @@ class CacheLayout:
     ``zoo.prefill`` / ``zoo.decode_step`` take as ``layout``.  Kv heads
     split over "model" where the specs split them: then ``tp`` is the
     attention split (``cfg`` its head counts), else None and ``cfg`` the
-    model's."""
+    model's.  Mamba heads split over "model" where the specs split them
+    (``split.heads``): the SSM state's block over "model" is then the
+    rank's heads, read and written in place."""
 
     def __init__(self, cfg: ModelConfig, policy: ShardingPolicy, cache):
         self.mesh = mesh = policy.mesh
@@ -616,6 +632,13 @@ class CacheLayout:
         self.cfg = cfg if self.tp is None else self.tp.cfg
         table = layer_specs(cfg, policy)
         self.split = tensor_parallel.model_split(mesh, table)
+        self.heads = self.split is not None and self.split.heads is not None
+        if self.heads and "ssm" in self.shapes:
+            shape, spec = self.shapes["ssm"]
+            if shd.block_of(mesh, spec, 1, shape[1]) != self.split.heads:
+                raise ValueError(f"{cfg.name}: the SSM state's heads over "
+                                 f"model ({spec}) are not the layers' "
+                                 f"{self.split.heads}")
         self.gather = tensor_parallel.BlockGather(mesh, table, (), self.tp,
                                                   self.split)
 
@@ -652,17 +675,31 @@ class CacheLayout:
         """Write the rank's block of a layer's cache tensor ``value`` (the
         rank's rows; whole over "model" but for split kv heads, which are
         the rank's already; k and v from position 0, perhaps shorter than
-        the cache) into the layer's block ``dst``."""
+        the cache; under the mamba split the state of the rank's heads and
+        the conv rows of its channels, ``layers.mamba_layer``'s) into the
+        layer's block ``dst``."""
         if key in zoo.KV_KEYS:
             seq = self._seq("xk" if key in ("xk", "xv") else "k")
             zoo.put_kv(dst, value, 0 if seq is None else seq[0])
-        else:
-            dst.copy_(shd.local_shard(value, self.shapes[key][1],
-                                      self.mesh))
+            return
+        if self.heads and key == "ssm":
+            dst.copy_(value)
+            return
+        if self.heads and key == "conv":
+            # the ranks' x channels all-gathered over "model", then the
+            # B / C channels every rank computed: the whole conv rows
+            n2 = value.shape[-1] - self.split.inner[1]
+            xs = shd.gather(value[..., :-n2], P(None, None, "model"),
+                            self.mesh)
+            value = torch.cat([xs, value[..., -n2:]], dim=-1)
+        dst.copy_(shd.local_shard(value, self.shapes[key][1], self.mesh))
 
     def read(self, key: str, block):
-        """A mamba layer's state whole over "model" from the rank's
-        block."""
+        """A mamba layer's cache for the layer from the rank's block: the
+        conv rows whole over "model" (all-gathered); the SSM state whole,
+        or under the mamba split the block itself (the rank's heads)."""
+        if self.heads and key == "ssm":
+            return block
         return shd.gather(block, self.shapes[key][1], self.mesh)
 
     def empty(self, cache, device):

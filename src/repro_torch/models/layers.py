@@ -521,17 +521,55 @@ def _causal_conv(x, w, cache=None):
     return out, new_cache
 
 
+def _gated_norm(y, w, eps, split, width):
+    """``rms_norm`` of the gated output over all its ``width`` channels;
+    under a head split ``y`` is the rank's channels: its sum of squares
+    is summed over "model" before the ``rsqrt`` (``ModelSplit.psum``)."""
+    if split is None:
+        return rms_norm(y, w, eps)
+    ss = y.to(_acc(y.dtype)).square().sum(-1, keepdim=True)
+    inv = torch.rsqrt(split.psum(ss) / width + eps)
+    return (y * inv.to(y.dtype)) * (1.0 + w).to(y.dtype)
+
+
 def mamba_layer(cfg, p, x, *, conv_cache=None, ssm_state=None, decode=False,
-                return_state=False):
+                return_state=False, split=None):
     """Mamba2 block.  x: [B, S, D] -> (y, (conv cache, state)).
 
     Prefill: ``return_state=True`` gives the decode caches (the state is
-    None without it).  Decode: S = 1 with both caches."""
+    None without it).  Decode: S = 1 with both caches.
+
+    ``split``: a sharded step's ``ModelSplit``.  Where it splits the mamba
+    heads over "model" (``split.heads``), the rank runs its nh/m heads:
+    ``p`` holds its ``wz`` / ``wx`` columns, ``wdt`` columns and ``wo``
+    rows, ``a_log`` / ``d`` / ``dt_bias`` and ``norm`` narrowed to its
+    heads and channels, and ``wb``, ``wc`` and ``conv`` whole (every rank
+    computes B and C for all tokens).  The conv runs on the rank's x
+    channels and all B / C channels (depthwise: no channel reads
+    another's), taken from the whole ``conv`` and ``conv_cache``; the
+    conv cache returned and ``ssm_state`` are the rank's channels and
+    heads.  The gated norm's sum of squares over all ``ssm_inner``
+    channels is all-reduced over "model", as is the output
+    (``split.out``); the input passes ``split.into``."""
     cdt = x.dtype
     acc = _acc(cdt)
     B, S, _ = x.shape
     di, n, nh, ph = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads, \
         cfg.ssm_head_dim
+    conv_w = p["conv"]
+    if split is not None and split.heads is None:
+        split = None
+    if split is not None:
+        x0, di = split.inner
+        nh = split.heads[1]
+        x = split.into(x)
+
+        def own(t):
+            """The rank's x channels and every B / C channel (last dim)."""
+            return torch.cat([t[..., x0:x0 + di], t[..., -2 * n:]], dim=-1)
+        conv_w = own(conv_w)
+        if conv_cache is not None:
+            conv_cache = own(conv_cache)
 
     z = x @ p["wz"].to(cdt)                                   # [B,S,di]
     xin = x @ p["wx"].to(cdt)
@@ -540,7 +578,7 @@ def mamba_layer(cfg, p, x, *, conv_cache=None, ssm_state=None, decode=False,
     dt_raw = x @ p["wdt"].to(cdt)                             # [B,S,nh]
 
     xbc = torch.cat([xin, Bm, Cm], dim=-1)
-    xbc, new_conv = _causal_conv(xbc, p["conv"].to(cdt), conv_cache)
+    xbc, new_conv = _causal_conv(xbc, conv_w.to(cdt), conv_cache)
     xin, Bm, Cm = torch.split(F.silu(xbc), [di, n, n], dim=-1)
 
     dt = F.softplus(dt_raw.to(acc) + p["dt_bias"].to(acc))
@@ -561,8 +599,12 @@ def mamba_layer(cfg, p, x, *, conv_cache=None, ssm_state=None, decode=False,
 
     y = y + xh.to(acc) * p["d"].to(acc)[None, None, :, None]
     y = y.reshape(B, S, di).to(cdt)
-    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    return y @ p["wo"].to(cdt), (new_conv, new_state)
+    y = _gated_norm(y * F.silu(z), p["norm"], cfg.norm_eps, split,
+                    cfg.ssm_inner)
+    out = y @ p["wo"].to(cdt)
+    if split is not None:
+        out = split.out(out)
+    return out, (new_conv, new_state)
 
 
 def _ssd_final_state(xh, dt, a_log, Bm):

@@ -29,7 +29,8 @@ that makes a layer's tensors from them inside the layer's function, so a
 parameter is whole only while its layer runs; ``tp`` splits the attention
 (and in training the MLPs) over the "model" axis, ``split`` (a
 ``distributed/tensor_parallel.ModelSplit``) the vocab (embedding, head,
-logits and cross entropy) and the MoE experts; the serving passes also
+logits and cross entropy), the MoE experts and the mamba heads; the
+serving passes also
 take the rank's cache blocks and a ``layout`` that says how they split.
 """
 
@@ -354,9 +355,11 @@ def _attn_block(cfg, p, x, positions, window, attn_impl, tp=None):
     return x + a, k, v
 
 
-def _mamba_block(cfg, p, x, return_state=False):
+def _mamba_block(cfg, p, x, return_state=False, split=None):
+    """x + the mamba layer -> (x, its caches); ``split`` as in
+    ``forward`` (``layers.mamba_layer`` runs the rank's heads)."""
     y, state = L.mamba_layer(cfg, p["mamba"], _mixer_norm(cfg, p, x),
-                             return_state=return_state)
+                             return_state=return_state, split=split)
     return x + y, state
 
 
@@ -455,8 +458,8 @@ def forward(cfg: ModelConfig, params, batch, *, remat="dots",
 
     ``split``: a sharded step's ``ModelSplit``: the embedding looks up
     the rank's rows of the table, the logits are the rank's columns
-    [B, S, V/m] where the vocab splits over "model", and the MoE layers
-    run the rank's experts."""
+    [B, S, V/m] where the vocab splits over "model", the MoE layers run
+    the rank's experts and the mamba layers its heads."""
     _check_family(cfg)
     cons = constrain if constrain is not None else (lambda a: a)
     cdt = _dtype(cfg.compute_dtype)
@@ -476,14 +479,14 @@ def forward(cfg: ModelConfig, params, batch, *, remat="dots",
             x, _, _ = _attn_block(cfg, lp, x, positions, window, attn_impl,
                                   tp)
         else:
-            x, _ = _mamba_block(cfg, lp, x)
+            x, _ = _mamba_block(cfg, lp, x, split=split)
         return _ffn_block(cfg, lp, x, tp, rows, split)
 
     for mixer, lp, window, _, first in _layers(cfg, params):
         if mixer == "cross":
             if gather is not None:
                 lp = gather(lp)
-            x, _, _ = _cross_block(cfg, lp, x, image)
+            x, _, _ = _cross_block(cfg, lp, x, image, tp)
             x, aux = _ffn_block(cfg, lp, x, tp, rows, split)
         else:
             x, aux = _remat(functools.partial(layer_fn, mixer, window, first),
@@ -646,7 +649,8 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
     ``layout``: ``layout.kv(key)`` gives ``layers.attn_decode``'s keyword
     arguments for a cache leaf split by sequence (the block's first
     position and the merge of the ranks' parts), ``layout.read`` and
-    ``layout.put`` a mamba layer's states whole and the rank's block of
+    ``layout.put`` a mamba layer's states for the layer (whole, or the
+    rank's heads' state under the mamba split) and the rank's block of
     the new ones, and ``rows`` and ``split`` as ``forward``: under a vocab
     split the next tokens are the argmax merged over the ranks' columns
     (``ModelSplit.argmax``)."""
@@ -678,7 +682,7 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
         else:
             a, (conv, state) = L.mamba_layer(
                 cfg, lp["mamba"], h, conv_cache=read("conv", c["conv"]),
-                ssm_state=read("ssm", c["ssm"]), decode=True)
+                ssm_state=read("ssm", c["ssm"]), decode=True, split=split)
             _put(layout, "conv", c["conv"], conv)
             _put(layout, "ssm", c["ssm"], state)
         x, _ = _ffn_block(cfg, lp, x + a, rows=rows, split=split,
@@ -702,8 +706,9 @@ def prefill(cfg: ModelConfig, params, batch, *, attn_impl="flash",
     ``decode_step`` does, the rank's cache blocks, ``layout``, whose
     ``put`` writes the rank's block of each layer's cache tensors
     (computed for the rank's rows, whole over "model" but for the split
-    heads), and ``split``: under a vocab split the last logits are
-    computed on the rank's columns and all-gathered over "model"."""
+    attention or mamba heads), and ``split``: under a vocab split the
+    last logits are computed on the rank's columns and all-gathered over
+    "model"."""
     _check_family(cfg)
     cdt = _dtype(cfg.compute_dtype)
     x = _embed(cfg, params, batch, cdt, gather, split)
@@ -728,7 +733,8 @@ def prefill(cfg: ModelConfig, params, batch, *, attn_impl="flash",
             _put(layout, "k", c["k"], k)
             _put(layout, "v", c["v"], v)
         else:
-            x, (conv, state) = _mamba_block(cfg, lp, x, return_state=True)
+            x, (conv, state) = _mamba_block(cfg, lp, x, return_state=True,
+                                            split=split)
             _put(layout, "conv", c["conv"], conv)
             _put(layout, "ssm", c["ssm"], state)
         x, _ = _ffn_block(cfg, lp, x, rows=rows, split=split,

@@ -135,14 +135,20 @@ def _batch_local(cfg, shape, policy, mesh) -> int:
 # (one q head a rank, its one kv head replicated) sums the gradients of k
 # and v (a kv head spans four "model" blocks) and of the q / k norms a
 # split block uses whole over "model" too; deepseek-moe's four kv heads
-# split, one a rank
+# split, one a rank; mamba2's 8 heads split, 2 a rank: its projections of
+# the rank's heads are its own, the leaves it uses whole (B, C, the conv)
+# or narrows to its heads (the per-head scalars, the norm) sum their
+# gradients over "model"
+_MAMBA = ("wb", "wc", "conv", "a_log", "d", "dt_bias", "norm")
 _SPLIT = {"qwen3-8b": {("attn", "q"), ("attn", "o"), ("mlp", "wi"),
                        ("mlp", "wg"), ("mlp", "wo")},
           "deepseek-moe-16b": {("attn", "q"), ("attn", "k"), ("attn", "v"),
-                               ("attn", "o")}}
+                               ("attn", "o")},
+          "mamba2-2.7b": {("mamba", k) for k in ("wz", "wx", "wdt", "wo")}}
 _SUM_MODEL = {"qwen3-8b": {("attn", "k"), ("attn", "v"), ("attn", "qn"),
                            ("attn", "kn")},
-              "deepseek-moe-16b": set()}
+              "deepseek-moe-16b": set(),
+              "mamba2-2.7b": {("mamba", k) for k in _MAMBA}}
 
 
 def _model_block(path) -> bool:
@@ -179,7 +185,11 @@ def test_train_cell(arch, remat, tp_reduces):
     also all-reduces its float32 partial output in the forward, its
     gates' gradient [T, K] in the backward, and its expert counts and
     gate sums (2 E floats) over "data" in the forward, the recompute and
-    the backward.  Arguments: the rank-local params and moments, the
+    the backward.  A mamba layer split by heads (mamba2) all-reduces
+    over "model" its output in the forward, its input's gradient in the
+    backward, and its gated norm's float32 sum of squares (a float a
+    token) in the forward, the recompute and the backward.  Arguments:
+    the rank-local params and moments, the
     step, the rank's rows of the batch.  Peak: at most the arguments,
     plus one layer gathered whole, plus the activations: the peak over
     its arguments of the unsharded step on one rank's rows
@@ -190,10 +200,9 @@ def test_train_cell(arch, remat, tp_reduces):
     ag = rs = ar = 0
     for path, s, dt, sp in leaves:
         live = shd.sharded_axes(sp, mesh)
-        if _model_block(path) or (tp_reduces
-                                  and path[-2:] in _SPLIT[arch]):
+        if _model_block(path) or path[-2:] in _SPLIT[arch]:
             gathered, summed = [a for a in live if a != "model"], ("data",)
-        elif tp_reduces and path[-2:] in _SUM_MODEL[arch]:
+        elif path[-2:] in _SUM_MODEL[arch]:
             gathered, summed = live, ("data", "model")
         else:
             gathered, summed = live, ("data",)
@@ -205,6 +214,9 @@ def test_train_cell(arch, remat, tp_reduces):
     tokens = shape.global_batch // MESH[0] * shape.seq_len
     act = tokens * cfg.d_model * torch.bfloat16.itemsize
     ar += (2 + tp_reduces * cfg.n_layers) * act + 3 * tokens * 4
+    if cfg.ssm_state:
+        norm = (3 if remat == "dots" else 2) * tokens * 4
+        ar += cfg.n_layers * (2 * act + norm)
     if cfg.n_experts:
         aux = (3 if remat == "dots" else 2) * 2 * cfg.n_experts * 4
         ar += cfg.n_layers * (2 * act + tokens * cfg.top_k * 4 + aux)

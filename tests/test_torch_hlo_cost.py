@@ -309,6 +309,7 @@ def test_attention_fake_dtypes(dtype):
         c, _ = hlo_cost.analyze_cost(step)
     assert dict(c.kernel_calls) == {"flash_attention_fwd": 1,
                                     "flash_attention_bwd": 1}
+    assert c.kernel_shapes["flash_attention_fwd"] == {(1, 32, 4, 16)}
     pairs = fa.visible_pairs(32, 32, True, 0)
     assert c.dot_flops == 14 * 16 * pairs * 4
 

@@ -6,9 +6,10 @@ Two layouts: the kv heads split over "model" (reduced gemma3: two kv
 heads, local windows) and the sequence split over it (reduced qwen3: one
 kv head, a window of 8 in its first layer, so that a rank's whole block
 falls outside the window).  The other families run through both: reduced
-jamba (mamba states split over "model", gathered a layer at a time and
-their blocks written back; MoE layers; its one kv head splits the
-sequence), the reduced VLM with two kv heads (self and cross layers split
+jamba (its mamba heads split over "model", each rank's SSM state block
+its heads', the conv rows gathered a layer at a time and their blocks
+written back; MoE layers; its one kv head splits the sequence), reduced
+mamba2 (the mamba layers alone, no kv cache: "states"), the reduced VLM with two kv heads (self and cross layers split
 by heads) and with its one (the cached patch keys and values split by
 sequence, merged over "model"), reduced deepseek-moe (MoE layers under the
 attention-only head split), reduced dbrx (MoE layers under the sequence
@@ -21,8 +22,10 @@ the unsharded steps itself and holds the sharded ones to them: greedy
 tokens ``torch.equal``, the prefill's last logits within 1e-5 of
 max|logits|, each rank's cache block within 1e-5 of max|cache| of the
 matching block of the unsharded cache after the prefill and after each
-decode step, no cache leaf larger than its block, and no collective of a
-decode step reading or writing an attention cache block.
+decode step, no cache leaf larger than its block, no collective of a
+decode step reading or writing an attention cache block or an SSM state
+block, and the mamba layers' ``wz`` / ``wx`` / ``wdt`` / ``wo`` gathered
+over "data" alone.
 """
 
 import pytest
@@ -42,6 +45,7 @@ _CASES = {
     "moe-heads": ("deepseek-moe-16b", {}, "heads"),
     "moe-sequence": ("dbrx-132b", {}, "sequence"),
     "embeds": ("musicgen-medium", {}, "heads"),
+    "ssm": ("mamba2-2.7b", {}, "states"),
 }
 
 
@@ -49,6 +53,7 @@ _CASES = {
 def test_prefill_then_decode_hold_cache_blocks(case):
     arch, over, layout = _CASES[case]
     outs = run_ranks(f"""
+import collections
 import dataclasses
 import numpy as np
 from torch.distributed.tensor import DTensor
@@ -57,6 +62,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from repro_torch.checkpoint.ckpt import tree_items
 from repro_torch.configs import get_config
 from repro_torch.distributed import sharding as shd
+from repro_torch.distributed import tensor_parallel
 from repro_torch.launch import steps
 from repro_torch.models import zoo
 
@@ -95,7 +101,8 @@ assert float((got_l - want_l).abs().max()) <= 1e-5 * scale, \
     float((got_l - want_l).abs().max()) / scale
 specs = steps._spec_leaves(steps.cache_specs(cfg, pol, want_c))
 layout = steps.CacheLayout(cfg, pol, want_c)
-split = "heads" if layout.tp is not None else "sequence"
+split = "heads" if layout.tp is not None else "sequence" \
+    if "k" in layout.shapes else "states"
 assert split == {layout!r}, split
 
 
@@ -112,10 +119,36 @@ def check(when):
 
 
 check("prefill")
+# the attention caches and, split by heads, the SSM states
 blocks = {{g.to_local().untyped_storage().data_ptr()
-          for k, g in tree_items(got_c) if k[-1] in zoo.KV_KEYS}}
+          for k, g in tree_items(got_c) if k[-1] in zoo.KV_KEYS + ("ssm",)}}
+assert layout.heads == bool(cfg.ssm_state), layout.heads
 one = steps.build_serve_step(cfg, hp)
 sharded = steps.build_serve_step(cfg, hp, pol)
+# the mesh axes each mamba projection is gathered over, by leaf
+over = collections.defaultdict(set)
+inside = []
+leaf = tensor_parallel.BlockGather.leaf
+gather_block = shd.gather_block
+
+
+def spy_leaf(self, path, block):
+    inside.append(path)
+    try:
+        return leaf(self, path, block)
+    finally:
+        inside.pop()
+
+
+def spy_gather(block, spec, mesh, sum_axes=()):
+    if inside and inside[-1][-2:] in MAMBA:
+        over[inside[-1][-1]].update(shd.sharded_axes(spec, mesh))
+    return gather_block(block, spec, mesh, sum_axes)
+
+
+MAMBA = {{("mamba", k) for k in ("wz", "wx", "wdt", "wo")}}
+tensor_parallel.BlockGather.leaf = spy_leaf
+shd.gather_block = spy_gather
 t1 = t2 = torch.argmax(want_l, -1).to(torch.int32)
 for pos in range(12, 16):
     t1, _ = one(params, want_c, t1, pos)
@@ -124,6 +157,8 @@ for pos in range(12, 16):
     assert torch.equal(t1, t2), (pos, t1, t2)
     assert moved.storages and blocks and not moved.storages & blocks, pos
     check(pos)
+assert dict(over) == ({{k: {{"data"}} for k in ("wz", "wx", "wdt", "wo")}}
+                      if cfg.ssm_state else {{}}), dict(over)
 print("DECODE_OK", split)
 """, 4)
     assert all(o.split() == ["DECODE_OK", layout] for o in outs)

@@ -170,11 +170,13 @@ print("BLOCK_OK", dict(calls))
 def test_tensor_parallel_step_matches_one_rank():
     """A (1, 2) mesh splits heads and MLP units over "model": qwen3 (its
     one kv head on both ranks) with remat "dots" and 2 microbatches,
-    gemma3 (kv heads split, local windows), deepseek-moe (experts split)
-    and jamba (experts split, mamba whole), the vocab split too; each
-    rank's attention sees its 2 of 4 heads, and the loss and grad norm are
+    gemma3 (kv heads split, local windows), deepseek-moe (experts split),
+    jamba (experts and mamba heads split), mamba2 (mamba heads split) and
+    the VLM (self and cross attention and MLPs split), the vocab split
+    too; each rank's attention kernel sees its 2 of 4 heads and its
+    ``ssd_scan`` its 4 of 8 mamba heads, and the loss and grad norm are
     one rank's."""
-    outs = run_ranks(_MODEL + """
+    outs = run_ranks(_MODEL + SEEN + """
 from repro_torch.distributed import tensor_parallel
 from repro_torch.kernels import flash_attention as fa
 heads = []
@@ -185,7 +187,8 @@ mesh = shd.make_mesh((1, 2), ("data", "model"))
 pol = shd.ShardingPolicy(mesh)
 cases = [("qwen3-8b", dict(remat="dots", accum=2)),
          ("gemma3-4b", {}), ("deepseek-moe-16b", {}),
-         ("jamba-v0.1-52b", {})]
+         ("jamba-v0.1-52b", {}), ("mamba2-2.7b", {}),
+         ("llama-3.2-vision-90b", {})]
 for arch, kw in cases:
     c = dataclasses.replace(get_config(arch).reduced(),
                             compute_dtype="float32")
@@ -195,21 +198,26 @@ for arch, kw in cases:
     b = zoo.make_inputs(c, 4, 3, seq=32, device="cpu")
     b["labels"] = batch["labels"] % c.vocab_size
     tp = tensor_parallel.plan(c, pol)
-    assert tp is not None and tp.cfg.n_heads == c.n_heads // 2, arch
+    attn = c.family != "ssm"
+    assert (tp is not None and tp.cfg.n_heads == c.n_heads // 2) == attn, \
+        arch
     heads.clear()
     _, m1 = steps.build_train_step(c, h)(copy(st), b)
-    assert set(heads) == {c.n_heads}, (arch, heads)
+    assert set(heads) == ({c.n_heads} if attn else set()), (arch, heads)
     heads.clear()
-    _, m2 = steps.build_train_step(c, h, pol)(
-        steps.place_state(copy(st), c, pol), b)
-    assert set(heads) == {c.n_heads // 2}, (arch, heads)
+    with Seen(c, mesh.get_group("model")) as seen:
+        _, m2 = steps.build_train_step(c, h, pol)(
+            steps.place_state(copy(st), c, pol), b)
+    assert set(heads) == ({c.n_heads // 2} if attn else set()), (arch,
+                                                                  heads)
+    # ssd_scan runs on [rows x heads, chunks, p, n]: 4 rows, 4 of 8 heads
+    assert seen.scans == ({4 * c.ssm_heads // 2} if c.ssm_state
+                          else set()), (arch, seen.scans)
     np.testing.assert_allclose(float(m2["loss"]), float(m1["loss"]),
                                rtol=1e-5, err_msg=arch)
     np.testing.assert_allclose(float(m2["grad_norm"]),
                                float(m1["grad_norm"]), rtol=1e-4,
                                err_msg=arch)
-vlm = get_config("llama-3.2-vision-90b").reduced()
-assert tensor_parallel.plan(vlm, pol) is None
 print("TP_OK")
 """, 2)
     assert all(o.startswith("TP_OK") for o in outs)
@@ -220,7 +228,8 @@ print("TP_OK")
 # head or embedding); ``over_model`` the all-gathers over "model" whose
 # result leads with the expert count or spans the vocab (an expert leaf,
 # the head or the embedding gathered whole over "model"); ``experts`` the
-# expert count of every expert ``bmm`` (its weight [E, D, F] or [E, F, D])
+# expert count of every expert ``bmm`` (its weight [E, D, F] or [E, F, D]);
+# ``scans`` the rows times heads of every ``ssd_scan`` call
 SEEN = """
 from torch.utils._pytree import tree_flatten
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -232,6 +241,7 @@ class Seen(TorchDispatchMode):
         super().__init__()
         self.cfg, self.group = cfg, group.group_name
         self.vocab, self.over_model, self.experts = [], [], set()
+        self.scans = set()
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
@@ -248,6 +258,8 @@ class Seen(TorchDispatchMode):
         if name == "aten::bmm" and tuple(args[1].shape[1:]) in ((D, F),
                                                               (F, D)):
             self.experts.add(args[1].shape[0])
+        if name == "repro_torch::ssd_scan":
+            self.scans.add(args[0].shape[0])
         return out
 """
 
@@ -264,30 +276,42 @@ def test_moe_step_matches_one_rank(arch, shape):
     "model" has two ranks the vocab and the experts split over it: no rank
     makes a tensor as wide as the vocab, no all-gather over "model"
     carries an expert leaf, the head or the embedding, and the expert
-    products run on the rank's 2 of 4 experts."""
+    products run on the rank's 2 of 4 experts.  The mamba layers split
+    their heads over "model": ``ssd_scan`` runs on the rank's 2 rows and
+    its 8 / m of 8 heads; the (2, 2) jamba case also trains reduced
+    mamba2 on the same ranks."""
+    archs = [arch] + (["mamba2-2.7b"] if arch.startswith("jamba")
+                      and shape == (2, 2) else [])
     outs = run_ranks(_MODEL + SEEN + f"""
-cfg = dataclasses.replace(get_config({arch!r}).reduced(),
-                          compute_dtype="float32", vocab_size=200)
-h = dataclasses.replace(hp, remat="dots",
-                        vocab_chunk=64 if "jamba" in cfg.name else 0)
-st = steps.init_state(cfg, 0, device="cpu")
-st["step"] = torch.tensor(1, dtype=torch.int32)
-b = zoo.make_inputs(cfg, 4, 3, seq=32, device="cpu")
-b["labels"] = torch.from_numpy(np.random.default_rng(9).integers(
-    0, cfg.vocab_size, (4, 32)))
-_, m1 = steps.build_train_step(cfg, h)(copy(st), b)
 mesh = shd.make_mesh({shape!r}, ("data", "model"))
 pol = shd.ShardingPolicy(mesh)
-placed = steps.place_state(copy(st), cfg, pol)
-with Seen(cfg, mesh.get_group("model")) as seen:
-    _, m2 = steps.build_train_step(cfg, h, pol)(placed, b)
-np.testing.assert_allclose(float(m2["loss"]), float(m1["loss"]), rtol=1e-5)
-np.testing.assert_allclose(float(m2["grad_norm"]), float(m1["grad_norm"]),
-                           rtol=1e-4)
-if mesh.shape["model"] == 2:
-    assert not seen.vocab, seen.vocab[:4]
-    assert not seen.over_model, seen.over_model
-    assert seen.experts == {{cfg.n_experts // 2}}, seen.experts
+m = mesh.shape["model"]
+for arch in {archs!r}:
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              compute_dtype="float32", vocab_size=200)
+    h = dataclasses.replace(hp, remat="dots",
+                            vocab_chunk=64 if "jamba" in cfg.name else 0)
+    st = steps.init_state(cfg, 0, device="cpu")
+    st["step"] = torch.tensor(1, dtype=torch.int32)
+    b = zoo.make_inputs(cfg, 4, 3, seq=32, device="cpu")
+    b["labels"] = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (4, 32)))
+    _, m1 = steps.build_train_step(cfg, h)(copy(st), b)
+    placed = steps.place_state(copy(st), cfg, pol)
+    with Seen(cfg, mesh.get_group("model")) as seen:
+        _, m2 = steps.build_train_step(cfg, h, pol)(placed, b)
+    np.testing.assert_allclose(float(m2["loss"]), float(m1["loss"]),
+                               rtol=1e-5, err_msg=arch)
+    np.testing.assert_allclose(float(m2["grad_norm"]),
+                               float(m1["grad_norm"]), rtol=1e-4,
+                               err_msg=arch)
+    if cfg.ssm_state:
+        assert seen.scans == {{2 * cfg.ssm_heads // m}}, (arch, seen.scans)
+    if m == 2:
+        assert not seen.vocab, seen.vocab[:4]
+        assert not seen.over_model, seen.over_model
+        assert seen.experts == ({{cfg.n_experts // 2}} if cfg.n_experts
+                                else set()), seen.experts
 print("MOE_OK", float(m1["loss"]), float(m2["loss"]))
 """, shape[0] * shape[1])
     assert all(o.startswith("MOE_OK") for o in outs)
