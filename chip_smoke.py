@@ -203,7 +203,12 @@ Phases (any failure exits non-zero; nothing is caught):
      fit in 80 GB, the dominant roofline term; it fails unless qwen3's
      training peak is at most 100 GB, the decode cell fits 80 GB with
      arguments within 1.05x the reference's and all-gathers at most 0.5
-     GB, and deepseek's training cell fits 80 GB;
+     GB, and deepseek's training cell fits 80 GB; qwen3-8b x train_4k
+     with ``--seq-parallel`` (the sequence split over "model" between
+     the blocks) must come within 2% of the same run's FLOPs without the
+     flag at no higher a peak, and gemma3-4b x train_4k (8 heads, which
+     16 does not divide: attention whole, MLPs split) below its parent's
+     peak and FLOPs (the MLPs whole on every "model" rank);
   14. the launches of every kernel on each path, counted from 0 just before
      the path and read just after it: phase 4 must launch region,
      fused_chain, stream_matmul and siren_layer, phase 5 region_stacked
@@ -250,8 +255,10 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
 SEED = 0
-# on/off pairs of the phase-10 telemetry overhead check
-TELEMETRY_PAIRS = 30
+# on/off pairs of the phase-10 telemetry overhead check: the min of 30
+# rounds a setting, with no overhead in the rounds' medians, still crossed
+# the bound on a noisy host (one run in tens); 90 keep each min near its floor
+TELEMETRY_PAIRS = 90
 # phase 7: attention checks (label, (B, Sq, H, KH, D), Sk, dtype, window),
 # the first at the served model's prefill shape; ssd_scan shapes [BH, NC, P,
 # N], mamba2-2.7b's and jamba's (B = 2, S = 4,096, chunk 128); the served
@@ -2847,7 +2854,10 @@ DRYRUN_CELLS = [["--arch", "qwen3-8b", "--shape", "train_4k"],
                  "--remat", "full"],
                 ["--arch", "deepseek-moe-16b", "--shape", "train_4k"],
                 ["--arch", "mamba2-2.7b", "--shape", "train_4k"],
-                ["--arch", "jamba-v0.1-52b", "--shape", "train_4k"]]
+                ["--arch", "jamba-v0.1-52b", "--shape", "train_4k"],
+                ["--arch", "qwen3-8b", "--shape", "train_4k",
+                 "--seq-parallel"],
+                ["--arch", "gemma3-4b", "--shape", "train_4k"]]
 DRYRUN_TIMEOUT_S = 300
 # the same cells at commit 359ecfb, when the head, the logits and the
 # experts were whole over "model" on every rank (per-rank bytes and FLOPs,
@@ -2875,7 +2885,20 @@ PARENT_DRYRUN = {
     ("jamba-v0.1-52b", "train_4k"): {
         "arguments": 2.423e9, "peak": 161.105e9, "flops": 1.4533e15,
         "all-gather": 3.0358e9, "all-reduce": 5.0477e10,
-        "reduce-scatter": 1.3016e10}}
+        "reduce-scatter": 1.3016e10},
+    # at commit 1afcfe7, where a head count the axis does not divide left
+    # the MLPs whole on every "model" rank, and ``--seq-parallel`` ran each
+    # rank's sequence block as whole sequences (not the step; its gate is
+    # the same run's cell without the flag) (the same CLI on fake CUDA
+    # tensors, NVIDIA H100 80GB HBM3, 700.00 W)
+    ("gemma3-4b", "train_4k"): {
+        "arguments": 0.216e9, "peak": 156.463e9, "flops": 1.3668e15,
+        "all-gather": 1.7256e9, "all-reduce": 6.7265e8,
+        "reduce-scatter": 1.1377e9},
+    ("qwen3-8b", "train_4k", "seq_parallel"): {
+        "arguments": 0.388e9, "peak": 5.250e9, "flops": 1.2229e13,
+        "all-gather": 3.8750e8, "all-reduce": 6.1082e9,
+        "reduce-scatter": 3.2556e9}}
 # the gates of steps that keep the vocab and the experts split over
 # "model": the decode cell within 80 GB, within 1.05x the reference's
 # arguments and all-gathering at most 0.5 GB a step (2.18 GB at 359ecfb,
@@ -2890,6 +2913,16 @@ DECODE_ARGS_OVER_REFERENCE = 1.05
 DECODE_ALL_GATHER_BYTES = 0.5e9
 TRAIN_PEAK_BYTES = 100e9
 MAMBA_FLOPS_OVER_PARENT = 0.5
+# of the sequence split: qwen3's ``--seq-parallel`` cell within 2% of the
+# FLOPs of the same run's cell without the flag, at no higher a peak
+SEQ_PARALLEL_FLOPS_TOL = 0.02
+
+
+def _dryrun_key(rec) -> tuple:
+    """A dry-run record's key in ``PARENT_DRYRUN``: (arch, shape), and
+    "seq_parallel" under ``--seq-parallel``."""
+    return (rec["arch"], rec["shape"]) + (
+        ("seq_parallel",) if rec["hp"]["seq_parallel"] else ())
 
 
 def dryrun_phase(log, torch, dev, trained, card):
@@ -2906,8 +2939,10 @@ def dryrun_phase(log, torch, dev, trained, card):
     on ``DRYRUN_CELLS`` over the single pod's 256 ranks: per-rank peak,
     whether it fits, the dominant roofline term, FLOPs and collectives
     beside the parent's, for the reference's test cell the argument bytes
-    against the reference's, and for the mamba cells ``ssd_scan``'s call
-    shapes (the rank's rows and heads)."""
+    against the reference's, for the mamba cells ``ssd_scan``'s call
+    shapes (the rank's rows and heads), and for qwen3's ``--seq-parallel``
+    cell the FLOPs and peak beside the same run's cell without the flag
+    and the attention's call shapes (the whole sequence)."""
     import dataclasses
     import os
     import tempfile
@@ -3000,6 +3035,7 @@ def dryrun_phase(log, torch, dev, trained, card):
                     p.kill()
                     p.communicate()
         wall = time.perf_counter() - t0
+        by_key = {}
         for cell, out, p, stdout, stderr in done:
             recs = json.loads(out.read_text()) if out.exists() else []
             if p.returncode != 0 or len(recs) != 1 or "error" in recs[0]:
@@ -3009,7 +3045,8 @@ def dryrun_phase(log, torch, dev, trained, card):
             mem, roof, cost = rec["memory"], rec["roofline"], rec["hlo_cost"]
             args, peak = (mem["argument_size_in_bytes"],
                           mem["peak_memory_in_bytes"])
-            was = PARENT_DRYRUN[rec["arch"], rec["shape"]]
+            by_key[_dryrun_key(rec)] = rec
+            was = PARENT_DRYRUN[_dryrun_key(rec)]
             colls = {k: f"{int(v['count'])} ops {v['bytes']:.4e} B "
                      f"(parent {was.get(k, 0.0):.4e})"
                      for k, v in cost["collectives"].items()
@@ -3021,7 +3058,9 @@ def dryrun_phase(log, torch, dev, trained, card):
                           f"{ref / 1e9:.4f} GB: {args / ref:.4f}x")
             log(f"[dryrun] {rec['arch']} x {rec['shape']} x single pod "
                 f"({rec['n_devices']} fake ranks, mesh {rec['mesh']}, remat "
-                f"{rec['hp']['remat']}, attn {rec['hp']['attn_impl']}): "
+                f"{rec['hp']['remat']}, seq_parallel "
+                f"{rec['hp']['seq_parallel']}, attn "
+                f"{rec['hp']['attn_impl']}): "
                 f"{len(DRYRUN_CELLS)} cells at once in {wall:.1f} s (traced "
                 f"in {rec['lower_s']} s); per rank: arguments "
                 f"{args / 1e9:.3f} GB (parent "
@@ -3087,6 +3126,34 @@ def dryrun_phase(log, torch, dev, trained, card):
                         f"dry run {cell}: peak {peak} B, flops "
                         f"{flops:.4e}, not below the parent's "
                         f"{was['peak']:.0f} B, {was['flops']:.4e}")
+            if rec["arch"] == "gemma3-4b" and not (
+                    peak < was["peak"] and cost["flops"] < was["flops"]):
+                raise AssertionError(
+                    f"dry run {cell}: peak {peak} B, flops "
+                    f"{cost['flops']:.4e}, not below the parent's "
+                    f"{was['peak']:.0f} B, {was['flops']:.4e} (its MLPs "
+                    f"whole on every rank)")
+        # the sequence split against the same run's cell without it
+        sp = by_key[("qwen3-8b", "train_4k", "seq_parallel")]
+        flat = by_key[("qwen3-8b", "train_4k")]
+        flops = [r["hlo_cost"]["flops"] for r in (sp, flat)]
+        peaks = [r["memory"]["peak_memory_in_bytes"] for r in (sp, flat)]
+        seqs = {tuple(s[:2]) for s in sp["kernel_shapes"].get(
+            "flash_attention_fwd", [])}
+        rows = SHAPES["train_4k"].global_batch // sp["mesh"]["data"]
+        log(f"[dryrun] qwen3-8b x train_4k with --seq-parallel against "
+            f"without: flops {flops[0]:.4e} / {flops[1]:.4e} = "
+            f"{flops[0] / flops[1]:.4f} (within "
+            f"{SEQ_PARALLEL_FLOPS_TOL}), peak {peaks[0] / 1e9:.3f} / "
+            f"{peaks[1] / 1e9:.3f} GB; attention calls on [rows, seq] "
+            f"{sorted(seqs)} (want [{rows}, {SHAPES['train_4k'].seq_len}]: "
+            f"the whole sequence)")
+        if abs(flops[0] / flops[1] - 1) > SEQ_PARALLEL_FLOPS_TOL or \
+                peaks[0] > peaks[1] or \
+                seqs != {(rows, SHAPES["train_4k"].seq_len)}:
+            raise AssertionError(f"dry run of --seq-parallel: flops "
+                                 f"{flops}, peaks {peaks}, attention "
+                                 f"shapes {seqs}")
 
     torch.cuda.synchronize()
     launches = dict(common.LAUNCHES)
@@ -3658,8 +3725,11 @@ def async_phase(log, torch, dev, cfg, f, params, fleet, bank, psis, coords,
         # host wall on a shared host drifts by 10-20% for seconds at a
         # time, more than the bound, so the min is taken over
         # TELEMETRY_PAIRS pairs and each pair alternates which setting runs
-        # first
+        # first. The heap is frozen after one full collection, so each
+        # round's collection scans only what the rounds made
         on, off = [], []
+        gc.collect()
+        gc.freeze()
         for r in range(TELEMETRY_PAIRS):
             pair = ((False, off), (True, on))
             for enabled, acc in (pair if r % 2 == 0 else pair[::-1]):
@@ -3672,6 +3742,7 @@ def async_phase(log, torch, dev, cfg, f, params, fleet, bank, psis, coords,
                     acc.append(time.perf_counter() - t0)
                 finally:
                     gc.enable()
+        gc.unfreeze()
         spans = len(TRACER.events)
         TRACER.disable()
         TRACER.clear()
@@ -3679,7 +3750,9 @@ def async_phase(log, torch, dev, cfg, f, params, fleet, bank, psis, coords,
         log(f"[async] telemetry: serve_async wall {t_on * 1e3:.2f} ms with "
             f"the tracer on ({spans} spans in {TELEMETRY_PAIRS} rounds) vs "
             f"{t_off * 1e3:.2f} ms off, min of {TELEMETRY_PAIRS} interleaved "
-            f"pairs (bound: 5% + 5 ms); rounds on "
+            f"pairs (bound: 5% + 5 ms); medians "
+            f"{sorted(on)[len(on) // 2] * 1e3:.2f} ms on, "
+            f"{sorted(off)[len(off) // 2] * 1e3:.2f} ms off; rounds on "
             + " ".join(f"{t * 1e3:.1f}" for t in on) + " ms, off "
             + " ".join(f"{t * 1e3:.1f}" for t in off) + " ms")
         if t_on > t_off * 1.05 + 0.005:

@@ -3,7 +3,8 @@
 extrapolated from cuts of its depth, for the package under ``--src``.
 
     python3 scripts/torch_dryrun_layers.py --arch qwen3-8b --shape train_4k \\
-        [--remat dots] [--layers 1,2] [--src DIR] [--device cpu]
+        [--remat dots] [--seq-parallel] [--layers 1,2] [--src DIR] \\
+        [--device cpu]
 
 Each cut (``n_layers`` set to each of ``--layers``) runs one step of the
 cell as ``launch/dryrun.py::lower_cell`` does: on fake tensors, as rank 0
@@ -32,6 +33,7 @@ def main() -> int:
     ap.add_argument("--arch", default="qwen3-8b")
     ap.add_argument("--shape", default="train_4k")
     ap.add_argument("--remat", default="dots")
+    ap.add_argument("--seq-parallel", action="store_true")
     ap.add_argument("--layers", default="1,2")
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--device", default="cpu", choices=["cpu", "cuda"])
@@ -48,7 +50,9 @@ def main() -> int:
             mesh = meshlib.make_production_mesh(multi_pod=False,
                                                 device_type=args.device)
             rec = dryrun.lower_cell(args.arch, args.shape, mesh,
-                                    steps.HParams(remat=args.remat),
+                                    steps.HParams(
+                                        remat=args.remat,
+                                        seq_parallel=args.seq_parallel),
                                     device=args.device, cfg=cfg)
         figures = {k: v / 1e9 for k, v in rec["memory"].items()}
         figures.update({k: v["bytes"] / 1e9 for k, v in
@@ -61,7 +65,8 @@ def main() -> int:
     full = {k: fa[k] + (L - a) * (fb[k] - fa[k]) / (b - a)
             for k in fa if k in fb}
     print(json.dumps({"arch": args.arch, "shape": args.shape,
-                      "remat": args.remat, "src": args.src,
+                      "remat": args.remat,
+                      "seq_parallel": args.seq_parallel, "src": args.src,
                       "cuts_GB": cuts, "per_layer_GB": {
                           k: (fb[k] - fa[k]) / (b - a) for k in full},
                       f"at_{L}_layers_GB": full}))

@@ -1,27 +1,47 @@
-"""Tensor-parallel compute over a mesh's "model" axis, and the per-layer
-gather of parameter blocks, for the sharded steps (``launch/steps.py``).
+"""Tensor-parallel compute over a mesh's "model" axis, the sequence split
+over it, and the per-layer gather of parameter blocks, for the sharded
+steps (``launch/steps.py``).
 
 The reference lets XLA partition a step from the parameters' specs; torch
 has no such pass, so the port splits the blocks the "model" axis shards
-by hand, Megatron's way.  The residual stream is whole and the same on
-every rank of the axis; ``into`` (identity forward, all-reduce of the
-gradient) takes a split block's input into the split, ``out`` (all-reduce
-forward, identity backward) sums the blocks' partial outputs.
+by hand, Megatron's way.  Each block the axis splits is wrapped in an
+``into`` (its input taken into the split) and an ``out`` (the blocks'
+partial outputs summed).  Two layouts of the residual stream between the
+blocks:
 
-* ``TensorParallel`` (``plan``, ``attention_split``): each rank of the
-  axis runs its block of the attention heads (q, k and v columns, the
-  output projection's rows) and, in training, of the dense MLP's hidden
-  units (``wi`` / ``wg`` columns, ``wo`` rows), through the same layer
-  code with a config of its local head counts: the attention kernel sees
-  the rank's heads only.  Where the kv heads do not split over the axis
-  but each rank's q heads share one kv head (grouped-query attention with
-  fewer kv heads than ranks), every rank runs that kv head, as Megatron
-  replicates them.  The VLM's self and cross layers split alike (the
-  image embeddings are batch inputs, whole on every rank).
-  Configurations whose heads or hidden units the axis does not divide
-  train with attention unsplit (``plan``).  Serving splits the attention
-  alone wherever the cache's kv heads split over the axis
-  (``attention_split``; the VLM's cross layers too).
+* whole on every rank of the axis (the default): ``into`` is the
+  identity with its gradient all-reduced, ``out`` an all-reduce with an
+  identity backward;
+* split along the sequence over the axis (``SeqParallel``: the step's
+  batch splits its sequence dim over "model", as ``seq_parallel``'s
+  ``batch_specs`` do; Megatron's sequence parallelism): each rank holds
+  the residual stream of its rows and its block of the sequence, and the
+  norms run on it.  ``into`` all-gathers the sequence (its backward a
+  reduce-scatter), ``out`` reduce-scatters the partial outputs over the
+  sequence (its backward an all-gather).  A block the axis does not
+  split that needs the whole sequence (an attention or a mamba layer
+  whose heads the axis does not divide) gathers it, runs whole and keeps
+  the rank's block; one that runs token by token (a dense MLP, a cross
+  attention layer) runs on the rank's tokens.  Every parameter a rank
+  uses whole then gets a partial gradient, summed over "model"
+  (``BlockGather``).  Attention always sees the whole sequence, at
+  whole-sequence positions.
+
+* ``TensorParallel`` (``plan``, ``serving_split``): each rank of the axis
+  runs its block of the attention heads (q, k and v columns, the output
+  projection's rows) where the axis divides them, and of the dense MLP's
+  hidden units (``wi`` / ``wg`` columns, ``wo`` rows) wherever it divides
+  ``d_ff``, independently: the reference's specs shard ``ff`` over
+  "model" wherever the axis divides it.  The attention runs through the
+  same layer code with a config of the rank's head counts: the attention
+  kernel sees the rank's heads only.  Where the kv heads do not split
+  over the axis but each rank's q heads share one kv head (grouped-query
+  attention with fewer kv heads than ranks), every rank runs that kv
+  head, as Megatron replicates them.  Elsewhere the attention runs whole
+  on every rank.  The VLM's self and cross layers split alike (the image
+  embeddings are batch inputs, whole on every rank).  Serving splits the
+  attention wherever the cache's kv heads split over the axis and the
+  MLPs wherever training does.
 * ``ModelSplit`` (``model_split``), in every family and every sharded
   step, with or without the attention split: the blocks the specs shard
   over "model" of the vocab (Megatron's vocab-parallel embedding, head
@@ -38,8 +58,9 @@ forward, identity backward) sums the blocks' partial outputs.
   widths and hold in every step: ``mamba_layer`` reads its widths from
   the split.
 
-The dense MLPs of the serving steps and the norms run whole on every
-rank, as do the mamba layers whose heads the axis does not divide.
+The norms run whole on every rank (on the rank's sequence block under
+``SeqParallel``), as do the mamba layers whose heads the axis does not
+divide.
 
 ``BlockGather`` is the ``gather`` hook of ``models/zoo.py``: it makes a
 layer's working tensors from the rank's blocks while the layer runs
@@ -49,7 +70,8 @@ only; any other leaf is gathered whole and, if split, narrowed.  In the
 backward each block gets its gradient summed over the axes whose ranks
 computed different parts of it (the data axes the rows are split over;
 "model" where the rank computed a part of a leaf that is not its own
-block) and sliced over the axes whose ranks computed the same.
+block, or under ``SeqParallel`` its own tokens' part of a leaf it uses
+whole) and sliced over the axes whose ranks computed the same.
 """
 
 from __future__ import annotations
@@ -125,6 +147,111 @@ def psum(x, groups):
     return x
 
 
+class _SeqGather(torch.autograd.Function):
+    """The ranks' sequence blocks (dim 1) all-gathered over "model"; the
+    gradient, partial on each rank, reduce-scattered back into the
+    blocks."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return shd._all_gather_dim(x, 1, mesh, "model")
+
+    @staticmethod
+    def backward(ctx, g):
+        return shd._reduce_scatter_dim(g, 1, ctx.mesh, "model"), None
+
+
+class _SeqScatter(torch.autograd.Function):
+    """The ranks' partial outputs over the whole sequence summed over
+    "model", each rank keeping its sequence block (a reduce-scatter of
+    dim 1); the gradient all-gathered."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return shd._reduce_scatter_dim(x, 1, mesh, "model")
+
+    @staticmethod
+    def backward(ctx, g):
+        return shd._all_gather_dim(g, 1, ctx.mesh, "model"), None
+
+
+class _SeqShare(torch.autograd.Function):
+    """The ranks' sequence blocks all-gathered over "model" for a use
+    whose gradient is whole on every rank: the backward keeps the rank's
+    block of it, no collective."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, start):
+        ctx.start, ctx.width = start, x.shape[1]
+        return shd._all_gather_dim(x, 1, mesh, "model")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(1, ctx.start, ctx.width), None, None
+
+
+@dataclass(frozen=True)
+class SeqParallel:
+    """The residual stream split along the sequence (dim 1) over the
+    "model" axis: each rank holds its block of ``n`` equal ones, the
+    ``index``-th (module docstring)."""
+    mesh: object
+
+    @property
+    def n(self) -> int:
+        return self.mesh.shape["model"]
+
+    @property
+    def index(self) -> int:
+        return self.mesh.coordinate()["model"]
+
+    def gather(self, x):
+        """The whole sequence from the ranks' blocks; the gradient
+        reduce-scattered (``_SeqGather``)."""
+        return _SeqGather.apply(x, self.mesh)
+
+    def scatter(self, x):
+        """The rank's block of the ranks' partial outputs summed
+        (``_SeqScatter``)."""
+        return _SeqScatter.apply(x, self.mesh)
+
+    def keep(self, x):
+        """The rank's block of a whole sequence every rank computed."""
+        w = x.shape[1] // self.n
+        return x.narrow(1, self.index * w, w)
+
+    def share(self, x):
+        """The whole sequence from the ranks' blocks for a use every rank
+        makes alike, whose gradient is whole on every rank
+        (``_SeqShare``)."""
+        return _SeqShare.apply(x, self.mesh, self.index * x.shape[1])
+
+    def tokens(self, t):
+        """Integer blocks [B, S/n] (tokens, labels) gathered whole."""
+        return shd._all_gather_dim(t, 1, self.mesh, "model")
+
+    def last(self, x):
+        """The whole sequence's last position x[:, -1] (on the last
+        rank's block), on every rank."""
+        return shd._all_gather_dim(x[:, -1:], 1, self.mesh, "model")[:, -1]
+
+    def mean(self, loss):
+        """The mean over the ranks of each rank's mean over its tokens
+        (equal blocks: the whole sequence's mean); each rank's loss gets
+        the gradient 1/n (``_Out``)."""
+        return _Out.apply(loss, self.mesh.get_group("model")) / self.n
+
+
+def with_seq(split, seq):
+    """``split`` (a ``TensorParallel`` or ``ModelSplit``, or None) with
+    its ``into`` / ``out`` on the sequence split ``seq``."""
+    if split is None or seq is None:
+        return split
+    return dataclasses.replace(split, seq=seq)
+
+
 def _own(idx, start: int, width: int):
     """(``idx`` as indices into the block [start, start + width), clamped
     into it; whether each falls in it)."""
@@ -182,23 +309,35 @@ class _MergeLse(torch.autograd.Function):
 @dataclass(frozen=True)
 class TensorParallel:
     """One rank's split: ``cfg`` with the rank's head counts, the column
-    blocks (start, width) of q, of k / v and of the MLP's hidden units
-    (``ff`` None: the attention alone is split)."""
+    blocks (start, width) of q and of k / v (None: the attention runs
+    whole, ``cfg`` the model's) and of the MLP's hidden units (None: the
+    MLPs run whole); ``seq`` the sequence split its ``into`` and ``out``
+    move (None: the residual stream is whole)."""
     cfg: object
     group: object
-    q: tuple[int, int]
-    kv: tuple[int, int]
+    q: tuple[int, int] | None
+    kv: tuple[int, int] | None
     ff: tuple[int, int] | None
+    seq: SeqParallel | None = None
+
+    @property
+    def attn(self) -> bool:
+        """Whether the attention heads are split."""
+        return self.q is not None
 
     @property
     def mlp(self) -> bool:
-        """Whether the dense MLPs are split too."""
+        """Whether the dense MLPs are split."""
         return self.ff is not None
 
     def into(self, x):
+        if self.seq is not None:
+            return self.seq.gather(x)
         return _Into.apply(x, self.group)
 
     def out(self, x):
+        if self.seq is not None:
+            return self.seq.scatter(x)
         return _Out.apply(x, self.group)
 
     def rule(self, path):
@@ -209,6 +348,8 @@ class TensorParallel:
             return None
         block, name = path[-2], path[-1]
         if block in ("attn", "xattn"):
+            if not self.attn:
+                return None
             cols = {"q": (-1, self.q), "k": (-1, self.kv),
                     "v": (-1, self.kv), "o": (-2, self.q)}.get(name)
             return (None, 0, 0) if cols is None else (cols[0],) + cols[1]
@@ -226,7 +367,9 @@ class ModelSplit:
     ``embed`` the rank's rows of the embedding table, ``vocab`` its
     columns of the head (so of the logits), ``experts`` its MoE experts,
     ``shared`` its shared experts' hidden units, ``heads`` its mamba heads
-    and ``inner`` their channels (``heads`` times the head dim)."""
+    and ``inner`` their channels (``heads`` times the head dim); ``seq``
+    the sequence split its ``into`` and ``out`` move, as
+    ``TensorParallel``'s."""
     mesh: object
     embed: tuple[int, int] | None
     vocab: tuple[int, int] | None
@@ -234,6 +377,7 @@ class ModelSplit:
     shared: tuple[int, int] | None
     heads: tuple[int, int] | None = None
     inner: tuple[int, int] | None = None
+    seq: SeqParallel | None = None
 
     # leaf path (within a layer) -> (the split's field, the dim it splits)
     _DIMS = {("embed",): ("embed", 0), ("lm_head",): ("vocab", 1),
@@ -257,10 +401,19 @@ class ModelSplit:
         return self.mesh.get_group("model")
 
     def into(self, x):
+        if self.seq is not None:
+            return self.seq.gather(x)
         return _Into.apply(x, self.group)
 
     def out(self, x):
+        if self.seq is not None:
+            return self.seq.scatter(x)
         return _Out.apply(x, self.group)
+
+    def complete(self, x):
+        """``x`` as it is, its gradient, partial on each rank, all-reduced
+        over "model" (a tensor of every token, whatever the layout)."""
+        return _Into.apply(x, self.group)
 
     def rule(self, path):
         """As ``TensorParallel.rule``: (dim, start, width) of the rank's
@@ -287,7 +440,11 @@ class ModelSplit:
     def lookup(self, table, tokens, dtype):
         """The embedding of ``tokens`` from the rank's rows of the table
         (in ``dtype``): the rows the rank holds, zeros for the others
-        (``_Lookup``), summed over "model"."""
+        (``_Lookup``), summed over "model" (``out``; under ``seq`` the
+        tokens of the rank's sequence block are gathered whole first, and
+        the sums reduce-scattered into its block)."""
+        if self.seq is not None:
+            tokens = self.seq.tokens(tokens)
         return self.out(_Lookup.apply(table, tokens, self.embed[0], dtype))
 
     def merge_lse(self, lse):
@@ -301,7 +458,8 @@ class ModelSplit:
         others 0, summed over "model"."""
         local, own = _own(labels, *self.vocab)
         lab = torch.gather(logits, -1, local[..., None])[..., 0]
-        return self.out(torch.where(own, lab.to(torch.float32), 0.0))
+        return _Out.apply(torch.where(own, lab.to(torch.float32), 0.0),
+                          self.group)
 
     def columns(self, logits):
         """Logits [B, V] from each rank's columns [B, V/m] (an
@@ -345,7 +503,14 @@ def model_split(mesh, specs) -> ModelSplit | None:
     return ModelSplit(mesh, **blocks)
 
 
-def _split(cfg, mesh, h: int, kh: int, kv0: int, ff):
+def _split(cfg, mesh, heads, ff):
+    """The rank's ``TensorParallel``: ``heads`` (q heads, kv heads, first
+    kv head) of the rank, or None (the attention whole); ``ff`` its block
+    of the MLP's hidden units, or None."""
+    if heads is None:
+        return TensorParallel(cfg=cfg, group=mesh.get_group("model"),
+                              q=None, kv=None, ff=ff)
+    h, kh, kv0 = heads
     r = mesh.coordinate()["model"]
     hd = cfg.head_dim
     return TensorParallel(
@@ -354,42 +519,60 @@ def _split(cfg, mesh, h: int, kh: int, kv0: int, ff):
         kv=(kv0 * hd, kh * hd), ff=ff)
 
 
+def _ff_block(cfg, mesh):
+    """The rank's block (start, width) of the dense MLPs' hidden units, or
+    None where the axis does not divide ``d_ff`` (or there are none)."""
+    m = mesh.shape["model"]
+    if not cfg.d_ff or cfg.d_ff % m:
+        return None
+    f = cfg.d_ff // m
+    return mesh.coordinate()["model"] * f, f
+
+
 def plan(cfg, policy) -> TensorParallel | None:
     """This rank's training split over the policy's "model" axis, or None:
-    an axis of one rank, a family outside ``_FAMILIES``, heads or MLP
-    hidden units the axis does not divide, or q heads of a rank that span
-    kv heads not their own."""
+    an axis of one rank, a family outside ``_FAMILIES``, or neither the
+    heads nor the MLP's hidden units split.  The heads split where the
+    axis divides them and a rank's q heads use its own kv heads or share
+    one; the hidden units wherever the axis divides ``d_ff``."""
     mesh = policy.mesh
     m = mesh.shape.get("model", 1)
     if m <= 1 or cfg.family not in _FAMILIES:
         return None
     H, KH = cfg.n_heads, cfg.n_kv_heads
-    if H % m or cfg.d_ff % m:
-        return None
     r = mesh.coordinate()["model"]
-    h = H // m
-    if KH % m == 0:
-        kh, kv0 = KH // m, r * (KH // m)
-    elif (H // KH) % h == 0:
-        kh, kv0 = 1, (r * h) // (H // KH)
-    else:
+    heads = None
+    if H % m == 0:
+        h = H // m
+        if KH % m == 0:
+            heads = h, KH // m, r * (KH // m)
+        elif (H // KH) % h == 0:
+            heads = h, 1, (r * h) // (H // KH)
+    ff = _ff_block(cfg, mesh)
+    if heads is None and ff is None:
         return None
-    f = cfg.d_ff // m
-    return _split(cfg, mesh, h, kh, kv0, (r * f, f))
+    return _split(cfg, mesh, heads, ff)
 
 
-def attention_split(cfg, policy) -> TensorParallel:
+def serving_split(cfg, policy, heads: bool) -> TensorParallel | None:
     """The serving split: each rank of "model" runs its block of the q and
-    kv heads (the kv heads divide the axis), the MLPs whole."""
+    kv heads where ``heads`` (the cache's kv heads split over the axis),
+    and of the MLP's hidden units wherever the axis, of more than one
+    rank, divides ``d_ff``, as ``plan``; None where neither splits."""
     mesh = policy.mesh
     m = mesh.shape["model"]
-    if cfg.n_kv_heads % m or cfg.n_heads % m:
+    if heads and (cfg.n_kv_heads % m or cfg.n_heads % m):
         raise ValueError(f"{cfg.name}: {cfg.n_heads} heads / "
                          f"{cfg.n_kv_heads} kv heads do not split over "
                          f"model={m}")
     kh = cfg.n_kv_heads // m
-    return _split(cfg, mesh, cfg.n_heads // m, kh,
-                  mesh.coordinate()["model"] * kh, None)
+    ff = _ff_block(cfg, mesh) if m > 1 and cfg.family in _FAMILIES \
+        else None
+    if not heads and ff is None:
+        return None
+    return _split(cfg, mesh, (cfg.n_heads // m, kh,
+                              mesh.coordinate()["model"] * kh)
+                  if heads else None, ff)
 
 
 class BlockGather:
@@ -399,13 +582,17 @@ class BlockGather:
     path within its layer (a top-level leaf's name) to its (whole shape,
     spec) with the stacked dims dropped (``launch/steps.layer_specs``);
     ``partial`` names the axes whose ranks hold different rows; ``tp`` is
-    the rank's attention split or None, ``split`` its ``ModelSplit`` or
-    None."""
+    the rank's ``TensorParallel`` or None, ``split`` its ``ModelSplit`` or
+    None; ``seq``: whether the ranks of "model" hold different blocks of
+    the sequence, so that a leaf a rank uses whole gets a partial
+    gradient there too."""
 
-    def __init__(self, mesh, specs: dict, partial=(), tp=None, split=None):
+    def __init__(self, mesh, specs: dict, partial=(), tp=None, split=None,
+                 seq=False):
         self.mesh = mesh
         self.specs = specs
         self.partial = tuple(partial)
+        self.whole = self.partial + (("model",) if seq else ())
         self.tp = tp
         self.split = split
 
@@ -420,7 +607,7 @@ class BlockGather:
         if rule is None and self.split is not None:
             rule = self.split.rule(path)
         if rule is None:
-            return shd.gather_block(block, spec, self.mesh, self.partial)
+            return shd.gather_block(block, spec, self.mesh, self.whole)
         both = self.partial + ("model",)
         dim, start, width = rule
         if dim is None:

@@ -41,21 +41,33 @@ only for the one layer that uses it, while that layer runs.
   whole where they do not divide).  The cross entropy merges the ranks'
   log-sum-exps over "model" and takes each label's logit from the rank
   that holds its column; the logits' gradient is the rank's columns'.
-  Over a "model" axis of more than one rank the attention heads and the
-  dense MLPs' hidden units split too (``tensor_parallel.plan``: the
-  attention kernel runs on the rank's heads; Megatron's all-reduces of
-  the split blocks' outputs and input gradients); where that plan does
-  not apply the axis shards their storage and its ranks repeat their
-  compute.  The backward of each gather takes the
-  whole gradient back into the block: a reduce-scatter over the data
-  axes (an all-reduce for a leaf they do not shard), a slice over the
-  axes whose ranks computed the same.  The block gradients are averaged
-  over the data axes; the global norm is a sum of squares over the
-  rank's blocks all-reduced over every axis, a leaf replicated over an
-  axis counted once; AdamW updates the blocks in place.
-* Prefill: the rank's rows, the attention heads split over "model" where
-  the cache's kv heads split over it (``tensor_parallel.attention_split``;
-  the dense MLPs whole).  It allocates only the rank's blocks of the cache
+  Over a "model" axis of more than one rank the attention heads split
+  where the axis divides them and the dense MLPs' hidden units wherever
+  it divides ``d_ff`` (``tensor_parallel.plan``: the attention kernel
+  runs on the rank's heads; Megatron's all-reduces of the split blocks'
+  outputs and input gradients); a block that does not split is computed
+  whole by every rank of the axis, which shards its storage.  The
+  backward of each gather takes the whole gradient back into the block:
+  a reduce-scatter over the data axes (an all-reduce for a leaf they do
+  not shard), a slice over the axes whose ranks computed the same.  The
+  block gradients are averaged over the data axes; the global norm is a
+  sum of squares over the rank's blocks all-reduced over every axis, a
+  leaf replicated over an axis counted once; AdamW updates the blocks in
+  place.
+* Sequence parallelism (``seq_parallel``, whose ``batch_specs`` split
+  the sequence over "model"; a plain full batch is split the same way):
+  each rank runs the residual stream of its rows and sequence block
+  (``_local_batch``, ``tensor_parallel.SeqParallel``); the split blocks'
+  ``into`` all-gathers the sequence and their ``out`` reduce-scatters
+  the partial outputs (Megatron's sequence parallelism), the attention
+  always sees the whole sequence, and the loss and gradients are the
+  unsplit step's.  The reference's ``seq_parallel`` only lays its
+  activations out so; the loss does not change.
+* Prefill: the rank's rows (and, under ``seq_parallel``, its sequence
+  block, as in training), the attention heads split over "model" where
+  the cache's kv heads split over it and the dense MLPs' hidden units
+  wherever the axis divides them (``tensor_parallel.serving_split``).
+  It allocates only the rank's blocks of the cache
   and returns the cache as DTensors at ``cache_specs``: rows over the
   data axes, kv heads over "model" where they divide it, else the
   sequence; mamba states' heads and conv channels over "model".  Where
@@ -70,11 +82,11 @@ only for the one layer that uses it, while that layer runs.
   all-gathered whole (they are small).
 * Decode takes and returns the cache at ``cache_specs`` and writes only
   the rank's blocks; no collective carries an attention cache block.
-  Heads split as in prefill; where the sequence splits, each rank attends
-  over its positions (``layers.decode_attention(..., offset=,
-  with_lse=True)``) and the ranks' parts merge over "model" by their
-  log-sum-exp; only the rank that holds ``pos`` writes the token's k and
-  v.  A mamba layer's conv rows are all-gathered whole over "model" for
+  Heads and MLPs split as in prefill; where the cache's sequence splits,
+  each rank attends over its positions (``layers.decode_attention(...,
+  offset=, with_lse=True)``) and the ranks' parts merge over "model" by
+  their log-sum-exp; only the rank that holds ``pos`` writes the token's
+  k and v.  A mamba layer's conv rows are all-gathered whole over "model" for
   the layer and the rank's block written back as in prefill; its SSM
   state, split by heads, is read and written in place, and no collective
   carries it (whole over "model", gathered, where the heads do not
@@ -346,9 +358,11 @@ def make_constrain(cfg, policy=None, grad_cast=False):
     ``grad_cast`` alone, or under a policy a function that lays a DTensor
     out at the activation spec ("batch", "seq", "act_embed") with a
     ``redistribute`` (the reference's ``with_sharding_constraint``; a
-    plain tensor is a rank's local block and passes unchanged), then casts
-    the cotangent with ``grad_cast``.  Its ``placements`` attribute names
-    the layout."""
+    plain tensor is a rank's local block and passes unchanged: the
+    sharded steps hold the spec's block already, the rank's rows and,
+    under ``seq_parallel``, its block of the sequence), then casts the
+    cotangent with ``grad_cast``.  Its ``placements`` attribute names the
+    layout."""
     if policy is None:
         return zoo.grad_cast_bf16 if grad_cast else None
     from torch.distributed.tensor import DTensor
@@ -367,13 +381,13 @@ def make_constrain(cfg, policy=None, grad_cast=False):
 
 def loss_and_grads(cfg: ModelConfig, hp: HParams, params, batch,
                    constrain=None, tp=None, gather=None, rows=None,
-                   split=None):
+                   split=None, seq=None):
     """(loss, gradient tree) of ``zoo.loss_fn`` at ``params`` (leaves of
     any float dtype; gradients in their dtypes): ``jax.value_and_grad`` of
     the reference's ``lf``.  ``constrain``: the residual-stream hook, by
     default ``make_constrain(cfg, None, hp.grad_cast)``; ``tp``,
-    ``gather``, ``rows`` and ``split``: a sharded step's splits and hooks
-    (``zoo.forward``), ``params`` then the rank's blocks."""
+    ``gather``, ``rows``, ``split`` and ``seq``: a sharded step's splits
+    and hooks (``zoo.forward``), ``params`` then the rank's blocks."""
     if constrain is None:
         constrain = make_constrain(cfg, None, grad_cast=hp.grad_cast)
     leaves = tree_map(lambda p: p.detach().requires_grad_(
@@ -381,7 +395,7 @@ def loss_and_grads(cfg: ModelConfig, hp: HParams, params, batch,
     loss = zoo.loss_fn(cfg, leaves, batch, remat=hp.remat,
                        attn_impl=hp.attn_impl, vocab_chunk=hp.vocab_chunk,
                        aux_coef=hp.aux_coef, constrain=constrain, tp=tp,
-                       gather=gather, rows=rows, split=split)
+                       gather=gather, rows=rows, split=split, seq=seq)
     flat = _leaves(leaves)
     # a leaf the loss does not use (the token table of a model fed
     # embeddings) gets zeros, as jax.value_and_grad gives it
@@ -392,7 +406,7 @@ def loss_and_grads(cfg: ModelConfig, hp: HParams, params, batch,
 
 
 def _step_grads(cfg, hp, params, batch, constrain=None, tp=None,
-                gather=None, rows=None, split=None):
+                gather=None, rows=None, split=None, seq=None):
     """(loss, float32 gradients in ``_leaves`` order) of one step's batch:
     ``accum`` microbatches summed in float32 and divided by ``accum``;
     with ``cast_once`` against a bf16 copy of the float32 master (of the
@@ -411,7 +425,7 @@ def _step_grads(cfg, hp, params, batch, constrain=None, tp=None,
             mb = {k: v.reshape(a, v.shape[0] // a, *v.shape[1:])[i]
                   for k, v in batch.items()}
             loss, g = loss_and_grads(cfg, hp, fwd, mb, constrain, tp,
-                                     gather, rows, split)
+                                     gather, rows, split, seq)
             for s, x in zip(gsum, _leaves(g)):
                 s.add_(x.to(torch.float32))
             losses.append(loss)
@@ -420,7 +434,7 @@ def _step_grads(cfg, hp, params, batch, constrain=None, tp=None,
         del gsum
         return torch.stack(losses).mean(), grads
     loss, g = loss_and_grads(cfg, hp, fwd, batch, constrain, tp, gather,
-                             rows, split)
+                             rows, split, seq)
     return loss, [x.to(torch.float32) for x in _leaves(g)]
 
 
@@ -431,28 +445,41 @@ def _local(t):
 
 
 def _local_batch(policy: ShardingPolicy, batch: dict, kind: str):
-    """(this rank's rows of ``batch``, the mesh axes the rows are split
-    over).  A plain leaf is the full batch, its rows split as
-    ``batch_specs`` splits them (whole where the axes do not divide the
-    rows; the other dims whole: a rank computes whole sequences); a
-    DTensor leaf is already split and gives its local block."""
+    """(this rank's block of ``batch``, the mesh axes its rows are split
+    over, whether its sequence is split over "model").  A plain leaf is
+    the full batch, split as ``batch_specs`` splits its rows and, under
+    ``seq_parallel``, its sequence (each whole where the axes do not
+    divide it; the other dims whole); a DTensor leaf is already split and
+    gives its local block.  Both feeds give one layout: the rank's rows,
+    and under ``seq_parallel`` its block of the sequence, which the step
+    runs as the residual stream's (``tensor_parallel.SeqParallel``), its
+    layers seeing the whole sequence."""
     from torch.distributed.tensor import DTensor, Shard
     mesh = policy.mesh
-    out, axes = {}, []
+    out, axes, seq = {}, [], set()
     for k, v in batch.items():
+        logical = _batch_logical(k, kind)
         if isinstance(v, DTensor):
             out[k] = v.to_local()
-            got = [a for a, p in zip(mesh.axis_names, v.placements)
-                   if isinstance(p, Shard) and p.dim == 0
-                   and mesh.shape[a] > 1]
+            split = {a: p.dim for a, p in zip(mesh.axis_names, v.placements)
+                     if isinstance(p, Shard) and mesh.shape[a] > 1}
         else:
-            spec = policy.act_spec(tuple(v.shape), _batch_logical(k, kind))
-            rows = P(spec[0]) if spec and spec[0] is not None else P()
-            out[k] = shd.local_shard(v, rows, mesh)
-            got = shd.sharded_axes(rows, mesh)
+            spec = policy.act_spec(tuple(v.shape), logical)
+            keep = 2 if logical[1:2] == ("seq",) else 1
+            spec = P(*(tuple(spec) + (None,) * keep)[:keep])
+            out[k] = shd.local_shard(v, spec, mesh)
+            split = {a: d for a, d in shd.spec_dims(spec).items()
+                     if mesh.shape[a] > 1}
+        got = [a for a in mesh.axis_names if split.get(a) == 0]
         if got:
             axes = got
-    return out, axes
+        if logical[1:2] == ("seq",):
+            seq.add(tuple(a for a in mesh.axis_names if split.get(a) == 1))
+    if not seq <= {(), ("model",)} or len(seq) > 1:
+        raise ValueError(f"the batch's sequence splits over {sorted(seq)}: "
+                         f"a sharded step splits it over \"model\" alone, "
+                         f"in every leaf alike")
+    return out, axes, seq == {("model",)}
 
 
 def _rows_spec(dim: int, axes) -> P:
@@ -505,8 +532,9 @@ def build_train_step(cfg: ModelConfig, hp: HParams, policy=None):
     Under ``policy`` (module docstring): ``state`` as ``place_state``
     gives it (plain full tensors work too: each rank then uses its block
     of them and updates it), ``batch`` the full batch on every rank or
-    DTensors at ``batch_specs``; every rank returns the same metrics and
-    updates its own blocks."""
+    DTensors at ``batch_specs`` (one result either way, with or without
+    ``seq_parallel``); every rank returns the same metrics and updates
+    its own blocks."""
     policy = _policy(hp, policy)
     constrain = make_constrain(cfg, policy, grad_cast=hp.grad_cast)
 
@@ -538,10 +566,12 @@ def build_train_step(cfg: ModelConfig, hp: HParams, policy=None):
     def train_step(state, batch):
         step = _step_of(state)
         params = _blocks(state["params"], pspecs, mesh)
-        local, dp = _local_batch(policy, batch, "train")
-        gather = tensor_parallel.BlockGather(mesh, table, dp, tp, split)
-        loss, grads = _step_grads(lcfg, hp, params, local, constrain, tp,
-                                  gather, _Rows(mesh, dp), split)
+        local, dp, sp = _local_batch(policy, batch, "train")
+        seq = tensor_parallel.SeqParallel(mesh) if sp else None
+        t, s = (tensor_parallel.with_seq(x, seq) for x in (tp, split))
+        gather = tensor_parallel.BlockGather(mesh, table, dp, t, s, sp)
+        loss, grads = _step_grads(lcfg, hp, params, local, constrain, t,
+                                  gather, _Rows(mesh, dp), s, seq)
         del local, gather
         n_dp = 1
         for a in dp:
@@ -608,10 +638,12 @@ class CacheLayout:
     """How a sharded serve step's decode cache splits over ``policy``'s
     mesh: ``cache_specs`` of a cache tree of the whole shapes (``cache``:
     DTensors, or ``zoo.init_cache(..., abstract=True)``), and the hooks
-    ``zoo.prefill`` / ``zoo.decode_step`` take as ``layout``.  Kv heads
-    split over "model" where the specs split them: then ``tp`` is the
-    attention split (``cfg`` its head counts), else None and ``cfg`` the
-    model's.  Mamba heads split over "model" where the specs split them
+    ``zoo.prefill`` / ``zoo.decode_step`` take as ``layout``.  ``tp`` is
+    the serving split (``tensor_parallel.serving_split``), None where
+    nothing splits: the attention heads over "model" where the specs
+    split the kv heads (``cfg`` then holds the rank's head counts, else
+    the model's), the dense MLPs' hidden units wherever the axis divides
+    them.  Mamba heads split over "model" where the specs split them
     (``split.heads``): the SSM state's block over "model" is then the
     rank's heads, read and written in place."""
 
@@ -627,8 +659,7 @@ class CacheLayout:
                                 shd.only_axes(full[lead:], ("model",)))
         heads = "k" in self.shapes and shd.spec_dims(
             self.shapes["k"][1]).get("model") == 2
-        self.tp = tensor_parallel.attention_split(cfg, policy) \
-            if heads else None
+        self.tp = tensor_parallel.serving_split(cfg, policy, heads)
         self.cfg = cfg if self.tp is None else self.tp.cfg
         table = layer_specs(cfg, policy)
         self.split = tensor_parallel.model_split(mesh, table)
@@ -760,13 +791,15 @@ def build_prefill_step(cfg: ModelConfig, hp: HParams, policy=None):
             layout = CacheLayout(cfg, policy, shapes)
             blocks = _blocks(params, pspecs, mesh)
             cache = layout.empty(shapes, _leaves(blocks)[0].device)
-            local, dp = _local_batch(policy, batch, "prefill")
-            logits, _ = zoo.prefill(layout.cfg, blocks, local,
-                                    attn_impl=hp.attn_impl,
-                                    gather=layout.gather, tp=layout.tp,
-                                    cache=tree_map(_local, cache),
-                                    layout=layout, rows=_Rows(mesh, dp),
-                                    split=layout.split)
+            local, dp, sp = _local_batch(policy, batch, "prefill")
+            seq = tensor_parallel.SeqParallel(mesh) if sp else None
+            logits, _ = zoo.prefill(
+                layout.cfg, blocks, local, attn_impl=hp.attn_impl,
+                gather=layout.gather,
+                tp=tensor_parallel.with_seq(layout.tp, seq),
+                cache=tree_map(_local, cache), layout=layout,
+                rows=_Rows(mesh, dp),
+                split=tensor_parallel.with_seq(layout.split, seq), seq=seq)
             if dp:
                 logits = shd.gather(logits, _rows_spec(0, dp), mesh)
             return logits, cache

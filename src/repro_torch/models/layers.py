@@ -296,7 +296,7 @@ def _top_k(gates, k):
 
 
 def moe_ffn(cfg, p, x, *, capacity_factor=1.25, group_tokens=4096,
-            rows=None, split=None, with_aux=True):
+            rows=None, split=None, seq=None, with_aux=True):
     """Dropping MoE.  x: [B, S, D] -> (out [B, S, D], aux loss).
 
     Per group of Tg tokens each expert has C slots, taken by the (token,
@@ -329,24 +329,43 @@ def moe_ffn(cfg, p, x, *, capacity_factor=1.25, group_tokens=4096,
     the rank's hidden units into a partial output too.  The partial
     outputs are summed over "model" in one all-reduce, in float32 before
     the one cast; the input's and the gates' gradients, partial on each
-    rank, are all-reduced over "model" (``ModelSplit.into``)."""
-    B, S, D = x.shape
+    rank, are all-reduced over "model" (``ModelSplit.into``,
+    ``complete``).
+
+    ``seq``: under a sequence split (``tensor_parallel.SeqParallel``) x
+    is the rank's block [B, S/m, D] of its rows' sequences.  The router
+    runs on the rank's tokens and their gates are all-gathered
+    (``seq.share``: every rank routes every token as above, and keeps its
+    tokens' part of the gates' gradient, which is whole on every rank);
+    the experts' input is the whole sequence (``seq.gather``); the split
+    parts' partial outputs are reduce-scattered into the rank's block
+    (``split.out``), and parts the rank computes whole for every token
+    keep the rank's block; unsplit shared experts run on the rank's
+    tokens.  The aux loss is the whole batch's."""
     cdt = x.dtype
     acc = _acc(cdt)
     dev = x.device
+    D = x.shape[-1]
     E, K = cfg.n_experts, cfg.top_k
-    T = B * S
-    xt = x.reshape(T, D)
     e0, El = (0, E) if split is None or split.experts is None \
         else split.experts
     shared_split = bool(cfg.n_shared_experts) and split is not None \
         and split.shared is not None
-    # the input of the rank's parts of split experts, its gradient summed
-    # over "model"
-    xi = split.into(x) if El < E or shared_split else x
 
-    logits = xt.to(acc) @ p["router"].to(acc)
-    gates = torch.softmax(logits, dim=-1)                     # [T, E]
+    own = x                              # the tokens the output is of
+    gates = torch.softmax(x.reshape(-1, D).to(acc) @ p["router"].to(acc),
+                          dim=-1)
+    if seq is not None:
+        # every token of the rank's rows: their gates, and the experts'
+        # input, whose gradient is reduce-scattered into the block
+        gates = seq.share(gates.reshape(*x.shape[:2], E)).reshape(-1, E)
+        x = xi = seq.gather(x)
+    else:
+        # the input of the rank's parts of split experts, its gradient
+        # summed over "model"
+        xi = split.into(x) if El < E or shared_split else x
+    B, S, _ = x.shape
+    T = B * S                                                 # [T, E] gates
     top_g, top_i = _top_k(gates, K)                           # [T, K]
     top_g = top_g / torch.clamp_min(top_g.sum(-1, keepdim=True), 1e-9)
 
@@ -406,22 +425,26 @@ def moe_ffn(cfg, p, x, *, capacity_factor=1.25, group_tokens=4096,
     h = act(torch.bmm(xe, p["wg"].to(cdt))) * torch.bmm(xe, p["wi"].to(cdt))
     ye = torch.bmm(h, p["wo"].to(cdt)).reshape(n_slots, D)
 
-    top_g = split.into(top_g) if El < E else top_g
+    top_g = split.complete(top_g) if El < E else top_g
     gate = torch.where(keep, top_g.to(cdt).to(acc).reshape(T * K), 0.0)
     out = ye[slot.clamp(max=n_slots - 1)].to(acc) * gate[:, None]
     out = out.reshape(T, K, D).sum(1)                 # float32 [T, D]
 
+    out = out.reshape(B, S, D)
     shared = None
     if cfg.n_shared_experts:
-        shared = mlp(p["shared"], xi if shared_split else x, cfg.mlp_type,
+        shared = mlp(p["shared"], xi if shared_split else own, cfg.mlp_type,
                      cdt)
     if shared_split and El < E:
-        out, shared = split.out(out + shared.reshape(T, D).to(acc)), None
+        out, shared = split.out(out + shared.to(acc)), None
     elif El < E:
         out = split.out(out)
-    elif shared_split:
-        shared = split.out(shared)
-    out = out.to(cdt).reshape(B, S, D)
+    else:
+        if shared_split:
+            shared = split.out(shared)
+        if seq is not None:
+            out = seq.keep(out)
+    out = out.to(cdt)
     if shared is not None:
         out = out + shared
     return out, aux
@@ -550,10 +573,11 @@ def mamba_layer(cfg, p, x, *, conv_cache=None, ssm_state=None, decode=False,
     conv cache returned and ``ssm_state`` are the rank's channels and
     heads.  The gated norm's sum of squares over all ``ssm_inner``
     channels is all-reduced over "model", as is the output
-    (``split.out``); the input passes ``split.into``."""
+    (``split.out``); the input passes ``split.into`` (under a sequence
+    split the gather of the whole sequence, the output then
+    reduce-scattered into the rank's block)."""
     cdt = x.dtype
     acc = _acc(cdt)
-    B, S, _ = x.shape
     di, n, nh, ph = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads, \
         cfg.ssm_head_dim
     conv_w = p["conv"]
@@ -570,6 +594,7 @@ def mamba_layer(cfg, p, x, *, conv_cache=None, ssm_state=None, decode=False,
         conv_w = own(conv_w)
         if conv_cache is not None:
             conv_cache = own(conv_cache)
+    B, S, _ = x.shape
 
     z = x @ p["wz"].to(cdt)                                   # [B,S,di]
     xin = x @ p["wx"].to(cdt)

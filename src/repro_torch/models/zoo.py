@@ -27,11 +27,12 @@ Sharded steps (``launch/steps.py``) hand every pass the rank's parameter
 blocks and a ``gather`` hook (``distributed/tensor_parallel.BlockGather``)
 that makes a layer's tensors from them inside the layer's function, so a
 parameter is whole only while its layer runs; ``tp`` splits the attention
-(and in training the MLPs) over the "model" axis, ``split`` (a
+heads and the dense MLPs over the "model" axis, ``split`` (a
 ``distributed/tensor_parallel.ModelSplit``) the vocab (embedding, head,
-logits and cross entropy), the MoE experts and the mamba heads; the
-serving passes also
-take the rank's cache blocks and a ``layout`` that says how they split.
+logits and cross entropy), the MoE experts and the mamba heads, and
+``seq`` (a ``tensor_parallel.SeqParallel``) the sequence between the
+blocks; the serving passes also take the rank's cache blocks and a
+``layout`` that says how they split.
 """
 
 from __future__ import annotations
@@ -341,51 +342,66 @@ def _mixer_norm(cfg, p, x):
     return L.rms_norm(x, p["ln1" if "ln1" in p else "ln"], cfg.norm_eps)
 
 
-def _attn_block(cfg, p, x, positions, window, attn_impl, tp=None):
-    """x + attention -> (x, k, v).  ``tp``: the split, whose ``into`` and
-    ``out`` wrap the block's normed input and its output projection
-    (``forward``)."""
-    h = _mixer_norm(cfg, p, x)
-    if tp is not None:
-        h = tp.into(h)
-    a, k, v = L.attn_forward(cfg, p["attn"], h, positions, window=window,
-                             attn_impl=attn_impl)
-    if tp is not None:
-        a = tp.out(a)
-    return x + a, k, v
+def _around(split, seq):
+    """(into, out) around a block that needs the whole sequence: the
+    split's where it splits the block, else under a sequence split
+    (``seq``) the gather of the sequence and the rank's block of the
+    output, else identities."""
+    if split is not None:
+        return split.into, split.out
+    if seq is not None:
+        return seq.gather, seq.keep
+    return (lambda t: t), (lambda t: t)
 
 
-def _mamba_block(cfg, p, x, return_state=False, split=None):
-    """x + the mamba layer -> (x, its caches); ``split`` as in
-    ``forward`` (``layers.mamba_layer`` runs the rank's heads)."""
-    y, state = L.mamba_layer(cfg, p["mamba"], _mixer_norm(cfg, p, x),
+def _attn_block(cfg, p, x, positions, window, attn_impl, tp=None,
+                seq=None):
+    """x + attention -> (x, k, v of the whole sequence).  ``tp``: the
+    split, whose ``into`` and ``out`` wrap the block's normed input and
+    its output projection where it splits the heads (``tp.attn``;
+    ``forward``); ``seq``: the sequence split of ``x`` (``forward``)."""
+    into, out = _around(tp if tp is not None and tp.attn else None, seq)
+    a, k, v = L.attn_forward(cfg, p["attn"], into(_mixer_norm(cfg, p, x)),
+                             positions, window=window, attn_impl=attn_impl)
+    return x + out(a), k, v
+
+
+def _mamba_block(cfg, p, x, return_state=False, split=None, seq=None):
+    """x + the mamba layer -> (x, its caches of the whole sequence);
+    ``split`` and ``seq`` as in ``forward`` (``layers.mamba_layer`` runs
+    the rank's heads where ``split`` splits them, taking the sequence
+    through ``split.into`` / ``out``)."""
+    whole = seq if split is None or split.heads is None else None
+    into, out = _around(None, whole)
+    y, state = L.mamba_layer(cfg, p["mamba"], into(_mixer_norm(cfg, p, x)),
                              return_state=return_state, split=split)
-    return x + y, state
+    return x + out(y), state
 
 
 def _cross_block(cfg, p, x, image, tp=None):
     """x + tanh(gate) * cross attention -> (x, k, v of the image); ``tp``
-    as in ``_attn_block``."""
+    as in ``_attn_block``.  Unsplit, it runs on the tokens ``x`` holds
+    (every query sees every patch)."""
     h = L.rms_norm(x, p["lnx"], cfg.norm_eps)
-    if tp is not None:
-        h = tp.into(h)
-    a, k, v = L.cross_attn_forward(cfg, p["xattn"], h, image)
-    if tp is not None:
-        a = tp.out(a)
-    return x + torch.tanh(p["gate"].to(x.dtype)) * a, k, v
+    into, out = _around(tp if tp is not None and tp.attn else None, None)
+    a, k, v = L.cross_attn_forward(cfg, p["xattn"], into(h), image)
+    return x + torch.tanh(p["gate"].to(x.dtype)) * out(a), k, v
 
 
-def _ffn_block(cfg, p, x, tp=None, rows=None, split=None, with_aux=True):
+def _ffn_block(cfg, p, x, tp=None, rows=None, split=None, with_aux=True,
+               seq=None):
     """The feed-forward half of a layer -> (x, aux loss); a pure mamba
     layer has none and returns x unchanged.  ``tp`` wraps a dense MLP as
     it wraps attention (``_attn_block``) where it splits the MLPs
-    (``tp.mlp``); a MoE layer takes ``rows`` and ``split`` (``forward``)
-    instead, and computes no aux loss without ``with_aux`` (0.0)."""
+    (``tp.mlp``; unsplit, it runs on the tokens ``x`` holds); a MoE layer
+    takes ``rows``, ``split`` and ``seq`` (``forward``) instead, and
+    computes no aux loss without ``with_aux`` (0.0)."""
     tp = tp if tp is not None and tp.mlp else None
     if "moe" in p:
         f, aux = L.moe_ffn(cfg, p["moe"], L.rms_norm(x, p["ln2"],
                                                      cfg.norm_eps),
-                           rows=rows, split=split, with_aux=with_aux)
+                           rows=rows, split=split, seq=seq,
+                           with_aux=with_aux)
     elif "mlp" in p:
         h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
         if tp is not None:
@@ -433,7 +449,7 @@ def _remat(fn, policy: str):
 
 def forward(cfg: ModelConfig, params, batch, *, remat="dots",
             attn_impl="flash", constrain=None, tp=None, gather=None,
-            rows=None, split=None):
+            rows=None, split=None, seq=None):
     """Training / scoring forward pass -> (logits [B, S, V] in the compute
     dtype, aux loss: the MoE layers' sum, float32).  ``remat`` is applied
     per layer (the reference's per scan body: a layer, or a hybrid block;
@@ -441,7 +457,8 @@ def forward(cfg: ModelConfig, params, batch, *, remat="dots",
     the residual stream where the reference does (``_layers``' ``first``).
     ``tp``: the tensor-parallel split of a sharded train step
     (``distributed/tensor_parallel.py``), applied around every attention
-    and dense MLP block; None leaves the pass as it is.
+    block where it splits the heads and every dense MLP where it splits
+    the hidden units; None leaves the pass as it is.
 
     ``gather``: a sharded step's hook from a tree of the rank's parameter
     blocks to the tensors a layer computes with; it runs inside each
@@ -459,12 +476,22 @@ def forward(cfg: ModelConfig, params, batch, *, remat="dots",
     ``split``: a sharded step's ``ModelSplit``: the embedding looks up
     the rank's rows of the table, the logits are the rank's columns
     [B, S, V/m] where the vocab splits over "model", the MoE layers run
-    the rank's experts and the mamba layers its heads."""
+    the rank's experts and the mamba layers its heads.
+
+    ``seq``: a sharded step's ``tensor_parallel.SeqParallel`` where
+    ``batch`` is the rank's block of the sequence: the residual stream
+    and the norms are the rank's block [B, S/m, D] between the blocks,
+    ``tp`` and ``split`` (made ``with_seq``) gather the sequence into the
+    blocks they split and reduce-scatter their outputs, an attention or
+    mamba layer they leave whole gathers the sequence and keeps its
+    block, and positions are the whole sequence's.  The logits are the
+    whole sequence's where the vocab splits, else the rank's block's."""
     _check_family(cfg)
     cons = constrain if constrain is not None else (lambda a: a)
     cdt = _dtype(cfg.compute_dtype)
     x = _embed(cfg, params, batch, cdt, gather, split)
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    S = x.shape[1] * (1 if seq is None else seq.n)
+    positions = torch.arange(S, device=x.device)[None, :]
     image = batch.get("image_embeds")
     if image is not None:
         image = image.to(cdt)
@@ -477,17 +504,17 @@ def forward(cfg: ModelConfig, params, batch, *, remat="dots",
             x = cons(x)
         if mixer == "attn":
             x, _, _ = _attn_block(cfg, lp, x, positions, window, attn_impl,
-                                  tp)
+                                  tp, seq)
         else:
-            x, _ = _mamba_block(cfg, lp, x, split=split)
-        return _ffn_block(cfg, lp, x, tp, rows, split)
+            x, _ = _mamba_block(cfg, lp, x, split=split, seq=seq)
+        return _ffn_block(cfg, lp, x, tp, rows, split, seq=seq)
 
     for mixer, lp, window, _, first in _layers(cfg, params):
         if mixer == "cross":
             if gather is not None:
                 lp = gather(lp)
             x, _, _ = _cross_block(cfg, lp, x, image, tp)
-            x, aux = _ffn_block(cfg, lp, x, tp, rows, split)
+            x, aux = _ffn_block(cfg, lp, x, tp, rows, split, seq=seq)
         else:
             x, aux = _remat(functools.partial(layer_fn, mixer, window, first),
                             remat)(x, lp)
@@ -553,12 +580,23 @@ def ce_loss(logits, labels, vocab_chunk=0, split=None):
 
 def loss_fn(cfg, params, batch, *, remat="dots", attn_impl="flash",
             vocab_chunk=0, aux_coef=0.01, constrain=None, tp=None,
-            gather=None, rows=None, split=None):
+            gather=None, rows=None, split=None, seq=None):
+    """The mean cross entropy of ``forward``'s logits (hooks as there)
+    plus ``aux_coef`` times its aux loss.  Under ``seq`` the cross entropy
+    is the whole sequence's: over the gathered labels where the vocab
+    splits (the logits are the whole sequence's), else the mean of the
+    ranks' means over their blocks (``SeqParallel.mean``)."""
     logits, aux = forward(cfg, params, batch, remat=remat,
                           attn_impl=attn_impl, constrain=constrain, tp=tp,
-                          gather=gather, rows=rows, split=split)
-    return ce_loss(logits, batch["labels"], vocab_chunk, split) \
-        + aux_coef * aux
+                          gather=gather, rows=rows, split=split, seq=seq)
+    labels = batch["labels"]
+    vocab = split is not None and split.vocab is not None
+    if seq is not None and vocab:
+        labels = seq.tokens(labels)
+    ce = ce_loss(logits, labels, vocab_chunk, split)
+    if seq is not None and not vocab:
+        ce = seq.mean(ce)
+    return ce + aux_coef * aux
 
 
 # ---------------------------------------------------------------------------
@@ -644,10 +682,12 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
 
     A sharded serve step (``launch/steps.py``) passes the rank's rows of
     ``tokens``, its parameter and cache blocks, ``gather`` as in
-    ``forward``, ``tp`` the attention split over "model" (``cfg`` then
-    holds the rank's head counts and the cache its kv heads) and
-    ``layout``: ``layout.kv(key)`` gives ``layers.attn_decode``'s keyword
-    arguments for a cache leaf split by sequence (the block's first
+    ``forward``, ``tp`` the serving split over "model" (where it splits
+    the attention, ``cfg`` holds the rank's head counts and the cache its
+    kv heads; where it splits the dense MLPs, a rank runs its hidden
+    units and their outputs are all-reduced) and ``layout``:
+    ``layout.kv(key)`` gives ``layers.attn_decode``'s keyword arguments
+    for a cache leaf split by sequence (the block's first
     position and the merge of the ranks' parts), ``layout.read`` and
     ``layout.put`` a mamba layer's states for the layer (whole, or the
     rank's heads' state under the mamba split) and the rank's block of
@@ -659,6 +699,7 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
     cdt = _dtype(cfg.compute_dtype)
     kv = (lambda key: {}) if layout is None else layout.kv
     read = (lambda key, t: t) if layout is None else layout.read
+    attn = tp is not None and tp.attn
     x = _lookup(params, tokens, cdt, gather, split)[:, None, :]
     for mixer, lp, window, idx, _ in _layers(cfg, params):
         if gather is not None:
@@ -668,16 +709,16 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
             h = L.rms_norm(x, lp["lnx"], cfg.norm_eps)
             a = L.cross_attn_decode(cfg, lp["xattn"], h, c["xk"], c["xv"],
                                     **kv("xk"))
-            if tp is not None:
+            if attn:
                 a = tp.out(a)
             x, _ = _ffn_block(cfg, lp, x + torch.tanh(lp["gate"].to(x.dtype))
-                              * a, rows=rows, split=split, with_aux=False)
+                              * a, tp, rows=rows, split=split, with_aux=False)
             continue
         h = _mixer_norm(cfg, lp, x)
         if mixer == "attn":
             a, _, _ = L.attn_decode(cfg, lp["attn"], h, c["k"], c["v"], pos,
                                     window=window, **kv("k"))
-            if tp is not None:
+            if attn:
                 a = tp.out(a)
         else:
             a, (conv, state) = L.mamba_layer(
@@ -685,7 +726,7 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
                 ssm_state=read("ssm", c["ssm"]), decode=True, split=split)
             _put(layout, "conv", c["conv"], conv)
             _put(layout, "ssm", c["ssm"], state)
-        x, _ = _ffn_block(cfg, lp, x + a, rows=rows, split=split,
+        x, _ = _ffn_block(cfg, lp, x + a, tp, rows=rows, split=split,
                           with_aux=False)
     x = L.rms_norm(x, _top(params, "final_norm", gather), cfg.norm_eps)
     logits = _head(params, x[:, 0], cdt, gather, split).to(torch.float32)
@@ -696,7 +737,7 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
 
 def prefill(cfg: ModelConfig, params, batch, *, attn_impl="flash",
             gather=None, tp=None, cache=None, layout=None, rows=None,
-            split=None):
+            split=None, seq=None):
     """Prefill pass: forward over S tokens -> (last logits [B, V] float32,
     the decode cache filled: every attention layer's k and v, every mamba
     layer's last conv rows and final state, every cross layer's image k
@@ -706,13 +747,15 @@ def prefill(cfg: ModelConfig, params, batch, *, attn_impl="flash",
     ``decode_step`` does, the rank's cache blocks, ``layout``, whose
     ``put`` writes the rank's block of each layer's cache tensors
     (computed for the rank's rows, whole over "model" but for the split
-    attention or mamba heads), and ``split``: under a vocab split the
-    last logits are computed on the rank's columns and all-gathered over
-    "model"."""
+    attention or mamba heads), ``split``: under a vocab split the last
+    logits are computed on the rank's columns and all-gathered over
+    "model", and ``seq`` as ``forward``'s: the layers write the whole
+    sequence's caches, and the last position is taken from the rank that
+    holds it."""
     _check_family(cfg)
     cdt = _dtype(cfg.compute_dtype)
     x = _embed(cfg, params, batch, cdt, gather, split)
-    B, S = x.shape[:2]
+    B, S = x.shape[0], x.shape[1] * (1 if seq is None else seq.n)
     positions = torch.arange(S, device=x.device)[None, :]
     image = batch.get("image_embeds")
     if image is not None:
@@ -729,18 +772,22 @@ def prefill(cfg: ModelConfig, params, batch, *, attn_impl="flash",
             _put(layout, "xv", c["xv"], v)
         elif mixer == "attn":
             x, k, v = _attn_block(cfg, lp, x, positions, window, attn_impl,
-                                  tp)
+                                  tp, seq)
             _put(layout, "k", c["k"], k)
             _put(layout, "v", c["v"], v)
         else:
             x, (conv, state) = _mamba_block(cfg, lp, x, return_state=True,
-                                            split=split)
+                                            split=split, seq=seq)
             _put(layout, "conv", c["conv"], conv)
             _put(layout, "ssm", c["ssm"], state)
-        x, _ = _ffn_block(cfg, lp, x, rows=rows, split=split,
-                          with_aux=False)
+        x, _ = _ffn_block(cfg, lp, x, tp, rows=rows, split=split,
+                          with_aux=False, seq=seq)
     x = L.rms_norm(x, _top(params, "final_norm", gather), cfg.norm_eps)
-    logits = _head(params, x[:, -1], cdt, gather, split).to(torch.float32)
+    last = x[:, -1] if seq is None else seq.last(x)
+    # the head's own columns, as ``_head`` (its ``into`` acts only in the
+    # backward)
+    logits = (last @ _top(params, "lm_head", gather).to(cdt)).to(
+        torch.float32)
     if split is not None and split.vocab is not None:
         logits = split.columns(logits)
     return logits, cache

@@ -245,25 +245,83 @@ def test_train_cell(arch, remat, tp_reduces):
         - one["argument_size_in_bytes"]
 
 
+def test_seq_parallel_train_cell():
+    """The train step under ``seq_parallel`` (reduced qwen3, remat
+    "none"): each rank holds its rows and a quarter of the sequence
+    between the blocks.  Its parameters move as without the flag, but
+    the norms, which a rank now applies to its own tokens, have their
+    gradients summed over "model" too.  Over "model", for each layer's
+    two split blocks, the input's sequence is all-gathered (a quarter of
+    the tokens an operand) and the partial output reduce-scattered in the
+    forward, and the reverse in the backward; the embedding all-gathers
+    the int32 tokens and reduce-scatters its partial rows (its gradient
+    all-gathered), the head all-gathers its input (its gradient
+    reduce-scattered) and the cross entropy the int32 labels, then
+    all-reduces its log-sum-exp's max and sum and the label's logit (a
+    float a token) as without the flag.  The attention kernel runs on the
+    whole sequence; the FLOPs are within 2% of the cell without the flag
+    and the peak at or below its."""
+    rec, cfg, policy, mesh = _cell("qwen3-8b", "train_4k", remat="none",
+                                   seq_parallel=True)
+    base, *_ = _cell("qwen3-8b", "train_4k", remat="none")
+    shape = SHAPES["train_4k"]
+    leaves = _param_leaves(cfg, policy)
+    norms = {("ln1",), ("ln2",), ("final_norm",)}
+    ag = rs = ar = 0
+    for path, s, dt, sp in leaves:
+        live = shd.sharded_axes(sp, mesh)
+        if _model_block(path) or path[-2:] in _SPLIT["qwen3-8b"]:
+            gathered, summed = [a for a in live if a != "model"], ("data",)
+        elif path[-2:] in _SUM_MODEL["qwen3-8b"] or path[-1:] in norms:
+            gathered, summed = live, ("data", "model")
+        else:
+            gathered, summed = live, ("data",)
+        g, r, a = _moved(s, dt, sp, mesh, gathered, summed)
+        ag, rs, ar = ag + g, rs + r, ar + a
+    groups = {tuple(shd.sharded_axes(sp, mesh)) for *_, sp in leaves}
+    ar += 4 + 4 * len(groups) * len(mesh.shape)
+    tokens = shape.global_batch // MESH[0] * shape.seq_len
+    act = tokens * cfg.d_model * torch.bfloat16.itemsize
+    block = act // MESH[1]
+    ag += (cfg.n_layers * 2 * 2 + 2) * block + 2 * tokens // MESH[1] * 4
+    rs += cfg.n_layers * 2 * 2 * act + 2 * act
+    ar += 3 * tokens * 4
+    c = rec["hlo_cost"]["collectives"]
+    assert c["all-gather"]["bytes"] == ag
+    assert c["reduce-scatter"]["bytes"] == rs
+    assert c["all-reduce"]["bytes"] == ar
+    q = rec["kernel_shapes"]["flash_attention_fwd"]
+    assert {tuple(s[:2]) for s in q} == {(shape.global_batch // MESH[0],
+                                          shape.seq_len)}, q
+    flops, was = rec["hlo_cost"]["flops"], base["hlo_cost"]["flops"]
+    assert abs(flops / was - 1) <= 0.02, (flops, was)
+    assert rec["memory"]["peak_memory_in_bytes"] <= \
+        base["memory"]["peak_memory_in_bytes"]
+
+
 def test_prefill_and_decode_cells():
     """Serving holds the cache at ``cache_specs`` (reduced qwen3: one kv
     head, so its sequence splits over "model").  Prefill gathers each
-    layer's blocks whole (bf16) where it runs, the embedding and the head
-    over "data" alone (the vocab splits over "model"), the last logits'
-    columns over "model" and their rows over "data", and no cache leaf;
-    it all-reduces the vocab-parallel embedding's output over "model".
+    layer's blocks whole (bf16) where it runs, the embedding, the head and
+    the MLPs over "data" alone (the vocab and ``d_ff`` split over
+    "model"), the last logits' columns over "model" and their rows over
+    "data", and no cache leaf; it all-reduces the vocab-parallel
+    embedding's output and each layer's partial MLP output over "model".
     Decode gathers the parameters as prefill does, the next tokens, and
     each row's largest logit and its index over "model" (the merged
-    argmax), and all-reduces the embedding's output and each attention
-    layer's partial max and weighted sums over "model" (the lse merge),
-    and moves no cache block.  Arguments: parameter blocks plus, for
-    decode, cache blocks (and the whole tokens).  Peak: at most the
+    argmax), and all-reduces the embedding's output, each attention
+    layer's partial max and weighted sums over "model" (the lse merge)
+    and each layer's partial MLP output, and moves no cache block.
+    Arguments: parameter blocks plus, for decode, cache blocks (and the
+    whole tokens).  Peak: at most the
     arguments, plus one layer gathered whole, plus the activations of the
     unsharded step on one rank's rows."""
     rec, cfg, policy, mesh = _cell("qwen3-8b", "prefill_32k")
     leaves = _param_leaves(cfg, policy, torch.bfloat16)
+    mlp = {("mlp", k) for k in ("wi", "wg", "wo")}
     gathers = sum(_moved(s, dt, sp, mesh, [a for a in shd.sharded_axes(
-        sp, mesh) if a != "model" or not _model_block(path)], ())[0]
+        sp, mesh) if a != "model" or not (
+            _model_block(path) or path[-2:] in mlp)], ())[0]
         for path, s, dt, sp in leaves)
     shape = SHAPES["prefill_32k"]
     rows = shape.global_batch // MESH[0]
@@ -271,7 +329,7 @@ def test_prefill_and_decode_cells():
     c = rec["hlo_cost"]["collectives"]
     assert c["all-gather"]["bytes"] == gathers + logits // MESH[1] + logits
     assert c["all-reduce"]["bytes"] == \
-        rows * shape.seq_len * cfg.d_model * 2
+        (1 + cfg.n_layers) * rows * shape.seq_len * cfg.d_model * 2
     assert c["reduce-scatter"]["count"] == 0
     params = sum(_local_bytes(torch.empty(s, dtype=dt, device="meta"), sp,
                               mesh) for _, s, dt, sp in leaves)
@@ -299,7 +357,8 @@ def test_prefill_and_decode_cells():
     assert c["all-gather"]["bytes"] == gathers + 4 * rows + 2 * 4 * rows
     heads = rows * cfg.n_heads
     assert c["all-reduce"]["bytes"] == cfg.n_layers * 4 * (
-        heads + heads * cfg.head_dim + heads) + rows * cfg.d_model * 2
+        heads + heads * cfg.head_dim + heads) + (1 + cfg.n_layers) * rows \
+        * cfg.d_model * 2
     assert c["reduce-scatter"]["count"] == 0
     mem = rec["memory"]
     assert mem["argument_size_in_bytes"] == \

@@ -101,8 +101,8 @@ assert float((got_l - want_l).abs().max()) <= 1e-5 * scale, \
     float((got_l - want_l).abs().max()) / scale
 specs = steps._spec_leaves(steps.cache_specs(cfg, pol, want_c))
 layout = steps.CacheLayout(cfg, pol, want_c)
-split = "heads" if layout.tp is not None else "sequence" \
-    if "k" in layout.shapes else "states"
+split = "heads" if layout.tp is not None and layout.tp.attn else \
+    "sequence" if "k" in layout.shapes else "states"
 assert split == {layout!r}, split
 
 

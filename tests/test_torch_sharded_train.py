@@ -50,13 +50,107 @@ batch["labels"] = torch.from_numpy(np.random.default_rng(9).integers(
 """
 
 
+# the sequence split of a 2 x 2 ("data", "model") mesh (``seq_parallel``),
+# a batch placed at its ``batch_specs`` (each rank [2, S/2]): the train
+# step's loss within rtol 1e-5, its grad norm within rtol 1e-4, the moments
+# and, where the gradient is resolved, the updated parameters within rtol
+# 2e-4 / atol 1e-6 of one rank's (``one``, ``m1``; elsewhere within the two
+# AdamW steps of 2 lr, as ``test_torch_train.py`` holds them), and the
+# prefill's last logits and cache within 1e-5; every
+# attention kernel call on the whole sequence and every ``ssd_scan`` call on
+# all its chunks, every norm of the residual stream on the rank's rows and
+# sequence block [2, S/2, D]
+SP_CASE = """
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.models import layers as L
+
+sp_seen = collections.defaultdict(set)
+_kernel, _norm, _scan = fa.flash_attention, L.rms_norm, L.ssd_scan
+
+
+def _attn_spy(q, *a, **k):
+    sp_seen["attn"].add(q.shape[1])
+    return _kernel(q, *a, **k)
+
+
+def _norm_spy(x, w, eps=1e-5):
+    sp_seen["norm"].add(tuple(x.shape))
+    return _norm(x, w, eps)
+
+
+def _scan_spy(states, decay):
+    sp_seen["chunks"].add(states.shape[1])
+    return _scan(states, decay)
+
+
+fa.flash_attention, L.rms_norm, L.ssd_scan = _attn_spy, _norm_spy, _scan_spy
+
+
+def sp_case(cfg, h, st, b, mesh, one, m1):
+    B, S = b["labels"].shape
+    pol = shd.ShardingPolicy(mesh, seq_parallel=True)
+    specs = steps.batch_specs(cfg, ShapeConfig("t", "train", S, B), pol)
+    placed = steps.place(b, specs, mesh)
+    assert tuple(placed["labels"].to_local().shape) == (B // 2, S // 2)
+    sp_seen.clear()
+    new, m2 = steps.build_train_step(cfg, h, pol)(
+        steps.place_state(copy(st), cfg, pol), placed)
+    D = cfg.d_model
+    assert {s for s in sp_seen["norm"] if s[-1] == D} == \\
+        {(B // 2 // h.accum, S // 2, D)}, sp_seen["norm"]
+    assert sp_seen["attn"] <= {S}, sp_seen["attn"]
+    assert sp_seen["chunks"] <= {S // cfg.ssm_chunk}, sp_seen["chunks"]
+    assert sp_seen["attn"] or sp_seen["chunks"], cfg.name
+    np.testing.assert_allclose(float(m2["loss"]), float(m1["loss"]),
+                               rtol=1e-5, err_msg=cfg.name)
+    np.testing.assert_allclose(float(m2["grad_norm"]),
+                               float(m1["grad_norm"]), rtol=1e-4,
+                               err_msg=cfg.name)
+    mu, lr = dict(tree_items(one["opt"]["mu"])), float(m1["lr"])
+    for group in ("params", "opt"):
+        for (k, x), y in zip(tree_items(one[group]),
+                             steps._leaves(new[group])):
+            y = y.full_tensor()
+            if group == "params":
+                # AdamW moves an element by about lr, whatever its
+                # gradient's size: where the gradient is not resolved
+                # (below 1e-3 of the leaf's largest) only that bound holds
+                assert float((y - x).abs().max()) <= 2 * lr, (cfg.name, k)
+                ok = mu[k].abs() >= 1e-3 * mu[k].abs().max()
+                x, y = x[ok], y[ok]
+            np.testing.assert_allclose(y.numpy(), x.numpy(), rtol=2e-4,
+                                       atol=1e-6, err_msg=f"{cfg.name} {k}")
+    params = tree_map(torch.clone, st["params"])
+    pb = {k: v for k, v in b.items() if k != "labels"}
+    want_l, want_c = steps.build_prefill_step(cfg, h)(params, pb)
+    specs = steps.batch_specs(cfg, ShapeConfig("p", "prefill", S, B), pol)
+    sp_seen.clear()
+    got_l, got_c = steps.build_prefill_step(cfg, h, pol)(
+        steps.place(params, steps.param_specs(cfg, pol), mesh),
+        steps.place(pb, specs, mesh))
+    assert {s for s in sp_seen["norm"] if s[-1] == D} == \\
+        {(B // 2, S // 2, D)}, sp_seen["norm"]
+    assert sp_seen["attn"] <= {S} and sp_seen["chunks"] <= \\
+        {S // cfg.ssm_chunk}, sp_seen
+    np.testing.assert_allclose(got_l.numpy(), want_l.numpy(), rtol=1e-5,
+                               atol=1e-5, err_msg=cfg.name)
+    for (k, x), (_, y) in zip(tree_items(want_c), tree_items(got_c)):
+        np.testing.assert_allclose(y.full_tensor().numpy(), x.numpy(),
+                                   rtol=1e-5, atol=1e-5,
+                                   err_msg=f"{cfg.name} {k}")
+    return float(m2["loss"])
+"""
+
+
 def test_sharded_train_step_matches_one_rank():
     """Reduced qwen3 in fp32 on a 2 x 2 ("data", "model") mesh: the loss
     within rtol 1e-5 and the grad norm within rtol 1e-4 of one rank, the
     updated parameters and moments the one-rank ones, each rank holding
-    its blocks; then the sharded prefill and decode steps return the
-    one-rank logits, cache and tokens."""
-    outs = run_ranks(_MODEL + """
+    its blocks, with the batch split by rows and, under ``seq_parallel``,
+    along the sequence too (``SP_CASE``); then the sharded prefill and
+    decode steps return the one-rank logits, cache and tokens."""
+    outs = run_ranks(_MODEL + SP_CASE + """
 from torch.distributed.tensor import DTensor
 one, m1 = steps.build_train_step(cfg, hp)(copy(state), batch)
 mesh = shd.make_mesh((2, 2), ("data", "model"))
@@ -71,11 +165,13 @@ np.testing.assert_allclose(float(m2["loss"]), float(m1["loss"]), rtol=1e-5)
 np.testing.assert_allclose(float(m2["grad_norm"]), float(m1["grad_norm"]),
                            rtol=1e-4)
 assert int(new["step"]) == 2 and new is placed
-# seq_parallel shards the activations' seq dim, not the rows a rank runs
+# seq_parallel: a plain full batch and DTensors at its batch_specs give
+# one layout, the rank's rows and sequence block (SP_CASE)
 hp_sp = dataclasses.replace(hp, seq_parallel=True)
 _, m3 = steps.build_train_step(cfg, hp_sp, pol)(
     steps.place_state(copy(state), cfg, pol), batch)
 np.testing.assert_allclose(float(m3["loss"]), float(m1["loss"]), rtol=1e-5)
+sp_case(cfg, hp, state, batch, mesh, one, m1)
 for group in ("params", "opt"):
     a = steps._leaves(one[group]); b = steps._leaves(new[group])
     for x, y in zip(a, b):
@@ -175,23 +271,30 @@ def test_tensor_parallel_step_matches_one_rank():
     the VLM (self and cross attention and MLPs split), the vocab split
     too; each rank's attention kernel sees its 2 of 4 heads and its
     ``ssd_scan`` its 4 of 8 mamba heads, and the loss and grad norm are
-    one rank's."""
+    one rank's.  A qwen3 of 3 heads, which the axis does not divide, runs
+    its attention whole (the kernel sees 3 heads) and its MLPs split (every
+    MLP call on ``d_ff``/2 hidden units) in training, prefill and decode:
+    loss and grad norm as above, the prefill's logits and the cache within
+    1e-5 of their largest values, the decode's tokens equal."""
     outs = run_ranks(_MODEL + SEEN + """
 from repro_torch.distributed import tensor_parallel
 from repro_torch.kernels import flash_attention as fa
-heads = []
-kernel = fa.flash_attention
+from repro_torch.models import layers as L
+heads, units = [], []
+kernel, mlp = fa.flash_attention, L.mlp
 fa.flash_attention = lambda q, *a, **k: heads.append(q.shape[2]) or \
     kernel(q, *a, **k)
+L.mlp = lambda p, *a, **k: units.append(p["wi"].shape[-1]) or mlp(p, *a, **k)
 mesh = shd.make_mesh((1, 2), ("data", "model"))
 pol = shd.ShardingPolicy(mesh)
-cases = [("qwen3-8b", dict(remat="dots", accum=2)),
-         ("gemma3-4b", {}), ("deepseek-moe-16b", {}),
-         ("jamba-v0.1-52b", {}), ("mamba2-2.7b", {}),
-         ("llama-3.2-vision-90b", {})]
-for arch, kw in cases:
+cases = [("qwen3-8b", dict(remat="dots", accum=2), {}),
+         ("gemma3-4b", {}, {}), ("deepseek-moe-16b", {}, {}),
+         ("jamba-v0.1-52b", {}, {}), ("mamba2-2.7b", {}, {}),
+         ("llama-3.2-vision-90b", {}, {}),
+         ("qwen3-8b", {}, {"n_heads": 3})]
+for arch, kw, over in cases:
     c = dataclasses.replace(get_config(arch).reduced(),
-                            compute_dtype="float32")
+                            compute_dtype="float32", **over)
     h = dataclasses.replace(hp, **kw)
     st = steps.init_state(c, 0, device="cpu")
     st["step"] = torch.tensor(1, dtype=torch.int32)
@@ -199,17 +302,22 @@ for arch, kw in cases:
     b["labels"] = batch["labels"] % c.vocab_size
     tp = tensor_parallel.plan(c, pol)
     attn = c.family != "ssm"
-    assert (tp is not None and tp.cfg.n_heads == c.n_heads // 2) == attn, \
-        arch
+    split = attn and c.n_heads % 2 == 0
+    assert (tp is not None and tp.attn
+            and tp.cfg.n_heads == c.n_heads // 2) == split, arch
+    assert (tp is not None and tp.ff == (48 * RANK, 48)) == attn, arch
     heads.clear()
     _, m1 = steps.build_train_step(c, h)(copy(st), b)
     assert set(heads) == ({c.n_heads} if attn else set()), (arch, heads)
     heads.clear()
+    units.clear()
     with Seen(c, mesh.get_group("model")) as seen:
         _, m2 = steps.build_train_step(c, h, pol)(
             steps.place_state(copy(st), c, pol), b)
-    assert set(heads) == ({c.n_heads // 2} if attn else set()), (arch,
-                                                                  heads)
+    assert set(heads) == ({c.n_heads // (2 if split else 1)} if attn
+                          else set()), (arch, heads)
+    if over:
+        assert set(units) == {c.d_ff // 2}, units
     # ssd_scan runs on [rows x heads, chunks, p, n]: 4 rows, 4 of 8 heads
     assert seen.scans == ({4 * c.ssm_heads // 2} if c.ssm_state
                           else set()), (arch, seen.scans)
@@ -218,6 +326,34 @@ for arch, kw in cases:
     np.testing.assert_allclose(float(m2["grad_norm"]),
                                float(m1["grad_norm"]), rtol=1e-4,
                                err_msg=arch)
+
+# serving the 3-head qwen3 (c): its one kv head splits the cache's
+# sequence, the attention runs whole and the MLPs split
+params = tree_map(torch.clone, st["params"])
+placed = steps.place(params, steps.param_specs(c, pol), mesh)
+prompt = {"tokens": b["tokens"][:, :12]}
+want_l, want_c = steps.build_prefill_step(c, hp)(params, prompt,
+                                                 cache_len=16)
+units.clear()
+got_l, got_c = steps.build_prefill_step(c, hp, pol)(placed, prompt,
+                                                    cache_len=16)
+assert set(units) == {c.d_ff // 2}, units
+layout = steps.CacheLayout(c, pol, want_c)
+assert not layout.tp.attn and layout.tp.ff == (48 * RANK, 48)
+scale = float(want_l.abs().max())
+assert float((got_l - want_l).abs().max()) <= 1e-5 * scale
+one, sharded = steps.build_serve_step(c, hp), steps.build_serve_step(c, hp,
+                                                                      pol)
+t1 = t2 = torch.argmax(want_l, -1).to(torch.int32)
+for pos in range(12, 15):
+    units.clear()
+    t1, _ = one(params, want_c, t1, pos)
+    t2, _ = sharded(placed, got_c, t2, pos)
+    assert set(units) == {c.d_ff // 2, c.d_ff}, units
+    assert torch.equal(t1, t2), (pos, t1, t2)
+    for (k, x), (_, y) in zip(tree_items(want_c), tree_items(got_c)):
+        err = float((y.full_tensor() - x).abs().max())
+        assert err <= 1e-5 * float(x.abs().max()), (pos, k, err)
 print("TP_OK")
 """, 2)
     assert all(o.startswith("TP_OK") for o in outs)

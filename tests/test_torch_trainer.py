@@ -159,6 +159,32 @@ print("ok")
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
 
 
+def test_train_lm_example(tmp_path):
+    """``examples/torch_train_lm.py`` for 2 steps of a reduced jamba (16
+    tokens of 2 rows) on the CPU, in a fresh interpreter: it trains
+    through ``train_loop``, checkpoints both steps, and imports neither
+    JAX nor the reference package."""
+    example = os.path.join(os.path.dirname(SRC), "examples",
+                           "torch_train_lm.py")
+    code = f"""
+import runpy
+import sys
+sys.argv = ["torch_train_lm.py", "--arch", "jamba-v0.1-52b", "--steps", "2",
+            "--batch", "2", "--seq", "16", "--device", "cpu",
+            "--ckpt-dir", {str(tmp_path)!r}]
+runpy.run_path({example!r}, run_name="__main__")
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not bad, bad
+"""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env=env, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert "[example] 2 steps in" in r.stdout, r.stdout
+    assert ckpt.latest_step(str(tmp_path)) == 2
+
+
 def test_latest_step(tmp_path):
     assert ckpt.latest_step(str(tmp_path / "missing")) is None
     assert ckpt.latest_step(str(tmp_path)) is None
