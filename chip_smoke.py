@@ -199,11 +199,16 @@ Phases (any failure exits non-zero; nothing is caught):
      decode_32k (remat full) and deepseek-moe-16b x train_4k over 256
      fake ranks: per-rank arguments, temporaries, peak, FLOPs and
      collective bytes by kind beside the parent commit's (before the
-     "model" axis split the head, the cross entropy and the experts), the
-     fit in 80 GB, the dominant roofline term; it fails unless qwen3's
-     training peak is at most 100 GB, the decode cell fits 80 GB with
-     arguments within 1.05x the reference's and all-gathers at most 0.5
-     GB, and deepseek's training cell fits 80 GB; qwen3-8b x train_4k
+     "model" axis split the head, the cross entropy and the experts; for
+     the decode cell its parent commit's, whose decode gathered every
+     layer's parameter blocks), the fit in 80 GB, the dominant roofline
+     term, and the collectives that carry a parameter block; it fails
+     unless qwen3's training peak is at most 100 GB, the decode cell fits
+     80 GB with arguments within 1.05x the reference's, all-gathers at
+     most the reference's bytes, moves at most the reference's
+     collective bytes in all, peaks no higher than its parent and moves
+     no parameter block (weight-stationary), and deepseek's training
+     cell fits 80 GB; qwen3-8b x train_4k
      with ``--seq-parallel`` (the sequence split over "model" between
      the blocks) must come within 2% of the same run's FLOPs without the
      flag at no higher a peak, and gemma3-4b x train_4k (8 heads, which
@@ -2847,8 +2852,13 @@ def sharding_phase(log, torch, dev, cfg, f, params, fleet, coords, fused_cfg,
 # phase 13: the reference's own record of its dry-run test cell
 # (deepseek-moe-16b x decode_32k x single pod, remat full; written by its
 # system test, ``results/dryrun_testcell.json``): bytes of arguments per
-# device, the KV cache split 256 ways plus a parameter shard
+# device, the KV cache split 256 ways plus a parameter shard; its
+# all-gather operand bytes, and the operand bytes of all its collectives
+# (all-gather 14,233,192, all-reduce 38,313,984, all-to-all 3,735,552,
+# collective-permute 917,536)
 REFERENCE_TESTCELL_ARG_BYTES = 3_890_630_692
+REFERENCE_TESTCELL_ALL_GATHER_BYTES = 14_233_192
+REFERENCE_TESTCELL_COLLECTIVE_BYTES = 57_200_264
 DRYRUN_CELLS = [["--arch", "qwen3-8b", "--shape", "train_4k"],
                 ["--arch", "deepseek-moe-16b", "--shape", "decode_32k",
                  "--remat", "full"],
@@ -2868,10 +2878,13 @@ PARENT_DRYRUN = {
         "arguments": 0.388e9, "peak": 171.537e9, "flops": 4.4608e14,
         "all-gather": 6.9866e8, "all-reduce": 9.6638e10,
         "reduce-scatter": 3.2556e9},
+    # at commit 6f8bc65, whose decode gathered every layer's parameter
+    # blocks over "data" (the same CLI on fake CUDA tensors, NVIDIA H100
+    # 80GB HBM3, 700.00 W)
     ("deepseek-moe-16b", "decode_32k"): {
-        "arguments": 3.891e9, "peak": 5.507e9, "flops": 4.8377e11,
-        "all-gather": 2.1831e9, "all-reduce": 9.1750e5,
-        "reduce-scatter": 0.0},
+        "arguments": 3.890631168e9, "peak": 4.102126592e9,
+        "flops": 3.6107e10, "all-gather": 1.32311648e8,
+        "all-reduce": 2.78528e6, "reduce-scatter": 0.0},
     ("deepseek-moe-16b", "train_4k"): {
         "arguments": 0.796e9, "peak": 114.764e9, "flops": 1.2485e15,
         "all-gather": 8.6208e9, "all-reduce": 2.2549e10,
@@ -2900,9 +2913,11 @@ PARENT_DRYRUN = {
         "all-gather": 3.8750e8, "all-reduce": 6.1082e9,
         "reduce-scatter": 3.2556e9}}
 # the gates of steps that keep the vocab and the experts split over
-# "model": the decode cell within 80 GB, within 1.05x the reference's
-# arguments and all-gathering at most 0.5 GB a step (2.18 GB at 359ecfb,
-# the experts gathered whole); qwen3's training peak at most 100 GB
+# "model": the decode cell within 80 GB and within 1.05x the reference's
+# arguments; of the weight-stationary decode, its all-gather and its
+# collective bytes at most the reference's (REFERENCE_TESTCELL_*), its
+# peak at most its parent's and no collective on a parameter block;
+# qwen3's training peak at most 100 GB
 # (171.537 GB at 359ecfb, the head whole); deepseek's training cell
 # within 80 GB (114.764 GB at 359ecfb).  Of steps that split the mamba
 # heads over "model": mamba2's training peak at most 100 GB and its FLOPs
@@ -2910,7 +2925,6 @@ PARENT_DRYRUN = {
 # a935b21); jamba's training peak and FLOPs below its parent's; and
 # every ``ssd_scan`` call of both on the rank's rows and nh/16 heads
 DECODE_ARGS_OVER_REFERENCE = 1.05
-DECODE_ALL_GATHER_BYTES = 0.5e9
 TRAIN_PEAK_BYTES = 100e9
 MAMBA_FLOPS_OVER_PARENT = 0.5
 # of the sequence split: qwen3's ``--seq-parallel`` cell within 2% of the
@@ -3054,8 +3068,16 @@ def dryrun_phase(log, torch, dev, trained, card):
             vs_ref = ""
             if rec["shape"] == "decode_32k":
                 ref = REFERENCE_TESTCELL_ARG_BYTES
+                ag = cost["collectives"]["all-gather"]["bytes"] \
+                    / REFERENCE_TESTCELL_ALL_GATHER_BYTES
+                every = cost["collective_bytes"] \
+                    / REFERENCE_TESTCELL_COLLECTIVE_BYTES
                 vs_ref = (f"; arguments over the reference's "
-                          f"{ref / 1e9:.4f} GB: {args / ref:.4f}x")
+                          f"{ref / 1e9:.4f} GB: {args / ref:.4f}x; "
+                          f"all-gather and all collectives over the "
+                          f"reference's {REFERENCE_TESTCELL_ALL_GATHER_BYTES}"
+                          f" / {REFERENCE_TESTCELL_COLLECTIVE_BYTES} B: "
+                          f"{ag:.4f}x / {every:.4f}x")
             log(f"[dryrun] {rec['arch']} x {rec['shape']} x single pod "
                 f"({rec['n_devices']} fake ranks, mesh {rec['mesh']}, remat "
                 f"{rec['hp']['remat']}, seq_parallel "
@@ -3074,19 +3096,30 @@ def dryrun_phase(log, torch, dev, trained, card):
                 f"compute {roof['t_compute']:.4f} s, memory "
                 f"{roof['t_memory']:.4f} s, collective "
                 f"{roof['t_collective']:.4f} s: dominant {roof['dominant']}"
-                f"{vs_ref}; kernel calls {rec['kernel_calls']}")
+                f"{vs_ref}; collectives carrying a parameter block "
+                f"{int(rec['param_collectives']['count'])} ops "
+                f"{rec['param_collectives']['bytes']:.4e} B; kernel calls "
+                f"{rec['kernel_calls']}")
             gathered = cost["collectives"]["all-gather"]["bytes"]
             if rec["n_devices"] != 256:
                 raise AssertionError(f"dry run {cell}: {rec['n_devices']}")
             if rec["shape"] == "decode_32k" and not (
                     rec["fits_hbm"] and args <= DECODE_ARGS_OVER_REFERENCE
                     * REFERENCE_TESTCELL_ARG_BYTES
-                    and gathered <= DECODE_ALL_GATHER_BYTES):
+                    and gathered <= REFERENCE_TESTCELL_ALL_GATHER_BYTES
+                    and cost["collective_bytes"]
+                    <= REFERENCE_TESTCELL_COLLECTIVE_BYTES
+                    and peak <= was["peak"]
+                    and rec["param_collectives"]["count"] == 0):
                 raise AssertionError(
                     f"dry run {cell}: arguments {args} B (the reference's "
-                    f"{REFERENCE_TESTCELL_ARG_BYTES}), peak {peak} B, fits "
-                    f"80 GB {rec['fits_hbm']}, all-gather {gathered} B "
-                    f"(at most {DECODE_ALL_GATHER_BYTES:.0f})")
+                    f"{REFERENCE_TESTCELL_ARG_BYTES}), peak {peak} B (the "
+                    f"parent's {was['peak']:.0f}), fits 80 GB "
+                    f"{rec['fits_hbm']}, all-gather {gathered} B and "
+                    f"collectives {cost['collective_bytes']} B (the "
+                    f"reference's {REFERENCE_TESTCELL_ALL_GATHER_BYTES} and "
+                    f"{REFERENCE_TESTCELL_COLLECTIVE_BYTES}), parameter "
+                    f"collectives {rec['param_collectives']}")
             if rec["arch"] == "qwen3-8b" and peak > TRAIN_PEAK_BYTES:
                 raise AssertionError(f"dry run {cell}: peak {peak} B over "
                                      f"{TRAIN_PEAK_BYTES:.0f}")

@@ -27,6 +27,12 @@ sharded step hands its kernels the rank's local tensors.
                        at most one consumer (the reference's rule: such an
                        op streams through registers in a fused pipeline)
   * collective bytes — per collective type, operand bytes per rank
+  * param collectives — beyond the reference's record: the collectives
+                       whose operand is a parameter block, or a copy of
+                       one (``CostMode(watch=blocks)``: a view, clone,
+                       cast, ``copy_``, concatenation or collective of a
+                       watched tensor is watched too), their count and
+                       operand bytes
 
 Views and aliases (``view``, ``expand``, ``t``, ``permute``, ``slice``,
 ``select``, ``alias``, ``detach`` and the rest), allocations without a
@@ -116,6 +122,9 @@ _ELEMENTWISE = _TRANSCENDENTAL | {
 _UPDATES = {"copy_"}
 # reads of rows by index: the reference's gather / dynamic-slice
 _GATHERS = {"index", "index_select", "gather", "embedding"}
+# ops whose result holds their operands' values as they are: a copy of a
+# watched tensor is watched
+_COPIES = {"clone", "_to_copy", "copy_", "cat", "stack"}
 
 
 def type_bytes(dtype: torch.dtype, shape=()) -> int:
@@ -153,6 +162,8 @@ class Cost:
     kernel_calls: dict = field(default_factory=collections.Counter)
     kernel_shapes: dict = field(default_factory=dict)
     n_ops: int = 0
+    param_collectives: dict = field(default_factory=lambda: {
+        "count": 0.0, "bytes": 0.0})
 
     def _bk(self, kind: str, nbytes: float):
         self.by_kind[kind] = self.by_kind.get(kind, 0.0) + nbytes
@@ -183,6 +194,7 @@ class _Op:
     operands: list            # producers (op indices) of tensor operands
     cbytes: int = 0           # a collective's operand bytes
     shape: tuple = ()         # a custom op's first operand's shape
+    carries: bool = False     # a collective whose operand is watched
 
 
 def _tensors(x) -> list:
@@ -207,12 +219,23 @@ def _written(func, args, kwargs) -> list:
 
 class CostMode(TorchDispatchMode):
     """Records every op run under it; ``cost()`` applies the rules.  Enter
-    it inside ``FakeTensorMode`` to count a step without running it."""
+    it inside ``FakeTensorMode`` to count a step without running it.
+    ``watch``: tensors (a step's parameter blocks) whose collectives are
+    counted apart (``Cost.param_collectives``), with their views and
+    copies, by identity (fake tensors share no storage to compare)."""
 
-    def __init__(self):
+    def __init__(self, watch=()):
         super().__init__()
         self.ops: list[_Op] = []
         self._producer = torch.utils.weak.WeakIdKeyDictionary()
+        self._watched = torch.utils.weak.WeakIdKeyDictionary(
+            {t: True for t in watch})
+
+    def _watch(self, sources, results):
+        """Watch ``results`` where any of ``sources`` is watched."""
+        if any(t in self._watched for t in sources):
+            for t in results:
+                self._watched[t] = True
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -235,6 +258,7 @@ class CostMode(TorchDispatchMode):
         if (name in _FREE_OPS or _is_view(func)) and ns in (
                 "aten", "prim", "_c10d_functional"):
             # a view is its base's value: its consumers are the producer's
+            self._watch(ins[:1], outs)
             src = self._producer.get(ins[0]) if ins else None
             for t in outs:
                 if src is None:
@@ -257,10 +281,12 @@ class CostMode(TorchDispatchMode):
             dst = out if i_out is None else (
                 args[i_out] if i_out < len(args) else None)
             op.rule, op.kind, op.flops = "collective", kind, 0.0
+            op.carries = any(t in self._watched for t in _tensors(src))
             op.obytes = sum(tensor_bytes(t) for t in _tensors(src))
             op.rbytes = sum(tensor_bytes(t) for t in _tensors(dst))
             op.cbytes = op.obytes or op.rbytes
             outs = _tensors(dst) + outs
+            self._watch(_tensors(src), outs)
         elif ns == "aten" and base in _DOTS:
             a = args[_DOTS[base]]
             op.rule, op.kind = "dot", "dot"
@@ -296,6 +322,8 @@ class CostMode(TorchDispatchMode):
         self.ops.append(op)
         for t in outs + _written(func, args, kwargs):
             self._producer[t] = idx
+        if base in _COPIES or name in _COPIES:
+            self._watch(ins, outs + _written(func, args, kwargs))
 
     def cost(self) -> Cost:
         """The rules applied to the ops recorded so far."""
@@ -315,6 +343,9 @@ class CostMode(TorchDispatchMode):
             if op.rule == "collective":
                 c.collectives[op.kind]["count"] += 1
                 c.collectives[op.kind]["bytes"] += op.cbytes
+                if op.carries:
+                    c.param_collectives["count"] += 1
+                    c.param_collectives["bytes"] += op.cbytes
             if op.rule == "elementwise" and consumers[i] <= 1:
                 continue            # streams through on a fused pipeline
             c.bytes_streamed += traffic

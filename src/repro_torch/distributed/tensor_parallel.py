@@ -1,6 +1,6 @@
 """Tensor-parallel compute over a mesh's "model" axis, the sequence split
-over it, and the per-layer gather of parameter blocks, for the sharded
-steps (``launch/steps.py``).
+over it, the per-layer gather of parameter blocks, and the decode step's
+weight-stationary layout, for the sharded steps (``launch/steps.py``).
 
 The reference lets XLA partition a step from the parameters' specs; torch
 has no such pass, so the port splits the blocks the "model" axis shards
@@ -46,7 +46,7 @@ blocks:
   step, with or without the attention split: the blocks the specs shard
   over "model" of the vocab (Megatron's vocab-parallel embedding, head
   and cross entropy: ``lookup``, ``merge_lse``, ``label_logit``,
-  ``argmax``, ``columns``), of the MoE experts and shared experts
+  ``columns``), of the MoE experts and shared experts
   (expert parallelism, ``layers.moe_ffn``) and of the mamba heads
   (``heads``, ``inner``: ``layers.mamba_layer`` runs the rank's nh/m
   heads on its ``wz`` / ``wx`` / ``wdt`` columns and ``wo`` rows, uses
@@ -62,20 +62,59 @@ The norms run whole on every rank (on the rank's sequence block under
 ``SeqParallel``), as do the mamba layers whose heads the axis does not
 divide.
 
-``BlockGather`` is the ``gather`` hook of ``models/zoo.py``: it makes a
-layer's working tensors from the rank's blocks while the layer runs
-(``sharding.gather_block``).  A leaf whose block over "model" is the
-rank's split block (of either split) is gathered over the other axes
-only; any other leaf is gathered whole and, if split, narrowed.  In the
-backward each block gets its gradient summed over the axes whose ranks
-computed different parts of it (the data axes the rows are split over;
-"model" where the rank computed a part of a leaf that is not its own
-block, or under ``SeqParallel`` its own tokens' part of a leaf it uses
-whole) and sliced over the axes whose ranks computed the same.
+``BlockGather`` is the ``gather`` hook of ``models/zoo.py`` in training
+and prefill: it makes a layer's working tensors from the rank's blocks
+while the layer runs (``sharding.gather_block``).  A leaf whose block
+over "model" is the rank's split block (of either split) is gathered
+over the other axes only; any other leaf is gathered whole and, if
+split, narrowed.  In the backward each block gets its gradient summed
+over the axes whose ranks computed different parts of it (the data axes
+the rows are split over; "model" where the rank computed a part of a
+leaf that is not its own block, or under ``SeqParallel`` its own tokens'
+part of a leaf it uses whole) and sliced over the axes whose ranks
+computed the same.
+
+``Stationary`` is the decode step's layout (Pope et al., "Efficiently
+Scaling Transformer Inference", §3.2.2): no parameter block moves.  The
+residual stream holds every row of the batch and the rank's block of
+``d_model`` over the data axes (``D_blk``, the block of the parameters'
+``*_fsdp`` dims); the collectives, all of activations:
+
+* each norm: its float32 sum of squares [B] all-reduced over the data
+  axes;
+* a product x[B, D_blk] @ W[D_blk, F_blk] (q / k / v, an MLP's ``wi`` /
+  ``wg``, the router, the experts' ``wi`` / ``wg``, the mamba
+  projections, the head): its float32 partial sums reduce-scattered over
+  the data axes to the rank's rows where the next op runs on the cache's
+  rows (attention, mamba), else all-reduced; the leaves of one block
+  share one collective; each result rounded once; and where the block
+  runs whole over "model" but the specs split its columns, the rank's
+  columns all-gathered over "model";
+* a product h @ W[F_blk, D_blk] (``o``, the MLPs' and the mamba ``wo``):
+  the rank's rows of h all-gathered over the data axes, and where W's
+  rows split over "model", its partial outputs all-reduced over "model"
+  in the compute dtype, as the split blocks' ``out`` sums them in
+  prefill and training (a MoE layer sums its experts' combined rows and
+  its shared experts' output in one float32 all-reduce, as
+  ``layers.moe_ffn`` does in every step);
+* the embedding's lookups of a vocab split over "model" all-reduced over
+  it; the head's argmax merged over "model" (``merged_argmax``: each
+  rank's best logit and its index all-gathered);
+* a mamba layer's conv channels, where they split over "model": the
+  rank's block convolved and the results all-gathered; under the head
+  split its x channels all-gathered before the conv and its gated norm's
+  sum of squares all-reduced; attention split by sequence: the lse
+  merge's max and sums (``steps.CacheLayout.merge``).
+
+Partial sums over the data axes, the ones this layout adds, move in
+float32 and are rounded once to the compute dtype, as the unsharded
+product rounds once.  On a mesh of one rank on every axis each product
+is the unsharded step's.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from dataclasses import dataclass
 
@@ -466,19 +505,6 @@ class ModelSplit:
         all-gather over "model")."""
         return shd.gather(logits, shd.P(None, "model"), self.mesh)
 
-    def argmax(self, logits):
-        """Each row's index of its largest logit over every rank's
-        columns [B, V/m], int64; the lowest index on ties, as
-        ``torch.argmax``: each rank's first largest, then the first rank
-        (the lowest columns) holding the largest of them."""
-        idx = torch.argmax(logits, dim=-1)
-        best = torch.gather(logits, -1, idx[:, None])[:, 0]
-        both = torch.stack([best.to(torch.float32),
-                            (idx + self.vocab[0]).to(torch.float32)])
-        every = shd.gather(both[None], shd.P("model"), self.mesh)
-        rank = torch.argmax(every[:, 0], dim=0)
-        return every[:, 1].gather(0, rank[None])[0].to(torch.int64)
-
 
 def model_split(mesh, specs) -> ModelSplit | None:
     """The rank's ``ModelSplit`` from ``specs`` (``BlockGather``'s table:
@@ -620,3 +646,184 @@ class BlockGather:
             return shd.gather_block(block, rest, self.mesh, self.partial)
         whole = shd.gather_block(block, spec, self.mesh, both)
         return whole.narrow(dim, start, width)
+
+
+def _all_reduce(t, mesh, axes):
+    """``t`` summed over each mesh axis of ``axes`` in turn
+    (``_c10d_functional`` all-reduces)."""
+    fc = shd._fc()
+    for a in axes:
+        t = fc.wait_tensor(fc.all_reduce(t.contiguous(), "sum",
+                                         mesh.get_group(a).group_name))
+    return t
+
+
+class Stationary:
+    """The decode step's weight-stationary layout (module docstring).
+    ``specs`` is ``BlockGather``'s table, ``rows`` the data axes the
+    step's rows (the cache's) split over, none where they are whole;
+    ``sum`` are the data axes that split ``d_model``, over which the
+    products' partial sums run.  ``sub(name, whole)`` binds the hooks to a block of a layer (its
+    leaves' paths under ``name``); ``whole``: whether the block runs whole
+    over "model" (the columns its specs split all-gathered), else on the
+    rank's columns of every leaf."""
+
+    def __init__(self, mesh, specs: dict, rows):
+        self.mesh, self.specs = mesh, specs
+        self.rows = tuple(rows)
+        (_, D), spec = specs[("embed",)]
+        self.d_model = D
+        dims = shd.spec_dims(spec)
+        self.sum = tuple(a for a in mesh.axis_names
+                         if dims.get(a) == 1 and mesh.shape[a] > 1)
+        if self.sum and self.rows and self.sum != self.rows:
+            raise ValueError(f"the rows split over {self.rows}, d_model "
+                             f"over {self.sum}")
+        self.m = mesh.shape.get("model", 1)
+        self.prefix, self.whole = (), True
+
+    def sub(self, name: str, whole: bool = True) -> "Stationary":
+        out = copy.copy(self)
+        out.prefix, out.whole = self.prefix + (name,), whole
+        return out
+
+    # -- collectives of activations ---------------------------------------
+    def model_sum(self, t):
+        """``t`` summed over "model"."""
+        return _all_reduce(t, self.mesh, ("model",) if self.m > 1 else ())
+
+    def gather_model(self, t, dim: int = -1):
+        """The ranks' blocks of ``t`` along ``dim`` all-gathered over
+        "model"."""
+        if self.m == 1:
+            return t
+        return shd._all_gather_dim(t, dim, self.mesh, "model")
+
+    def gather_rows(self, t):
+        """Every row (dim 0) from the ranks' rows."""
+        for a in reversed(self.rows):
+            t = shd._all_gather_dim(t, 0, self.mesh, a)
+        return t
+
+    # -- the rank's blocks ---------------------------------------------------
+    def block(self, name: str, dim: int):
+        """(start, width) of the rank's block over "model" of ``dim`` of
+        the leaf ``name`` of the bound block, None where it is whole."""
+        shape, spec = self.specs[self.prefix + (name,)]
+        dim %= len(shape)
+        return shd.block_of(self.mesh, shd.only_axes(spec, ("model",)),
+                            dim, shape[dim])
+
+    def _rows_of(self, t):
+        """The rank's rows of a tensor of every row."""
+        return shd.local_shard(t, shd.P(self.rows), self.mesh)
+
+    # -- products ------------------------------------------------------------
+    def col(self, x, p: dict, names, rows: bool, whole=None, dtype=None):
+        """``x`` [B, ..., D_blk] @ each leaf ``p[name]`` [D_blk, F_blk]
+        (or batched: the MoE experts' ``x`` [E_blk, n, D_blk] @ [E_blk,
+        D_blk, F]): the list of results in ``dtype`` (``x``'s by default),
+        of the rank's rows where ``rows`` (else every row), and with the
+        columns the spec splits over "model" all-gathered where ``whole``
+        (by default the bound block's).  Partial sums over ``sum`` are
+        float32, summed in one collective for all the leaves and rounded
+        once."""
+        out_dt = x.dtype if dtype is None else dtype
+        ws = [p[k] for k in names]
+        if not self.sum:
+            ys = [x.to(out_dt) @ w.to(out_dt) for w in ws]
+            if rows:
+                ys = [self._rows_of(y) for y in ys]
+        else:
+            acc = torch.promote_types(x.dtype, torch.float32)
+            parts = [x.to(acc) @ w.to(acc) for w in ws]
+            y = torch.cat(parts, dim=-1)
+            if rows and self.rows:
+                for a in self.rows:             # outer first
+                    y = shd._reduce_scatter_dim(y, 0, self.mesh, a)
+            else:
+                y = _all_reduce(y, self.mesh, self.sum)
+            ys = [t.to(out_dt) for t in torch.split(
+                y, [t.shape[-1] for t in parts], dim=-1)]
+        if self.whole if whole is None else whole:
+            split = [i for i, k in enumerate(names)
+                     if self.block(k, -1) is not None]
+            if split:
+                widths = [ys[i].shape[-1] for i in split]
+                y = self.gather_model(torch.cat([ys[i] for i in split], -1))
+                y = y.unflatten(-1, (self.m, sum(widths)))
+                for i, t in zip(split, torch.split(y, widths, dim=-1)):
+                    ys[i] = t.flatten(-2)
+        return ys
+
+    def row(self, h, p: dict, name: str, rows: bool, reduce: bool = True):
+        """``h`` [rows, ..., F] @ ``p[name]`` [F_blk, D_blk] -> [B, ...,
+        D_blk] of every row: ``h`` of the rank's rows (``rows``) or of
+        every row, its columns narrowed to the leaf's block over "model"
+        where they are whole.  Where that block splits, the partial
+        outputs are summed over "model" in ``h``'s dtype, as the split
+        blocks' ``out`` sums them in prefill and training (without
+        ``reduce``, the rank's partial output)."""
+        w = p[name]
+        blk = self.block(name, 0)
+        if blk is not None and h.shape[-1] != w.shape[0]:
+            h = h.narrow(-1, *blk)
+        if rows:
+            h = self.gather_rows(h)
+        y = h @ w.to(h.dtype)
+        return self.model_sum(y) if blk is not None and reduce else y
+
+    # -- the residual stream's ends and norms ----------------------------------
+    def norm(self, x, w, eps):
+        """``layers.rms_norm`` of the rows [B, ..., D_blk] over all of
+        ``d_model``: the float32 sum of squares all-reduced over ``sum``,
+        the whole weight ``w`` narrowed to the rank's block."""
+        from repro_torch.models import layers
+        if not self.sum:
+            return layers.rms_norm(x, w, eps)
+        return layers.rms_norm_parts(
+            x, shd.local_shard(w, shd.P(self.sum), self.mesh), eps,
+            lambda t: _all_reduce(t, self.mesh, self.sum), self.d_model)
+
+    def lookup(self, table, tokens, dtype):
+        """The rows [B, D_blk] of every token from the rank's block of the
+        embedding table, in ``dtype``; where the vocab splits over
+        "model", zeros for the rows other ranks hold and the lookups
+        summed over "model" (one rank adds each row: exact)."""
+        blk = self.block("embed", 0)
+        if blk is None:
+            return table[tokens].to(dtype)
+        return self.model_sum(_Lookup.apply(table, tokens, blk[0], dtype))
+
+    def head(self, x, w):
+        """The greedy next token [B] (int64) of the normed rows
+        ``x`` [B, D_blk] from the rank's block of the head: float32
+        partial logits of its columns, all-reduced over ``sum`` and
+        rounded once to the compute dtype, as the unsharded head rounds
+        them; their argmax merged over "model" (``merged_argmax``)."""
+        blk = self.block("lm_head", 1)
+        if blk is None and self.m > 1:
+            # the vocab whole on every rank of "model": each takes its
+            # near-equal share of the columns
+            V, r = w.shape[1], self.mesh.coordinate()["model"]
+            lo, hi = V * r // self.m, V * (r + 1) // self.m
+            w, blk = w[:, lo:hi], (lo, hi - lo)
+        logits = self.col(x, {"lm_head": w}, ("lm_head",), rows=False,
+                          whole=False)[0].to(torch.float32)
+        if blk is None:
+            return torch.argmax(logits, dim=-1)
+        return merged_argmax(logits, blk[0], self.mesh)
+
+
+def merged_argmax(logits, start: int, mesh):
+    """Each row's index of its largest logit over every rank's columns
+    [B, V_r] (the rank's starting at ``start``), int64; the lowest index on
+    ties, as ``torch.argmax``: each rank's first largest, then the first
+    rank (the lowest columns) holding the largest of them."""
+    idx = torch.argmax(logits, dim=-1)
+    best = torch.gather(logits, -1, idx[:, None])[:, 0]
+    both = torch.stack([best.to(torch.float32),
+                        (idx + start).to(torch.float32)])
+    every = shd._all_gather_dim(both[None], 0, mesh, "model")
+    rank = torch.argmax(every[:, 0], dim=0)
+    return every[:, 1].gather(0, rank[None])[0].to(torch.int64)

@@ -18,6 +18,9 @@ records:
   * kernel_calls, kernel_shapes -> the custom ops' calls and the distinct
                  shapes of their first operand (the heads a rank's
                  attention or ``ssd_scan`` kernel would run)
+  * param_collectives -> the collectives whose operand is a parameter
+                 block or a copy of one, and their operand bytes (none in
+                 a sharded decode step, which is weight-stationary)
 
 Two private torch modules carry it: the fake process group
 (``torch.testing._internal.distributed.fake_pg``) and the memory tracker
@@ -92,6 +95,13 @@ def _batch(cfg, shape, policy, device):
         cfg, shape, policy).items() if k in full}, policy.mesh)
 
 
+def _local(t):
+    """A DTensor's local tensor (the one its ops run on), a tensor as it
+    is."""
+    from torch.distributed.tensor import DTensor
+    return t._local_tensor if isinstance(t, DTensor) else t
+
+
 def _storages(tensors) -> dict:
     """Distinct untyped storages of ``tensors`` (a DTensor's local one) by
     identity -> bytes."""
@@ -155,7 +165,9 @@ def lower_cell(arch: str, shape_name: str, mesh, hp: steplib.HParams, *,
         tracker = MemTracker()
         tracker.track_external(*inputs)
         before = _total(tracker, "current")
-        counter = hlo_cost.CostMode()
+        blocks = args[0]["params"] if shape.kind == "train" else args[0]
+        counter = hlo_cost.CostMode(watch=[_local(t)
+                                           for t in _tensors(blocks)])
         with tracker:
             with counter:
                 out = step(*args)
@@ -202,6 +214,7 @@ def lower_cell(arch: str, shape_name: str, mesh, hp: steplib.HParams, *,
         "kernel_calls": dict(cost.kernel_calls),
         "kernel_shapes": {k: sorted(list(s) for s in v)
                           for k, v in cost.kernel_shapes.items()},
+        "param_collectives": dict(cost.param_collectives),
         "lower_s": round(t_lower, 2),
     }
 

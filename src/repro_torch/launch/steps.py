@@ -12,12 +12,14 @@ Sharding (``policy``, a ``distributed.sharding.ShardingPolicy`` over a
 mesh of ranks, one process each).  The specs (``param_specs``,
 ``state_specs``, ``batch_specs``, ``cache_specs``) are the reference's,
 and every sharded step keeps its state at them, as the reference's
-``jax.jit`` does: each rank holds its own blocks, and a tensor is whole
-only for the one layer that uses it, while that layer runs.
+``jax.jit`` does: each rank holds its own blocks.  In training and
+prefill a tensor is whole only for the one layer that uses it, while
+that layer runs; the decode step never gathers a parameter.
 
 * The state lives as DTensors at ``state_specs`` (``place_state``): each
-  rank keeps its block of every parameter and moment.  A step hands the
-  model the rank's blocks (plain local tensors) and a ``gather`` hook
+  rank keeps its block of every parameter and moment.  A train or
+  prefill step hands the model the rank's blocks (plain local tensors)
+  and a ``gather`` hook
   (``distributed/tensor_parallel.BlockGather``) that ``models/zoo.py``
   runs inside each layer's (recomputed) function: an all-gather of the
   layer's blocks over the axes their specs shard (``_c10d_functional``
@@ -25,7 +27,8 @@ only for the one layer that uses it, while that layer runs.
   The embedding, final norm and head are gathered where they are used.
 * Every sharded step, in every family, keeps the blocks the specs shard
   over "model" of the vocab and of the MoE experts the rank's own
-  (``tensor_parallel.ModelSplit``), gathered over the data axes alone:
+  (``tensor_parallel.ModelSplit``), in training and prefill gathered
+  over the data axes alone:
   the embedding looks up the rank's rows of the table and sums the
   lookups over "model"; the head computes the rank's columns of the
   logits; a MoE layer runs the rank's E/m experts (and shared experts'
@@ -80,20 +83,43 @@ only for the one layer that uses it, while that layer runs.
   all-gather a layer; a write of exactly the spec block needs the other
   ranks' rows of it).  The last logits, the rank's columns, are
   all-gathered whole (they are small).
-* Decode takes and returns the cache at ``cache_specs`` and writes only
-  the rank's blocks; no collective carries an attention cache block.
-  Heads and MLPs split as in prefill; where the cache's sequence splits,
-  each rank attends over its positions (``layers.decode_attention(...,
-  offset=, with_lse=True)``) and the ranks' parts merge over "model" by
-  their log-sum-exp; only the rank that holds ``pos`` writes the token's
-  k and v.  A mamba layer's conv rows are all-gathered whole over "model" for
-  the layer and the rank's block written back as in prefill; its SSM
-  state, split by heads, is read and written in place, and no collective
-  carries it (whole over "model", gathered, where the heads do not
-  split).  The next token of a row is the argmax merged over the ranks'
-  columns (each rank's largest logit and its index all-gathered over
-  "model", the lowest index on ties), and the next tokens are
-  all-gathered whole.
+* Decode is weight-stationary (``tensor_parallel.Stationary``; Pope et
+  al., "Efficiently Scaling Transformer Inference", §3.2.2): no
+  collective carries a parameter block or a cache block.  The residual
+  stream is [B, 1, D_blk] on every rank: every row of the batch (the
+  tokens come whole) and the rank's block of ``d_model`` over the data
+  axes, the block the
+  parameters' ``*_fsdp`` dims hold.  Each norm all-reduces its float32
+  sum of squares over the data axes.  A product with a leaf whose input
+  dim is ``d_model`` (q, k, v, an MLP's ``wi`` / ``wg``, the router, the
+  experts' ``wi`` / ``wg``, the mamba projections, the head) gives
+  float32 partial sums over the data axes: q, k, v and the mamba
+  projections are reduce-scattered to the rank's rows (the cache's rows)
+  in one op a layer, the others all-reduced, each rounded once.  Where
+  the attention or a mamba layer runs whole over "model" although its
+  specs split its columns, the rank's columns of its rows are
+  all-gathered over "model".  A product whose output dim is ``d_model``
+  (``o``, an MLP's and the mamba ``wo``) takes its input's rank rows
+  all-gathered over the data axes and the columns of its block; where
+  its rows split over "model", its partial outputs are all-reduced over
+  "model" in the compute dtype, as in prefill (a MoE layer sums its
+  experts' combined rows and its shared experts' output in one float32
+  all-reduce).  The embedding looks up the rank's
+  block (summed over "model" where the vocab splits); the head gives
+  float32 partial logits of the rank's columns, all-reduced over the
+  data axes, and the next token is their argmax merged over "model"
+  (each rank's largest logit and its index all-gathered, the lowest
+  index on ties), the same on every rank.  The cache stays at
+  ``cache_specs`` and each rank writes only its blocks: heads split as
+  in prefill; where the cache's sequence splits, each rank attends over
+  its positions (``layers.decode_attention(..., offset=, with_lse=True)``)
+  and the ranks' parts merge over "model" by their log-sum-exp, and only
+  the rank that holds ``pos`` writes the token's k and v.  A mamba
+  layer's SSM state (its heads' under the head split) and conv rows (its
+  block of the channels) are read and written in place; where the conv
+  channels split over "model" each rank convolves its block and the
+  results are all-gathered.  On a mesh whose every axis has one rank
+  every product is the unsharded step's and nothing moves.
 
 The loss and the gradients are the unsharded step's up to summation
 order: the loss is a mean over equal row blocks.  A MoE layer groups the
@@ -645,7 +671,10 @@ class CacheLayout:
     the model's), the dense MLPs' hidden units wherever the axis divides
     them.  Mamba heads split over "model" where the specs split them
     (``split.heads``): the SSM state's block over "model" is then the
-    rank's heads, read and written in place."""
+    rank's heads, read and written in place.  ``gather`` is the prefill's
+    per-layer gather of parameter blocks, ``stationary`` the decode's
+    weight-stationary hooks (``tensor_parallel.Stationary``) over the
+    rows the cache's batch dim splits over."""
 
     def __init__(self, cfg: ModelConfig, policy: ShardingPolicy, cache):
         self.mesh = mesh = policy.mesh
@@ -672,6 +701,10 @@ class CacheLayout:
                                  f"{self.split.heads}")
         self.gather = tensor_parallel.BlockGather(mesh, table, (), self.tp,
                                                   self.split)
+        batch = next(iter(self.shapes.values()))[0][0]    # every leaf's dim 0
+        self.stationary = tensor_parallel.Stationary(
+            mesh, table, shd.sharded_axes(policy.act_spec(
+                (batch,), ("batch",)), mesh))
 
     def _seq(self, key):
         """(first position, length) of the rank's block of a kv leaf's
@@ -724,14 +757,6 @@ class CacheLayout:
                             self.mesh)
             value = torch.cat([xs, value[..., -n2:]], dim=-1)
         dst.copy_(shd.local_shard(value, self.shapes[key][1], self.mesh))
-
-    def read(self, key: str, block):
-        """A mamba layer's cache for the layer from the rank's block: the
-        conv rows whole over "model" (all-gathered); the SSM state whole,
-        or under the mamba split the block itself (the rank's heads)."""
-        if self.heads and key == "ssm":
-            return block
-        return shd.gather(block, self.shapes[key][1], self.mesh)
 
     def empty(self, cache, device):
         """Zeros at the rank's blocks of ``cache``'s leaves (whole shapes),
@@ -810,9 +835,10 @@ def build_serve_step(cfg: ModelConfig, hp: HParams, policy=None):
     """``serve_step(params, cache, tokens, pos) -> (next tokens, cache)``,
     the cache written in place.  Under ``policy`` (module docstring) the
     cache is DTensors at ``cache_specs`` (the sharded prefill's, or
-    ``place``; anything else raises): each rank decodes its rows of
-    ``tokens`` with its parameter blocks gathered a layer at a time,
-    writes only its cache blocks and returns the whole next tokens."""
+    ``place``; anything else raises) and ``tokens`` the whole batch's on
+    every rank: each rank multiplies with the parameter blocks it holds
+    and moves only activations (weight-stationary), writes only its
+    cache blocks and returns the whole next tokens."""
     policy = _policy(hp, policy)
     pspecs = None if policy is None else param_specs(cfg, policy)
     layouts = {}            # whole leaf shapes -> CacheLayout
@@ -827,17 +853,13 @@ def build_serve_step(cfg: ModelConfig, hp: HParams, policy=None):
                 layouts[key] = CacheLayout(cfg, policy, cache)
             layout = layouts[key]
             _check_placed(cache, layout)
-            spec = policy.act_spec(tuple(tokens.shape), ("batch",))
+            ws = layout.stationary
             blocks = _blocks(params, pspecs, mesh)
             nxt, _ = zoo.decode_step(layout.cfg, blocks,
                                      tree_map(_local, cache),
-                                     shd.local_shard(tokens, spec, mesh),
-                                     pos, gather=layout.gather,
-                                     tp=layout.tp, layout=layout,
-                                     rows=_Rows(mesh, shd.sharded_axes(
-                                         spec, mesh)), split=layout.split)
-            if shd.sharded_axes(spec, mesh):
-                nxt = shd.gather(nxt, spec, mesh)
+                                     tokens, pos, tp=layout.tp,
+                                     layout=layout, split=layout.split,
+                                     ws=ws)
             return nxt, cache
     return serve_step
 

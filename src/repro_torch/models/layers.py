@@ -71,9 +71,22 @@ def _act(name):
             "gelu": lambda x: F.gelu(x, approximate="tanh")}[name]
 
 
-def mlp(p, x, mlp_type="swiglu", cdt=torch.bfloat16):
+def mlp(p, x, mlp_type="swiglu", cdt=torch.bfloat16, ws=None, reduce=True):
+    """The MLP of ``x``.  ``ws``: the decode step's weight-stationary
+    hooks (``distributed/tensor_parallel.Stationary``, bound to the MLP):
+    ``x`` is every row of the rank's block of ``d_model`` and ``p`` the
+    rank's blocks; the hidden units are the rank's block of them, of
+    every row, and the output every row of the rank's block of
+    ``d_model`` (without ``reduce``, where ``wo``'s rows split over
+    "model", the rank's partial output)."""
     act = _act(mlp_type)
-    if mlp_type in ("swiglu", "geglu"):
+    gated = mlp_type in ("swiglu", "geglu")
+    if ws is not None:
+        hs = ws.col(x, p, ("wg", "wi") if gated else ("wi",), rows=False,
+                    whole=False)
+        h = act(hs[0]) * hs[1] if gated else act(hs[0])
+        return ws.row(h, p, "wo", rows=False, reduce=reduce)
+    if gated:
         h = act(x @ p["wg"].to(cdt)) * (x @ p["wi"].to(cdt))
     else:
         h = act(x @ p["wi"].to(cdt))
@@ -195,11 +208,17 @@ def _decode_attend(q, k, v, pos, *, window=0, offset=0, merge=None):
 # attention layer (prefill / decode)
 # ---------------------------------------------------------------------------
 
-def _qkv(cfg, p, x, positions, cdt):
-    B = x.shape[0]
-    q = (x @ p["q"].to(cdt)).reshape(B, -1, cfg.n_heads, cfg.head_dim)
-    k = (x @ p["k"].to(cdt)).reshape(B, -1, cfg.n_kv_heads, cfg.head_dim)
-    v = (x @ p["v"].to(cdt)).reshape(B, -1, cfg.n_kv_heads, cfg.head_dim)
+def _qkv(cfg, p, x, positions, cdt, ws=None):
+    """q, k and v of ``x``, normed and rotated; with ``ws`` (the decode
+    step's hooks, ``attn_decode``) of the rank's rows."""
+    if ws is None:
+        q, k, v = (x @ p[n].to(cdt) for n in ("q", "k", "v"))
+    else:
+        q, k, v = ws.col(x, p, ("q", "k", "v"), rows=True)
+    B = q.shape[0]
+    q = q.reshape(B, -1, cfg.n_heads, cfg.head_dim)
+    k = k.reshape(B, -1, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(B, -1, cfg.n_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = rms_norm(q, p["qn"], cfg.norm_eps)
         k = rms_norm(k, p["kn"], cfg.norm_eps)
@@ -231,7 +250,7 @@ def attn_forward(cfg, p, x, positions, *, window=0, attn_impl="flash"):
 
 
 def attn_decode(cfg, p, x, cache_k, cache_v, pos, *, window=0, offset=0,
-                merge=None):
+                merge=None, ws=None):
     """x: [B, 1, D]; caches [B, Smax, KH, hd].  Writes this token's k and v
     into the caches IN PLACE at ``pos`` (the reference returns updated
     copies through ``dynamic_update_slice``) and returns (out, cache_k,
@@ -239,18 +258,24 @@ def attn_decode(cfg, p, x, cache_k, cache_v, pos, *, window=0, offset=0,
     split by sequence, from position ``offset``: the token's k and v are
     written only where ``pos`` falls in the block, and ``merge(out, lse)``
     combines the block's attention with the other ranks'
-    (``_decode_attend``)."""
+    (``_decode_attend``).  ``ws``: the sharded decode step's
+    weight-stationary hooks (``distributed/tensor_parallel.Stationary``,
+    bound to the attention): ``x`` is every row of the rank's block of
+    ``d_model``, q, k and v the rank's rows (its heads where ``cfg`` holds
+    the rank's head counts), the caches the rank's rows, and the output
+    every row of the rank's block of ``d_model``."""
     cdt = x.dtype
     positions = torch.full((1, 1), pos, dtype=torch.int64, device=x.device)
-    q, k, v = _qkv(cfg, p, x, positions, cdt)
+    q, k, v = _qkv(cfg, p, x, positions, cdt, ws)
     at = pos - offset
     if merge is None or 0 <= at < cache_k.shape[1]:
         cache_k[:, at] = k[:, 0].to(cache_k.dtype)
         cache_v[:, at] = v[:, 0].to(cache_v.dtype)
     out = _decode_attend(q, cache_k, cache_v, pos, window=window,
                          offset=offset, merge=merge)
-    B = x.shape[0]
-    out = out.reshape(B, 1, cfg.q_dim)
+    out = out.reshape(q.shape[0], 1, cfg.q_dim)
+    if ws is not None:
+        return ws.row(out, p, "o", rows=True), cache_k, cache_v
     return out @ p["o"].to(cdt), cache_k, cache_v
 
 
@@ -270,17 +295,21 @@ def cross_attn_forward(cfg, p, x, kv_src):
     return out @ p["o"].to(cdt), k, v
 
 
-def cross_attn_decode(cfg, p, x, k, v, *, offset=0, merge=None):
+def cross_attn_decode(cfg, p, x, k, v, *, offset=0, merge=None, ws=None):
     """One token's cross attention to the cached patch keys and values
     (every patch visible).  x: [B, 1, D]; k, v: [B, T, KH, hd]; with
-    ``merge``, one rank's block of them from patch ``offset``
-    (``attn_decode``)."""
+    ``merge``, one rank's block of them from patch ``offset``; ``ws`` as
+    in ``attn_decode`` (``attn_decode``)."""
     cdt = x.dtype
-    B = x.shape[0]
-    q = (x @ p["q"].to(cdt)).reshape(B, 1, cfg.n_heads, cfg.head_dim)
+    q = x @ p["q"].to(cdt) if ws is None else \
+        ws.col(x, p, ("q",), rows=True)[0]
+    B = q.shape[0]
+    q = q.reshape(B, 1, cfg.n_heads, cfg.head_dim)
     out = _decode_attend(q, k, v, offset + k.shape[1] - 1, offset=offset,
                          merge=merge)
     out = out.reshape(B, 1, cfg.q_dim)
+    if ws is not None:
+        return ws.row(out, p, "o", rows=True)
     return out @ p["o"].to(cdt)
 
 
@@ -296,7 +325,7 @@ def _top_k(gates, k):
 
 
 def moe_ffn(cfg, p, x, *, capacity_factor=1.25, group_tokens=4096,
-            rows=None, split=None, seq=None, with_aux=True):
+            rows=None, split=None, seq=None, with_aux=True, ws=None):
     """Dropping MoE.  x: [B, S, D] -> (out [B, S, D], aux loss).
 
     Per group of Tg tokens each expert has C slots, taken by the (token,
@@ -341,7 +370,18 @@ def moe_ffn(cfg, p, x, *, capacity_factor=1.25, group_tokens=4096,
     parts' partial outputs are reduce-scattered into the rank's block
     (``split.out``), and parts the rank computes whole for every token
     keep the rank's block; unsplit shared experts run on the rank's
-    tokens.  The aux loss is the whole batch's."""
+    tokens.  The aux loss is the whole batch's.
+
+    ``ws``: the sharded decode step's weight-stationary hooks
+    (``distributed/tensor_parallel.Stationary``, bound to the layer): x is
+    every row of the batch and the rank's block of ``d_model``, so every
+    rank routes the whole batch as the unsharded step does (no ``rows``).
+    The router's and the experts' ``wi`` / ``wg`` partial sums over the
+    data axes are all-reduced in float32 (the router's logits stay
+    float32, the experts' hidden units rounded once), ``wo`` gives the
+    rank's block of ``d_model`` whole; the rank's experts' combined rows
+    and its shared experts' partial output are summed over "model" in one
+    float32 all-reduce, rounded once."""
     cdt = x.dtype
     acc = _acc(cdt)
     dev = x.device
@@ -353,8 +393,12 @@ def moe_ffn(cfg, p, x, *, capacity_factor=1.25, group_tokens=4096,
         and split.shared is not None
 
     own = x                              # the tokens the output is of
-    gates = torch.softmax(x.reshape(-1, D).to(acc) @ p["router"].to(acc),
-                          dim=-1)
+    if ws is None:
+        logits = x.reshape(-1, D).to(acc) @ p["router"].to(acc)
+    else:
+        logits, = ws.col(x.reshape(-1, D), p, ("router",), rows=False,
+                         whole=False, dtype=acc)
+    gates = torch.softmax(logits, dim=-1)
     if seq is not None:
         # every token of the rank's rows: their gates, and the experts'
         # input, whose gradient is reduce-scattered into the block
@@ -363,7 +407,8 @@ def moe_ffn(cfg, p, x, *, capacity_factor=1.25, group_tokens=4096,
     else:
         # the input of the rank's parts of split experts, its gradient
         # summed over "model"
-        xi = split.into(x) if El < E or shared_split else x
+        xi = split.into(x) if (El < E or shared_split) and ws is None \
+            else x
     B, S, _ = x.shape
     T = B * S                                                 # [T, E] gates
     top_g, top_i = _top_k(gates, K)                           # [T, K]
@@ -422,7 +467,12 @@ def moe_ffn(cfg, p, x, *, capacity_factor=1.25, group_tokens=4096,
 
     act = _act(cfg.mlp_type)
     xe = xe[:n_slots].reshape(El, Gr * C, D)
-    h = act(torch.bmm(xe, p["wg"].to(cdt))) * torch.bmm(xe, p["wi"].to(cdt))
+    if ws is None:
+        h = act(torch.bmm(xe, p["wg"].to(cdt))) * torch.bmm(
+            xe, p["wi"].to(cdt))
+    else:
+        g, i = ws.col(xe, p, ("wg", "wi"), rows=False, whole=False)
+        h = act(g) * i
     ye = torch.bmm(h, p["wo"].to(cdt)).reshape(n_slots, D)
 
     top_g = split.complete(top_g) if El < E else top_g
@@ -434,19 +484,22 @@ def moe_ffn(cfg, p, x, *, capacity_factor=1.25, group_tokens=4096,
     shared = None
     if cfg.n_shared_experts:
         shared = mlp(p["shared"], xi if shared_split else own, cfg.mlp_type,
-                     cdt)
+                     cdt, ws=None if ws is None else ws.sub("shared"),
+                     reduce=False)
+    total = ws.model_sum if ws is not None else \
+        None if split is None else split.out
     if shared_split and El < E:
-        out, shared = split.out(out + shared.to(acc)), None
+        out, shared = total(out + shared.to(acc)), None
     elif El < E:
-        out = split.out(out)
+        out = total(out)
     else:
         if shared_split:
-            shared = split.out(shared)
+            shared = total(shared)
         if seq is not None:
             out = seq.keep(out)
     out = out.to(cdt)
     if shared is not None:
-        out = out + shared
+        out = out + shared.to(cdt)
     return out, aux
 
 
@@ -544,19 +597,22 @@ def _causal_conv(x, w, cache=None):
     return out, new_cache
 
 
-def _gated_norm(y, w, eps, split, width):
-    """``rms_norm`` of the gated output over all its ``width`` channels;
-    under a head split ``y`` is the rank's channels: its sum of squares
-    is summed over "model" before the ``rsqrt`` (``ModelSplit.psum``)."""
-    if split is None:
-        return rms_norm(y, w, eps)
-    ss = y.to(_acc(y.dtype)).square().sum(-1, keepdim=True)
-    inv = torch.rsqrt(split.psum(ss) / width + eps)
-    return (y * inv.to(y.dtype)) * (1.0 + w).to(y.dtype)
+def rms_norm_parts(x, w, eps, psum, width):
+    """``rms_norm`` of rows whose ``width`` channels split over ranks:
+    ``x`` holds some of them (``w`` their weights), and the float32 sum of
+    their squares is summed over the ranks by ``psum`` before the
+    ``rsqrt`` (the mamba gated norm under a head split, ``ModelSplit.
+    psum``; a decode step's residual stream, ``tensor_parallel.
+    Stationary.norm``).  Without ``psum``, ``rms_norm``."""
+    if psum is None:
+        return rms_norm(x, w, eps)
+    ss = x.to(_acc(x.dtype)).square().sum(-1, keepdim=True)
+    inv = torch.rsqrt(psum(ss) / width + eps)
+    return (x * inv.to(x.dtype)) * (1.0 + w).to(x.dtype)
 
 
 def mamba_layer(cfg, p, x, *, conv_cache=None, ssm_state=None, decode=False,
-                return_state=False, split=None):
+                return_state=False, split=None, ws=None):
     """Mamba2 block.  x: [B, S, D] -> (y, (conv cache, state)).
 
     Prefill: ``return_state=True`` gives the decode caches (the state is
@@ -575,15 +631,32 @@ def mamba_layer(cfg, p, x, *, conv_cache=None, ssm_state=None, decode=False,
     channels is all-reduced over "model", as is the output
     (``split.out``); the input passes ``split.into`` (under a sequence
     split the gather of the whole sequence, the output then
-    reduce-scattered into the rank's block)."""
+    reduce-scattered into the rank's block).
+
+    ``ws``: the sharded decode step's weight-stationary hooks
+    (``distributed/tensor_parallel.Stationary``, bound to the layer; with
+    ``decode``): ``p`` holds the rank's blocks as its specs give them
+    (the per-head scalars and the norm whole), ``x`` every row of the
+    rank's block of ``d_model``, and the caches are the rank's blocks:
+    its rows, its heads' state under the head split, its block of the
+    conv channels (``_stationary_inputs``)."""
     cdt = x.dtype
     acc = _acc(cdt)
     di, n, nh, ph = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads, \
         cfg.ssm_head_dim
     conv_w = p["conv"]
+    scalars = {k: p[k] for k in ("a_log", "d", "dt_bias", "norm")}
     if split is not None and split.heads is None:
         split = None
-    if split is not None:
+    if ws is not None:
+        z, xin, Bm, Cm, dt_raw, new_conv = _stationary_inputs(
+            cfg, p, x, conv_cache, split, ws)
+        if split is not None:
+            nh, di = split.heads[1], split.inner[1]
+            scalars = {k: t.narrow(0, *(split.inner if k == "norm"
+                                        else split.heads))
+                       for k, t in scalars.items()}
+    elif split is not None:
         x0, di = split.inner
         nh = split.heads[1]
         x = split.into(x)
@@ -594,27 +667,27 @@ def mamba_layer(cfg, p, x, *, conv_cache=None, ssm_state=None, decode=False,
         conv_w = own(conv_w)
         if conv_cache is not None:
             conv_cache = own(conv_cache)
-    B, S, _ = x.shape
+    if ws is None:
+        z = x @ p["wz"].to(cdt)                               # [B,S,di]
+        xin = x @ p["wx"].to(cdt)
+        Bm = x @ p["wb"].to(cdt)                              # [B,S,n]
+        Cm = x @ p["wc"].to(cdt)
+        dt_raw = x @ p["wdt"].to(cdt)                         # [B,S,nh]
 
-    z = x @ p["wz"].to(cdt)                                   # [B,S,di]
-    xin = x @ p["wx"].to(cdt)
-    Bm = x @ p["wb"].to(cdt)                                  # [B,S,n]
-    Cm = x @ p["wc"].to(cdt)
-    dt_raw = x @ p["wdt"].to(cdt)                             # [B,S,nh]
+        xbc = torch.cat([xin, Bm, Cm], dim=-1)
+        xbc, new_conv = _causal_conv(xbc, conv_w.to(cdt), conv_cache)
+        xin, Bm, Cm = torch.split(F.silu(xbc), [di, n, n], dim=-1)
+    B, S, _ = z.shape
 
-    xbc = torch.cat([xin, Bm, Cm], dim=-1)
-    xbc, new_conv = _causal_conv(xbc, conv_w.to(cdt), conv_cache)
-    xin, Bm, Cm = torch.split(F.silu(xbc), [di, n, n], dim=-1)
-
-    dt = F.softplus(dt_raw.to(acc) + p["dt_bias"].to(acc))
+    dt = F.softplus(dt_raw.to(acc) + scalars["dt_bias"].to(acc))
     xh = xin.reshape(B, S, nh, ph)
 
     if not decode:
-        y = ssd_chunked(xh, dt, p["a_log"], Bm, Cm, cfg.ssm_chunk)
-        new_state = (_ssd_final_state(xh, dt, p["a_log"], Bm)
+        y = ssd_chunked(xh, dt, scalars["a_log"], Bm, Cm, cfg.ssm_chunk)
+        new_state = (_ssd_final_state(xh, dt, scalars["a_log"], Bm)
                      if return_state else None)
     else:
-        a = -torch.exp(p["a_log"].to(acc))                    # [nh]
+        a = -torch.exp(scalars["a_log"].to(acc))              # [nh]
         d0 = dt[:, 0]                                         # [B,nh]
         upd = (d0[:, :, None, None] * xh[:, 0, :, :, None].to(acc)
                * Bm[:, 0, None, None, :].to(acc))             # [B,nh,p,n]
@@ -622,14 +695,47 @@ def mamba_layer(cfg, p, x, *, conv_cache=None, ssm_state=None, decode=False,
         y = torch.einsum("bhpn,bn->bhp", new_state,
                          Cm[:, 0].to(acc))[:, None]
 
-    y = y + xh.to(acc) * p["d"].to(acc)[None, None, :, None]
+    y = y + xh.to(acc) * scalars["d"].to(acc)[None, None, :, None]
     y = y.reshape(B, S, di).to(cdt)
-    y = _gated_norm(y * F.silu(z), p["norm"], cfg.norm_eps, split,
-                    cfg.ssm_inner)
+    y = rms_norm_parts(y * F.silu(z), scalars["norm"], cfg.norm_eps,
+                       None if split is None else split.psum, cfg.ssm_inner)
+    if ws is not None:
+        return ws.row(y, p, "wo", rows=True), (new_conv, new_state)
     out = y @ p["wo"].to(cdt)
     if split is not None:
         out = split.out(out)
     return out, (new_conv, new_state)
+
+
+def _stationary_inputs(cfg, p, x, conv_cache, split, ws):
+    """``mamba_layer``'s z, x, B, C and dt_raw of one decode token under
+    the weight-stationary hooks ``ws``, of the rank's rows (the rank's
+    heads' channels of z, x and dt where ``split`` splits the heads, else
+    all), and the new conv rows of the rank's block of the conv cache.
+    The projections' partial sums are reduce-scattered to the rank's rows
+    in one collective.  The conv weight and cache stay as their specs
+    split them: where their channels split over "model" the rank
+    convolves its block of the channels (no channel reads another's) and
+    the results are all-gathered, so each rank takes the channels it
+    runs from the whole."""
+    n = cfg.ssm_state
+    z, xin, Bm, Cm, dt_raw = ws.col(x, p, ("wz", "wx", "wb", "wc", "wdt"),
+                                    rows=True, whole=split is None)
+    if split is not None:
+        xin = ws.gather_model(xin)
+    xbc = torch.cat([xin, Bm, Cm], dim=-1)
+    blk = ws.block("conv", 1)
+    if blk is not None:
+        xbc = xbc.narrow(-1, *blk)
+    xbc, new_conv = _causal_conv(xbc, p["conv"].to(x.dtype), conv_cache)
+    if blk is not None:
+        xbc = ws.gather_model(xbc)
+    if split is not None:
+        x0, w = split.inner
+        xbc = torch.cat([xbc[..., x0:x0 + w], xbc[..., -2 * n:]], dim=-1)
+    xin, Bm, Cm = torch.split(F.silu(xbc), [xbc.shape[-1] - 2 * n, n, n],
+                              dim=-1)
+    return z, xin, Bm, Cm, dt_raw, new_conv
 
 
 def _ssd_final_state(xh, dt, a_log, Bm):

@@ -24,10 +24,13 @@ products, ``"full"``: recompute everything) per layer through
 relaunches the forward kernels of the layer.
 
 Sharded steps (``launch/steps.py``) hand every pass the rank's parameter
-blocks and a ``gather`` hook (``distributed/tensor_parallel.BlockGather``)
-that makes a layer's tensors from them inside the layer's function, so a
-parameter is whole only while its layer runs; ``tp`` splits the attention
-heads and the dense MLPs over the "model" axis, ``split`` (a
+blocks.  Training and prefill take a ``gather`` hook
+(``distributed/tensor_parallel.BlockGather``) that makes a layer's
+tensors from them inside the layer's function, so a parameter is whole
+only while its layer runs; decode takes the weight-stationary hooks
+``ws`` (``tensor_parallel.Stationary``), each product on the rank's
+blocks as they are, and moves activations alone.  ``tp`` splits the
+attention heads and the dense MLPs over the "model" axis, ``split`` (a
 ``distributed/tensor_parallel.ModelSplit``) the vocab (embedding, head,
 logits and cross entropy), the MoE experts and the mamba heads, and
 ``seq`` (a ``tensor_parallel.SeqParallel``) the sequence between the
@@ -388,25 +391,34 @@ def _cross_block(cfg, p, x, image, tp=None):
     return x + torch.tanh(p["gate"].to(x.dtype)) * out(a), k, v
 
 
+def _sub(ws, name: str, whole: bool = True):
+    """The decode step's hooks bound to a block (``Stationary.sub``), or
+    None."""
+    return None if ws is None else ws.sub(name, whole)
+
+
 def _ffn_block(cfg, p, x, tp=None, rows=None, split=None, with_aux=True,
-               seq=None):
+               seq=None, ws=None):
     """The feed-forward half of a layer -> (x, aux loss); a pure mamba
     layer has none and returns x unchanged.  ``tp`` wraps a dense MLP as
     it wraps attention (``_attn_block``) where it splits the MLPs
     (``tp.mlp``; unsplit, it runs on the tokens ``x`` holds); a MoE layer
     takes ``rows``, ``split`` and ``seq`` (``forward``) instead, and
-    computes no aux loss without ``with_aux`` (0.0)."""
+    computes no aux loss without ``with_aux`` (0.0).  ``ws``: the decode
+    step's weight-stationary hooks (``decode_step``), in place of
+    ``tp``."""
     tp = tp if tp is not None and tp.mlp else None
+    norm = L.rms_norm if ws is None else ws.norm
     if "moe" in p:
-        f, aux = L.moe_ffn(cfg, p["moe"], L.rms_norm(x, p["ln2"],
-                                                     cfg.norm_eps),
+        f, aux = L.moe_ffn(cfg, p["moe"], norm(x, p["ln2"], cfg.norm_eps),
                            rows=rows, split=split, seq=seq,
-                           with_aux=with_aux)
+                           with_aux=with_aux, ws=_sub(ws, "moe"))
     elif "mlp" in p:
-        h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+        h = norm(x, p["ln2"], cfg.norm_eps)
         if tp is not None:
             h = tp.into(h)
-        f, aux = L.mlp(p["mlp"], h, cfg.mlp_type, x.dtype), 0.0
+        f, aux = L.mlp(p["mlp"], h, cfg.mlp_type, x.dtype,
+                       ws=_sub(ws, "mlp")), 0.0
         if tp is not None:
             f = tp.out(f)
     else:
@@ -673,65 +685,63 @@ def _put(layout, key: str, dst, value):
         dst.copy_(value)
 
 
-def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
-                gather=None, tp=None, layout=None, rows=None, split=None):
+def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *, tp=None,
+                layout=None, split=None, ws=None):
     """One autoregressive step.  tokens: [B] integers; pos: int.
     Returns (next_tokens [B] int32, cache).  The cache is written IN PLACE
     (this token's k and v at ``pos``, each mamba layer's conv rows and
     state) and returned; the reference returns an updated copy.
 
-    A sharded serve step (``launch/steps.py``) passes the rank's rows of
-    ``tokens``, its parameter and cache blocks, ``gather`` as in
-    ``forward``, ``tp`` the serving split over "model" (where it splits
-    the attention, ``cfg`` holds the rank's head counts and the cache its
-    kv heads; where it splits the dense MLPs, a rank runs its hidden
-    units and their outputs are all-reduced) and ``layout``:
-    ``layout.kv(key)`` gives ``layers.attn_decode``'s keyword arguments
-    for a cache leaf split by sequence (the block's first
-    position and the merge of the ranks' parts), ``layout.read`` and
-    ``layout.put`` a mamba layer's states for the layer (whole, or the
-    rank's heads' state under the mamba split) and the rank's block of
-    the new ones, and ``rows`` and ``split`` as ``forward``: under a vocab
-    split the next tokens are the argmax merged over the ranks' columns
-    (``ModelSplit.argmax``)."""
+    A sharded serve step (``launch/steps.py``) passes the rank's parameter
+    blocks as they are, every token, the rank's cache blocks and its
+    weight-stationary hooks ``ws`` (``distributed/tensor_parallel.
+    Stationary``): the residual stream is every row of the rank's block
+    of ``d_model``, each product runs on the rank's block of its
+    parameter and only activations move.  ``tp`` is the serving split
+    over "model": where it splits the attention heads, ``cfg`` holds the
+    rank's head counts and the cache its kv heads; else the attention
+    runs whole, its columns gathered.  ``layout.kv(key)`` gives
+    ``layers.attn_decode``'s keyword arguments for a cache leaf split by
+    sequence (the block's first position and the merge of the ranks'
+    parts); a mamba layer's conv rows and SSM state are the rank's block,
+    read and written in place.  ``split`` is the rank's ``ModelSplit``:
+    its experts and mamba heads."""
     _check_family(cfg)
     pos = int(pos)
     cdt = _dtype(cfg.compute_dtype)
     kv = (lambda key: {}) if layout is None else layout.kv
-    read = (lambda key, t: t) if layout is None else layout.read
-    attn = tp is not None and tp.attn
-    x = _lookup(params, tokens, cdt, gather, split)[:, None, :]
+    whole = not (tp is not None and tp.attn)
+    norm = L.rms_norm if ws is None else ws.norm
+    if ws is None:
+        x = _lookup(params, tokens, cdt)[:, None, :]
+    else:
+        x = ws.lookup(params["embed"], tokens, cdt)[:, None, :]
     for mixer, lp, window, idx, _ in _layers(cfg, params):
-        if gather is not None:
-            lp = gather(lp)
         c = _cache_entry(cfg, cache, mixer, idx)
         if mixer == "cross":
-            h = L.rms_norm(x, lp["lnx"], cfg.norm_eps)
+            h = norm(x, lp["lnx"], cfg.norm_eps)
             a = L.cross_attn_decode(cfg, lp["xattn"], h, c["xk"], c["xv"],
-                                    **kv("xk"))
-            if attn:
-                a = tp.out(a)
-            x, _ = _ffn_block(cfg, lp, x + torch.tanh(lp["gate"].to(x.dtype))
-                              * a, tp, rows=rows, split=split, with_aux=False)
-            continue
-        h = _mixer_norm(cfg, lp, x)
-        if mixer == "attn":
-            a, _, _ = L.attn_decode(cfg, lp["attn"], h, c["k"], c["v"], pos,
-                                    window=window, **kv("k"))
-            if attn:
-                a = tp.out(a)
+                                    **kv("xk"), ws=_sub(ws, "xattn", whole))
+            x = x + torch.tanh(lp["gate"].to(x.dtype)) * a
         else:
-            a, (conv, state) = L.mamba_layer(
-                cfg, lp["mamba"], h, conv_cache=read("conv", c["conv"]),
-                ssm_state=read("ssm", c["ssm"]), decode=True, split=split)
-            _put(layout, "conv", c["conv"], conv)
-            _put(layout, "ssm", c["ssm"], state)
-        x, _ = _ffn_block(cfg, lp, x + a, tp, rows=rows, split=split,
-                          with_aux=False)
-    x = L.rms_norm(x, _top(params, "final_norm", gather), cfg.norm_eps)
-    logits = _head(params, x[:, 0], cdt, gather, split).to(torch.float32)
-    if split is not None and split.vocab is not None:
-        return split.argmax(logits).to(torch.int32), cache
+            h = norm(x, lp["ln1" if "ln1" in lp else "ln"], cfg.norm_eps)
+            if mixer == "attn":
+                a, _, _ = L.attn_decode(cfg, lp["attn"], h, c["k"], c["v"],
+                                        pos, window=window, **kv("k"),
+                                        ws=_sub(ws, "attn", whole))
+            else:
+                a, (conv, state) = L.mamba_layer(
+                    cfg, lp["mamba"], h, conv_cache=c["conv"],
+                    ssm_state=c["ssm"], decode=True, split=split,
+                    ws=_sub(ws, "mamba"))
+                c["conv"].copy_(conv)
+                c["ssm"].copy_(state)
+            x = x + a
+        x, _ = _ffn_block(cfg, lp, x, split=split, with_aux=False, ws=ws)
+    x = norm(x, params["final_norm"], cfg.norm_eps)
+    if ws is not None:
+        return ws.head(x[:, 0], params["lm_head"]).to(torch.int32), cache
+    logits = _head(params, x[:, 0], cdt).to(torch.float32)
     return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
 

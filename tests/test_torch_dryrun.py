@@ -28,6 +28,11 @@ MESH = (4, 4)
 # single pod, remat full: ``argument_size_in_bytes`` of the record its
 # system test writes (``tests/test_system.py``: results/dryrun_testcell.json)
 REFERENCE_ARG_BYTES = 3_890_630_692
+# the same record's collectives per device: all-gather operand bytes, and
+# the operand bytes of every collective (all-gather 14,233,192, all-reduce
+# 38,313,984, all-to-all 3,735,552, collective-permute 917,536)
+REFERENCE_ALL_GATHER_BYTES = 14_233_192
+REFERENCE_COLLECTIVE_BYTES = 57_200_264
 
 
 def _local_bytes(t, spec, mesh) -> int:
@@ -307,11 +312,20 @@ def test_prefill_and_decode_cells():
     "model"), the last logits' columns over "model" and their rows over
     "data", and no cache leaf; it all-reduces the vocab-parallel
     embedding's output and each layer's partial MLP output over "model".
-    Decode gathers the parameters as prefill does, the next tokens, and
-    each row's largest logit and its index over "model" (the merged
-    argmax), and all-reduces the embedding's output, each attention
-    layer's partial max and weighted sums over "model" (the lse merge)
-    and each layer's partial MLP output, and moves no cache block.
+    Its parameter gathers are the dry run's ``param_collectives``.
+
+    Decode is weight-stationary: no collective carries a parameter block.
+    The residual stream is every row of the rank's quarter of
+    ``d_model``.  Over "data": each norm's float32 sum of squares, q, k
+    and v's float32 partial sums reduce-scattered to the rank's rows in
+    one op a layer, the MLP's ``wi`` / ``wg`` partial sums all-reduced in
+    one, the head's partial logits (float32) all-reduced, and the
+    attention output's rank rows of ``o``'s columns all-gathered (bf16).
+    Over "model": the embedding's lookups (bf16), each layer's q / k / v
+    columns of the rank's rows all-gathered in one op (the attention runs
+    whole: one kv head), the lse merge's max and weighted sums (float32),
+    ``o``'s and the MLP's partial outputs (bf16), and each row's largest
+    logit and its index (the merged argmax); no cache block moves.
     Arguments: parameter blocks plus, for decode, cache blocks (and the
     whole tokens).  Peak: at most the
     arguments, plus one layer gathered whole, plus the activations of the
@@ -331,6 +345,7 @@ def test_prefill_and_decode_cells():
     assert c["all-reduce"]["bytes"] == \
         (1 + cfg.n_layers) * rows * shape.seq_len * cfg.d_model * 2
     assert c["reduce-scatter"]["count"] == 0
+    assert rec["param_collectives"]["bytes"] == gathers > 0
     params = sum(_local_bytes(torch.empty(s, dtype=dt, device="meta"), sp,
                               mesh) for _, s, dt, sp in leaves)
     mem = rec["memory"]
@@ -350,16 +365,30 @@ def test_prefill_and_decode_cells():
 
     rec, *_ = _cell("qwen3-8b", "decode_32k")
     shape = SHAPES["decode_32k"]
-    rows = shape.global_batch // MESH[0]
-    kv = cfg.n_layers * rows * shape.seq_len * cfg.n_kv_heads \
-        * cfg.head_dim * 2
+    B, L, (dp, m) = shape.global_batch, cfg.n_layers, MESH
+    rows = B // dp
+    kv = L * rows * shape.seq_len * cfg.n_kv_heads * cfg.head_dim * 2
+    # the rank's blocks: of d_model over "data", of the q, kv, hidden
+    # unit and vocab columns over "model"
+    d, q, k, f, v = (n // w for n, w in (
+        (cfg.d_model, dp), (cfg.q_dim, m), (cfg.kv_dim, m), (cfg.d_ff, m),
+        (cfg.vocab_size, m)))
+    f32, bf16 = 4, 2
     c = rec["hlo_cost"]["collectives"]
-    assert c["all-gather"]["bytes"] == gathers + 4 * rows + 2 * 4 * rows
+    assert rec["param_collectives"] == {"count": 0, "bytes": 0}
+    assert c["reduce-scatter"] == {"count": L,
+                                   "bytes": L * B * (q + 2 * k) * f32}
+    assert c["all-gather"] == {
+        "count": 2 * L + 1,
+        "bytes": L * rows * (q + 2 * k + q) * bf16 + 2 * B * f32}
     heads = rows * cfg.n_heads
-    assert c["all-reduce"]["bytes"] == cfg.n_layers * 4 * (
-        heads + heads * cfg.head_dim + heads) + (1 + cfg.n_layers) * rows \
-        * cfg.d_model * 2
-    assert c["reduce-scatter"]["count"] == 0
+    # float32: two norms, the MLP's hidden units, the lse merge's max and
+    # sums; bf16: o's and the MLP's outputs (elements)
+    per_layer = [B, B, B * 2 * f, heads, heads * cfg.head_dim + heads]
+    assert c["all-reduce"] == {
+        "count": L * (len(per_layer) + 2) + 3,
+        "bytes": L * (f32 * sum(per_layer) + 2 * B * d * bf16)
+        + B * d * bf16 + B * f32 + B * v * f32}
     mem = rec["memory"]
     assert mem["argument_size_in_bytes"] == \
         params + 2 * kv // MESH[1] + 4 * shape.global_batch
@@ -422,7 +451,9 @@ def test_roofline_terms():
 def test_cli_on_the_references_test_cell(tmp_path):
     """deepseek-moe-16b x decode_32k x single pod, remat full: the
     reference's record keys (less XLA's ``cost`` and ``compile_s``), 256
-    ranks, its parameter and token counts."""
+    ranks, its parameter and token counts; the weight-stationary decode
+    moves no parameter block, all-gathers at most the reference's bytes
+    and moves at most its collective bytes in all."""
     out = tmp_path / "dryrun.json"
     env = dict(os.environ, PYTHONPATH=SRC, REPRO_LOG_LEVEL="info")
     r = subprocess.run(
@@ -452,6 +483,11 @@ def test_cli_on_the_references_test_cell(tmp_path):
     # own record of the cell (``REFERENCE_ARG_BYTES``)
     got = rec["memory"]["argument_size_in_bytes"]
     assert abs(got / REFERENCE_ARG_BYTES - 1) <= 0.05
+    cost = rec["hlo_cost"]
+    assert rec["param_collectives"] == {"count": 0, "bytes": 0}
+    assert cost["collectives"]["all-gather"]["bytes"] <= \
+        REFERENCE_ALL_GATHER_BYTES
+    assert cost["collective_bytes"] <= REFERENCE_COLLECTIVE_BYTES
     assert rec["fits_hbm"] is True
     assert "[dryrun]" in r.stderr + r.stdout
 

@@ -241,6 +241,32 @@ def test_functional_collectives(fake_group):
     assert c["all-to-all"] == {"count": 1, "bytes": F32 * 64}
 
 
+def test_param_collectives_follow_the_watched_blocks(fake_group):
+    """``CostMode(watch=...)`` counts apart the collectives whose operand
+    is a watched tensor (a step's parameter block), a view, cast or copy
+    of one, or the result of a collective of one; a collective of a
+    product of one (an activation) is not counted."""
+    fc = torch.ops._c10d_functional
+    name = fake_group.group_name
+
+    def run(w, x):
+        fc.wait_tensor(fc.all_gather_into_tensor(w.t().contiguous(), 8,
+                                                 name))
+        g = fc.wait_tensor(fc.all_reduce(w[:2].to(torch.bfloat16), "sum",
+                                         name))
+        fc.wait_tensor(fc.all_reduce(g, "sum", name))
+        fc.wait_tensor(fc.all_reduce(x @ w, "sum", name))
+
+    with FakeTensorMode():
+        w, x = torch.empty(8, 4), torch.empty(2, 8)
+        with hlo_cost.CostMode(watch=[w]) as mode:
+            run(w, x)
+    c = mode.cost()
+    assert c.param_collectives == {"count": 3, "bytes": F32 * 32 + 2 * 16}
+    assert c.collectives["all-reduce"] == {"count": 3,
+                                           "bytes": 2 * 16 + F32 * 8}
+
+
 def test_dtensor_gather_counts_the_local_block(fake_group):
     """A DTensor's ``full_tensor`` is counted as the all-gather DTensor
     runs on the rank's block."""

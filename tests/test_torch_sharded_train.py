@@ -364,7 +364,8 @@ print("TP_OK")
 # head or embedding); ``over_model`` the all-gathers over "model" whose
 # result leads with the expert count or spans the vocab (an expert leaf,
 # the head or the embedding gathered whole over "model"); ``experts`` the
-# expert count of every expert ``bmm`` (its weight [E, D, F] or [E, F, D]);
+# expert count of every expert ``bmm`` (its weight [E, D, F] or [E, F, D],
+# D ``d_model`` / ``d_parts``: a block of it under a split of d_model);
 # ``scans`` the rows times heads of every ``ssd_scan`` call
 SEEN = """
 from torch.utils._pytree import tree_flatten
@@ -373,9 +374,10 @@ from torch.distributed.tensor import DTensor
 
 
 class Seen(TorchDispatchMode):
-    def __init__(self, cfg, group):
+    def __init__(self, cfg, group, d_parts=1):
         super().__init__()
         self.cfg, self.group = cfg, group.group_name
+        self.d_parts = d_parts
         self.vocab, self.over_model, self.experts = [], [], set()
         self.scans = set()
 
@@ -390,7 +392,7 @@ class Seen(TorchDispatchMode):
         if name.endswith("all_gather_into_tensor") and args[2] == self.group \\
                 and (out.shape[0] == E or V in out.shape):
             self.over_model.append(tuple(out.shape))
-        D, F = self.cfg.d_model, self.cfg.d_expert
+        D, F = self.cfg.d_model // self.d_parts, self.cfg.d_expert
         if name == "aten::bmm" and tuple(args[1].shape[1:]) in ((D, F),
                                                               (F, D)):
             self.experts.add(args[1].shape[0])
