@@ -70,9 +70,15 @@ Phases (any failure exits non-zero; nothing is caught):
      musicgen-medium (bf16, D = 64), phi3 (bf16, D = 96) and the reduced
      configs' D = 16 (bf16, window 8), so that every head dim of the bf16
      tensor-core kernel runs, then q shorter than k
-     (fp32) and a phi3-like MHA (fp32, D = 96) on the SIMT kernel: fp32
-     within 1e-5 of max|oracle|, bf16 at most twice the plain version's
-     error; the host time of encoding the bf16 kernel's TMA tensor maps;
+     (fp32) and a phi3-like MHA (fp32, D = 96) on the split-TF32 kernel:
+     fp32 within 1e-5 of max|oracle|, bf16 at most twice the plain
+     version's error; the host time of encoding the bf16 kernel's TMA
+     tensor maps; the fp32 kernel (HMMA and LDGSTS in its SASS) at every
+     head dim (``FP32_FWD_CASES``) within 1e-5 of max|oracle| and at most
+     ``SPLIT_OVER_SIMT`` times the SIMT kernel's error on the same inputs
+     (``SIMT_FP32_ERRS``), then timed at the prefill shape beside SDPA's
+     fp32 forward and its split-TF32 bound (495 TFLOP/s for three
+     products);
      ssd_scan against its plain version (<= 1e-6 scaled) at the mamba2-2.7b
      and jamba-v0.1-52b prefill shapes and a ragged one, with device ms and
      bound at each, then through ``kernels/ops.py``; qwen3-8b at
@@ -150,19 +156,24 @@ Phases (any failure exits non-zero; nothing is caught):
      exec-loaded module at orders 1-2 within 1e-5 of the executor; the
      row-cost calibration at rows=4096;
   11. LM training: the attention backward (bf16:
-     ``csrc/flash_attention_bwd_tc.cu``, tensor cores; fp32:
-     ``csrc/flash_attention_bwd.cu``, SIMT) against its plain version (the
-     port of flash_cvjp._bwd_impl) and a float64 dense torch.autograd
-     oracle at qwen3-8b's training shape (q [1, 4,096, 32, 128], bf16; fp32
-     at 1,024), a gemma3-4b local layer (D = 256, window, bf16 and fp32),
-     musicgen-medium (D = 64, bf16), phi3 (D = 96, bf16 and fp32) and the
-     reduced configs' D = 16 (bf16 and fp32, window 8), so that every head
+     ``csrc/flash_attention_bwd_tc.cu``, wgmma; fp32:
+     ``csrc/flash_attention_bwd.cu``, split TF32) against its plain
+     version (the port of flash_cvjp._bwd_impl) and a float64 dense
+     torch.autograd oracle at qwen3-8b's training shape (q [1, 4,096, 32,
+     128], bf16; fp32 at 1,024), a gemma3-4b local layer (D = 256,
+     window, bf16 and fp32), musicgen-medium (D = 64, bf16), phi3 (D =
+     96, bf16 and fp32) and the reduced configs' D = 16 (bf16 and fp32,
+     window 8), so that every head
      dim runs on both routes (fp32 within 1e-4 of max|oracle|, bf16 at most
      1.5x the plain version's error; each call one launch counted; bf16:
      two runs torch.equal, the tensor-core kernels' SASS with HGMMA and
      UTMALDG), the forward kernels' log-sum-exp against the plain one, the
      backward's device ms by kernel (preprocess, pass 1, pass 2) beside
-     SDPA's autograd backward; the ssd_scan backward at
+     SDPA's autograd backward; the fp32 route (HMMA and LDGSTS in both
+     passes' SASS) at every head dim (``FP32_BWD_CASES``, on the float64
+     forward's output and log-sum-exp) within 1e-4 of max|oracle| and at
+     most ``SPLIT_OVER_SIMT`` times the SIMT kernels' error per gradient,
+     then timed beside SDPA's fp32 autograd backward; the ssd_scan backward at
      mamba2-2.7b's
      training shape [80, 32, 64, 128] and a ragged one (dstates
      torch.equal to plain, <= 1e-5 of float64); then, counted, 5 AdamW
@@ -259,6 +270,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
+TF32_FLOPS_PER_S = 495e12
 SEED = 0
 # on/off pairs of the phase-10 telemetry overhead check: the min of 30
 # rounds a setting, with no overhead in the rounds' medians, still crossed
@@ -318,6 +330,55 @@ TRAIN_SCAN_SHAPES = [(80, 32, 64, 128), (3, 5, 7, 9)]
 TRAIN_MODELS = [("qwen3-8b", 4), ("mamba2-2.7b", 8)]
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 1, 4096, 5
 TRAIN_GRAD_CHECKS = [("qwen3-8b", 1, 1024), ("mamba2-2.7b", 2, 512)]
+# the fp32 attention routes (split TF32 on the tensor cores) against
+# float64 at every head dim they take, windowed and causal GQA, MHA and q
+# shorter than k: (label, (B, Sq, H, KH, D), Sk, window), forward (phase
+# 7a) and backward (phase 11a); fp32_case makes each case's inputs from
+# its own seed
+FP32_FWD_CASES = [("D = 16 window 8", (2, 300, 4, 2, 16), 300, 8),
+                  ("D = 64 GQA", (2, 1000, 8, 2, 64), 1000, 0),
+                  ("D = 96 MHA", (1, 2048, 32, 32, 96), 2048, 0),
+                  ("D = 128 q shorter than k", (2, 100, 32, 8, 128), 1000,
+                   0),
+                  ("D = 128 window 130", (1, 390, 8, 2, 128), 390, 130),
+                  ("D = 256 window 1024", (1, 3000, 8, 4, 256), 3000,
+                   1024)]
+FP32_BWD_CASES = [("D = 16 window 8", (2, 300, 4, 2, 16), 300, 8),
+                  ("D = 64 q shorter than k window 100",
+                   (1, 257, 8, 2, 64), 400, 100),
+                  ("D = 96 MHA", (1, 512, 32, 32, 96), 512, 0),
+                  ("D = 128 GQA", (1, 1024, 32, 8, 128), 1024, 0),
+                  ("D = 256 window 256", (1, 1000, 8, 4, 256), 1000, 256)]
+# max abs errors against float64 of the SIMT fp32 kernels (PR 14 / PR 24,
+# unchanged through PR 32) on those inputs, by
+# scripts/torch_attention_fp32_check.py --src on that tree (NVIDIA H100
+# 80GB HBM3, 700 W); the split-TF32 kernels may err at most SPLIT_OVER_SIMT
+# times as much on every output
+SIMT_FP32_ERRS = {
+    "forward": {
+        "D = 16 window 8": {"out": 4.5151197403114907e-07},
+        "D = 64 GQA": {"out": 9.246361997727881e-07},
+        "D = 96 MHA": {"out": 8.448340079736383e-07},
+        "D = 128 q shorter than k": {"out": 6.6933669018443e-07},
+        "D = 128 window 130": {"out": 9.966899381375072e-07},
+        "D = 256 window 1024": {"out": 2.023353911195791e-06}},
+    "backward": {
+        "D = 16 window 8": {
+            "dq": 1.0438005286772523e-06, "dk": 9.77226289222699e-07,
+            "dv": 1.2853823987413193e-06},
+        "D = 64 q shorter than k window 100": {
+            "dq": 2.4689782807119087e-06, "dk": 1.6544092245052155e-06,
+            "dv": 1.646283481981925e-06},
+        "D = 96 MHA": {
+            "dq": 3.3992869248322677e-06, "dk": 5.160064240783413e-06,
+            "dv": 6.927275328916238e-06},
+        "D = 128 GQA": {
+            "dq": 3.6139194095063942e-06, "dk": 1.1250925513017762e-05,
+            "dv": 2.4742794778376265e-05},
+        "D = 256 window 256": {
+            "dq": 2.73995794031201e-06, "dk": 3.896431292282898e-06,
+            "dv": 7.415675245425746e-06}}}
+SPLIT_OVER_SIMT = 1.5
 # phase 12d: phase 7's served model cut to these layers, its prompt length
 # and decode steps on the 1 x 1 mesh
 SHARD_LM_LAYERS, SHARD_LM_SEQ, SHARD_LM_STEPS = 4, 1024, 4
@@ -325,6 +386,42 @@ SHARD_LM_LAYERS, SHARD_LM_SEQ, SHARD_LM_STEPS = 4, 1024, 4
 
 def log(*a):
     print(*a, flush=True)
+
+
+def fp32_case(torch, dev, i, shape, Sk, with_dout=False):
+    """fp32 (q, k, v[, dout]) of an fp32 route's check: standard normal
+    from a generator on ``dev`` seeded with SEED + 1000 + i, so that any
+    tree makes the same inputs on the same card."""
+    B, Sq, H, KH, D = shape
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1000 + i)
+    shapes = [(B, Sq, H, D), (B, Sk, KH, D), (B, Sk, KH, D)]
+    if with_dout:
+        shapes.append((B, Sq, H, D))
+    return [torch.randn(s, generator=gen, device=dev) for s in shapes]
+
+
+def attention64(torch, q, k, v, causal, window):
+    """float64 attention on the (rounded) inputs, one q head at a time:
+    the output [B, Sq, H, D] and each row's log-sum-exp [B, Sq, H]."""
+    import math
+    B, Sq, H, D = q.shape
+    Sk, G = k.shape[1], H // k.shape[2]
+    dev = q.device
+    q_pos = (Sk - Sq) + torch.arange(Sq, device=dev)
+    k_pos = torch.arange(Sk, device=dev)
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= q_pos[:, None] >= k_pos[None, :]
+    if window > 0:
+        mask &= (q_pos[:, None] - k_pos[None, :]) < window
+    out = torch.empty((B, Sq, H, D), dtype=torch.float64, device=dev)
+    lse = torch.empty((B, Sq, H), dtype=torch.float64, device=dev)
+    for h in range(H):
+        s = q[:, :, h].double() @ k[:, :, h // G].double().transpose(1, 2)
+        s = torch.where(mask, s / math.sqrt(D), -math.inf)
+        out[:, :, h] = torch.softmax(s, -1) @ v[:, :, h // G].double()
+        lse[:, :, h] = torch.logsumexp(s, -1)
+    return out, lse
 
 
 def bound_ms(nbytes: float, flops: float, peak_flops_per_s: float):
@@ -403,7 +500,8 @@ def build_report(log, common):
     for fn, c in counts.items():
         if "fa_tc_kernel" in fn or "fa_fwd_kernel" in fn:
             log(f"[build] SASS {pretty[fn]}: HGMMA {c['HGMMA']}, HMMA "
-                f"{c['HMMA']}, UTMALDG {c['UTMALDG']}, FFMA {c['FFMA']}")
+                f"{c['HMMA']}, UTMALDG {c['UTMALDG']}, LDGSTS "
+                f"{c['LDGSTS']}, FFMA {c['FFMA']}, LDL {c['LDL']}")
         elif fn.startswith(("_Z13region_kernel", "_Z17region_bwd_kernel",
                             "_Z18region_rows_kernel")):
             # the weight ring's async copies (cp.async: LDGSTS; bulk or
@@ -414,10 +512,12 @@ def build_report(log, common):
                 f"FFMA {c['FFMA']}")
         elif "fa_bwd_" in fn:
             # the attention backward: wgmma and TMA loads (the bf16
-            # tensor-core kernels), SIMT FMAs, and any local-memory traffic
+            # tensor-core kernels), mma.sync and cp.async (the fp32 split-
+            # TF32 kernels), and any local-memory traffic
             log(f"[build] SASS {pretty[fn]}: HGMMA {c['HGMMA']}, UTMALDG "
-                f"{c['UTMALDG']}, UBLKCP {c['UBLKCP']}, FFMA {c['FFMA']}, "
-                f"LDL {c['LDL']}, STL {c['STL']}")
+                f"{c['UTMALDG']}, UBLKCP {c['UBLKCP']}, HMMA {c['HMMA']}, "
+                f"LDGSTS {c['LDGSTS']}, FFMA {c['FFMA']}, LDL {c['LDL']}, "
+                f"STL {c['STL']}")
         elif "ssd_scan_bwd_kernel" in fn:
             # the scan backward: SIMT FMAs, and any local-memory traffic
             log(f"[build] SASS {pretty[fn]}: FFMA {c['FFMA']}, LDL "
@@ -1723,13 +1823,13 @@ def lm_phase(log, torch, dev, scaled_err, device_ms, timing, record):
     (``kernels/ops.py``) and of LM serving, each counted from 0 just before
     it (the kernel checks before them are not counted)."""
     import dataclasses
-    import math
 
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import common, ops
-    from repro_torch.kernels.flash_attention import (flash_attention,
+    from repro_torch.kernels.flash_attention import (HEAD_DIMS,
+                                                     flash_attention,
                                                      flash_attention_plain,
                                                      tensor_map_encode_ns)
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
@@ -1744,24 +1844,6 @@ def lm_phase(log, torch, dev, scaled_err, device_ms, timing, record):
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
 
     # -- 7a. flash_attention at the path's shapes ---------------------------
-    def oracle64(q, k, v, causal, window):
-        """float64 attention on the (rounded) inputs, one q head at a time."""
-        B, Sq, H, D = q.shape
-        Sk, G = k.shape[1], H // k.shape[2]
-        q_pos = (Sk - Sq) + torch.arange(Sq, device=dev)
-        k_pos = torch.arange(Sk, device=dev)
-        mask = torch.ones((Sq, Sk), dtype=torch.bool, device=dev)
-        if causal:
-            mask &= q_pos[:, None] >= k_pos[None, :]
-        if window > 0:
-            mask &= (q_pos[:, None] - k_pos[None, :]) < window
-        out = torch.empty((B, Sq, H, D), dtype=torch.float64, device=dev)
-        for h in range(H):
-            s = q[:, :, h].double() @ k[:, :, h // G].double().transpose(1, 2)
-            s = torch.where(mask, s / math.sqrt(D), -math.inf)
-            out[:, :, h] = torch.softmax(s, -1) @ v[:, :, h // G].double()
-        return out
-
     fa_errs, timed = [], None
     for label, (B, Sq, H, KH, D), Sk, dt, window in ATTN_CASES:
         dt = getattr(torch, dt)
@@ -1770,7 +1852,7 @@ def lm_phase(log, torch, dev, scaled_err, device_ms, timing, record):
         v = torch.randn((B, Sk, KH, D), generator=gen, device=dev).to(dt)
         got = flash_attention(q, k, v, causal=True, window=window)
         plain = flash_attention_plain(q, k, v, causal=True, window=window)
-        exact = oracle64(q, k, v, True, window)
+        exact = attention64(torch, q, k, v, True, window)[0]
         torch.cuda.synchronize()
         if got.dtype != dt or tuple(got.shape) != (B, Sq, H, D) or \
                 not bool(torch.isfinite(got).all()):
@@ -1815,24 +1897,60 @@ def lm_phase(log, torch, dev, scaled_err, device_ms, timing, record):
            q.element_size() * (2 * q.numel() + k.numel() + v.numel()),
            attention_flops(B, Sq, Sk, H, D, causal=True, window=0),
            library_ms=lib_ms, peak_flops_per_s=BF16_FLOPS_PER_S)
-    # the fp32 route (csrc/flash_attention.cu) at the same shape
-    qf, kf, vf = (t.float() for t in (q, k, v))
     del q, k, v, qt, kt, vt, timed
+    # the fp32 route (csrc/flash_attention.cu, split TF32 on the tensor
+    # cores: mma.sync, HMMA in its SASS, K / V tiles by cp.async, LDGSTS)
+    # against float64 at every head dim: at most SPLIT_OVER_SIMT times the
+    # SIMT kernels' error on the same inputs
+    f32_sass = {fn: c for fn, c in SASS_COUNTS.items()
+                if "fa_fwd_kernel" in fn}
+    if SASS_COUNTS and (len(f32_sass) != len(HEAD_DIMS) or not all(
+            c["HMMA"] > 0 and c["LDGSTS"] > 0 for c in f32_sass.values())):
+        raise AssertionError(f"flash_attention fp32 kernels' SASS: "
+                             f"{f32_sass}")
+    errs32 = []
+    for i, (label, shape, sk, win) in enumerate(FP32_FWD_CASES):
+        q, k, v = fp32_case(torch, dev, i, shape, sk)
+        got = flash_attention(q, k, v, causal=True, window=win)
+        plain = flash_attention_plain(q, k, v, causal=True, window=win)
+        exact = attention64(torch, q, k, v, True, win)[0]
+        torch.cuda.synchronize()
+        k_err, k_scaled = scaled_err(got, exact)
+        p_err = scaled_err(plain, exact)[0]
+        vs_plain = scaled_err(got, plain)
+        errs32.append(vs_plain)
+        simt = SIMT_FP32_ERRS["forward"][label]["out"]
+        ok = bool(torch.isfinite(got).all()) and k_scaled <= 1e-5 and \
+            vs_plain[1] <= 1e-5 and k_err <= SPLIT_OVER_SIMT * simt
+        log(f"[lm] flash_attention fp32 {label}: q {tuple(q.shape)} k "
+            f"{tuple(k.shape)} window {win}: err against float64 "
+            f"{k_err:.4e} (scaled {k_scaled:.3e}), {k_err / simt:.3f}x the "
+            f"SIMT kernel's {simt:.4e}; plain {p_err:.4e}; against plain "
+            f"{vs_plain[0]:.4e}; rule: <= 1e-5 of max|oracle| and <= "
+            f"{SPLIT_OVER_SIMT}x the SIMT kernel's error")
+        if not ok:
+            raise AssertionError(f"flash_attention fp32 {label} disagrees")
+        del q, k, v, got, plain, exact
+    # ... and at the prefill shape, timed beside SDPA's fp32 forward
+    gen32 = torch.Generator(device=dev).manual_seed(SEED)
+    qf = torch.randn((B, Sq, H, D), generator=gen32, device=dev)
+    kf, vf = (torch.randn((B, Sk, KH, D), generator=gen32, device=dev)
+              for _ in range(2))
     ok = scaled_err(flash_attention(qf, kf, vf, causal=True),
                     flash_attention_plain(qf, kf, vf, causal=True))
     qt, kt, vt = (t.transpose(1, 2) for t in (qf, kf, vf))
     record("flash_attention", "src/repro_torch/kernels/csrc/"
            "flash_attention.cu", f"q {tuple(qf.shape)} k {tuple(kf.shape)} "
-           f"float32 causal", [ok],
+           f"float32 causal", [ok] + errs32,
            timing(lambda: flash_attention(qf, kf, vf, causal=True), 3, 3),
            timing(lambda: flash_attention_plain(qf, kf, vf, causal=True), 2,
                   2),
            4 * (2 * qf.numel() + kf.numel() + vf.numel()),
-           attention_flops(B, Sq, Sk, H, D, causal=True, window=0),
+           3 * attention_flops(B, Sq, Sk, H, D, causal=True, window=0),
            library_ms=timing(
                lambda: torch.nn.functional.scaled_dot_product_attention(
                    qt, kt, vt, is_causal=True, enable_gqa=True), 5, 5)[0],
-           route="float32")
+           peak_flops_per_s=TF32_FLOPS_PER_S, route="float32")
     if ok[1] > 1e-5:
         raise AssertionError(f"flash_attention fp32 at the prefill shape: "
                              f"scaled err against plain {ok[1]:.3e}")
@@ -2490,7 +2608,50 @@ def train_phase(log, torch, dev, scaled_err, device_ms, timing, record):
     del q, k, v, out, lse, dout, timed, qt, kt, vt, ot, dt_
     # the fp32 route (csrc/flash_attention_bwd.cu) at its first fp32 case,
     # with SDPA's fp32 autograd backward at the same shape
+    # The fp32 route (csrc/flash_attention_bwd.cu, split TF32 on the
+    # tensor cores: HMMA and LDGSTS in the SASS of both passes) against
+    # float64 at every head dim, on the float64 forward's output and
+    # log-sum-exp rounded to fp32: each gradient at most SPLIT_OVER_SIMT
+    # times the SIMT kernels' error on the same inputs
+    f32_sass = {fn: c for fn, c in SASS_COUNTS.items()
+                if "fa_bwd_dq_kernel" in fn or "fa_bwd_dkv_kernel" in fn}
+    if SASS_COUNTS and (len(f32_sass) != 2 * len(fa.HEAD_DIMS) or not all(
+            c["HMMA"] > 0 and c["LDGSTS"] > 0 for c in f32_sass.values())):
+        raise AssertionError(f"flash_attention_bwd fp32 kernels' SASS: "
+                             f"{f32_sass}")
     label, q, k, v, out, lse, dout, window, errs32 = timed32
+    for i, (name32, shape, sk, win) in enumerate(FP32_BWD_CASES):
+        q3, k3, v3, g3 = fp32_case(torch, dev, 100 + i, shape, sk,
+                                   with_dout=True)
+        o64, l64 = attention64(torch, q3, k3, v3, True, win)
+        o3, l3 = o64.float(), l64.float()
+        got = fa.flash_attention_bwd(q3, k3, v3, o3, l3, g3, window=win)
+        plain = fa.flash_attention_bwd_plain(q3, k3, v3, o3, l3, g3,
+                                             window=win)
+        exact = attention_grad64(torch, q3, k3, v3, g3, True, win)
+        torch.cuda.synchronize()
+        parts, ok = [], True
+        for name, g, p, e in zip(("dq", "dk", "dv"), got, plain, exact):
+            k_err, k_scaled = scaled_err(g, e)
+            vs_plain = scaled_err(g, p)
+            errs32.append(vs_plain)
+            simt = SIMT_FP32_ERRS["backward"][name32][name]
+            ok = ok and bool(torch.isfinite(g).all()) and \
+                k_scaled <= 1e-4 and vs_plain[1] <= 1e-4 and \
+                k_err <= SPLIT_OVER_SIMT * simt
+            parts.append(f"{name} {k_err:.4e} (scaled {k_scaled:.3e}), "
+                         f"{k_err / simt:.3f}x the SIMT kernel's "
+                         f"{simt:.4e}, plain {scaled_err(p, e)[0]:.4e}")
+        log(f"[train] flash_attention_bwd fp32 {name32}: q "
+            f"{tuple(q3.shape)} k {tuple(k3.shape)} window {win}: against "
+            f"float64 {'; '.join(parts)}; rule: <= 1e-4 of max|oracle| and "
+            f"<= {SPLIT_OVER_SIMT}x the SIMT kernel's error")
+        if not ok:
+            raise AssertionError(f"flash_attention_bwd fp32 {name32} "
+                                 f"disagrees")
+        del q3, k3, v3, g3, o64, l64, o3, l3, got, plain, exact
+    # ... and its time at its first fp32 case, with SDPA's fp32 autograd
+    # backward at the same shape
     B, Sq, H, D = q.shape
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
@@ -2507,10 +2668,11 @@ def train_phase(log, torch, dev, scaled_err, device_ms, timing, record):
                                                        dout), 3, 3),
            q.element_size() * 2 * (2 * q.numel() + 2 * k.numel()
                                    + dout.numel()) + 4 * lse.numel(),
-           2.5 * attention_flops(B, Sq, Sq, H, D, causal=True, window=0),
+           3 * 2.5 * attention_flops(B, Sq, Sq, H, D, causal=True,
+                                     window=0),
            library_ms=timing(lambda: torch.autograd.grad(
                ot, (qt, kt, vt), dt_, retain_graph=True), 5, 10)[0],
-           route="float32")
+           peak_flops_per_s=TF32_FLOPS_PER_S, route="float32")
     del q, k, v, out, lse, dout, timed32, qt, kt, vt, ot, dt_
     torch.cuda.empty_cache()
 

@@ -12,95 +12,81 @@
 //   ds   = p_ij * (dO_i v_j^T - D_i) * scale
 //   dq_i = sum_j ds k_j;   dv_j = sum_i p^T dO_i;   dk_j = sum_i ds^T q_i
 //
-// Pass 1 (fa_bwd_dq_kernel): one CTA per (batch, q head, 64-row q tile).  It
-// stages q, dO and O, computes D for its rows (written to a [B, H, Sq] fp32
-// scratch for pass 2), then streams the key tiles its rows can see, with dq in
-// registers.  Pass 2 (fa_bwd_dkv_kernel): one CTA per (batch, kv head, tile
-// of 16 R keys); it walks the G q heads of its kv head and the q tiles that
-// see its keys, with dk and dv in registers.  Every element of dq, dk and dv
-// has one writer and a fixed summation order: no atomics, and the result does
-// not depend on the launch.  Masks follow flash_cvjp._mask: keys past Sk,
-// causal q_pos >= k_pos with q_pos = (Sk - Sq) + i, window q_pos - k_pos <
-// window; a masked p is exactly 0, so tiles wholly outside the band are
-// skipped with no change to any sum.  Roundings follow _bwd_impl: p is
-// rounded to dO's type before dv, ds to k's type before dq and to q's type
-// before dk (fp32 here: no rounding; T is the element type); every product
-// accumulates in fp32.  bf16 runs on the tensor cores instead
+// Pass 1 (fa_bwd_dq_kernel): one CTA per (batch, q head, 64-row q tile), four
+// warps of 16 rows.  It stages q and dO, computes D for its rows (written to
+// a [B, H, Sq] fp32 scratch for pass 2), then streams the 16-key tiles its
+// rows can see, with dq in registers.  Pass 2 (fa_bwd_dkv_kernel): one CTA
+// per (batch, q head, 64-key tile), four warps of 16 keys, and per column
+// block of 128 at D = 256; it walks the 16-row q tiles of its q head that
+// see its keys, with dk and dv in registers.  Where G > 1 q heads share a kv
+// head, pass 2 writes each q head's share to an fp32 scratch and
+// fa_bwd_sum_kernel adds the G shares in head order.  Every element of dq,
+// dk, dv and the scratch has one writer and a fixed summation order: no
+// atomics, and the result does not depend on the launch.  Masks follow
+// flash_cvjp._mask: keys past Sk, causal q_pos >= k_pos with
+// q_pos = (Sk - Sq) + i, window q_pos - k_pos < window; a masked p is
+// exactly 0, so tiles wholly outside the band are skipped with no change to
+// any sum.  bf16 runs on the tensor cores with wgmma instead
 // (flash_attention_bwd_tc.cu).
 //
 // Bound on the H100: operations.  At the qwen3-8b training shape (q [1, 4096,
 // 32, 128], k/v [1, 4096, 8, 128], causal) the backward needs ~344 GFLOP (2.5
-// times the forward's 137): 0.35 ms at 989 TFLOP/s of bf16 tensor cores, 5.1
-// ms at 67 TFLOP/s of fp32 FMAs.  The kernels are SIMT fp32 (TF32 would lose
-// digits): pass 1 recomputes the scores and dO v^T that pass 2 computes
+// times the forward's 137).  Every product runs on the tensor cores in split
+// TF32 (split_tf32.cuh: three TF32 mma.sync products per fp32 product, an
+// fp32 FMA loop's accuracy): 3 x 344 GFLOP at the 495 TFLOP/s of dense
+// TF32.  Pass 1 recomputes the scores and dO v^T that pass 2 computes
 // again, 14 D FLOPs per visible (q, k) pair against the 10 D of the bound.
-// Tiles live in fp32 shared memory with rows padded by four floats so that
-// eight rows of a quarter-warp fall on distinct banks, as in
-// flash_attention.cu.
+// Operands stored [rows][d] load by ldmatrix; P and dS go from the
+// registers of the product that made them into the next one's A operand
+// (their key or row index permuted), the other side by scalar loads of
+// rows 2t, 2t + 1.  Each k-step of a score product folds into fp32
+// registers; a gradient product chains its big and small products apart
+// over the tile and folds both into dq, dk or dv, so no tensor-core sum
+// runs past one tile.  Only tiles that straddle the band compute the mask.
+// The streamed tiles come through a two-stage cp.async ring.
 #include "abi.cuh"
+#include "split_tf32.cuh"
 
 #include <stdint.h>
 
-#define FB_THREADS 256   // 16 x 16 threads
-#define FB_BQ 64         // pass 1: q rows of one CTA
-#define FB_BK 32         // pass 1: keys of one kv tile
-#define FB_BQ2 32        // pass 2: q rows of one q tile
+#define FB_THREADS 128   // four warps
+#define FB_BQ 64         // pass 1: q rows of one CTA, 16 a warp
+#define FB_BK 16         // pass 1: keys of one kv tile
+#define FB_BKV 64        // pass 2: keys of one CTA, 16 a warp
+#define FB_BQ2 16        // pass 2: q rows of one q tile
 #define FB_NEG_INF (-1e30f)
 
 struct FbArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* o;
-  const void* dout;
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* o;
+  const float* dout;
   const float* lse;  // [B, Sq, H]
-  void* dq;
-  void* dk;
-  void* dv;
+  float* dq;
+  float* dk;
+  float* dv;
   float* dl;         // [B, H, Sq] scratch: rowsum(dO * O)
+  float* part;       // G > 1: [2, B, Sk, H, D] scratch, each q head's dk, dv
   int H, KH, G, Sq, Sk;
   float scale;
   int causal, window;
 };
 
-__device__ __forceinline__ float fb_round(float x, float) { return x; }
-__device__ __forceinline__ void fb_store(float* p, float x) { *p = x; }
-
-// 16 bytes of T -> floats at d (d 16-byte aligned)
-__device__ __forceinline__ void fb_unpack(const uint4 raw, float* d, float) {
-  *reinterpret_cast<float4*>(d) = *reinterpret_cast<const float4*>(&raw);
+// row pitch of every tile, in floats (see c_operand_b)
+template <int D>
+__host__ __device__ constexpr int fb_ld() {
+  return D + 4;
 }
 
-// Stage rows [r0, r0 + rows) of one head (base: row 0 of the head, rs the row
-// stride in elements) as fp32 with row pitch ld; rows at or past S are zero.
-// 16-byte global loads.
-template <class T, int D>
-__device__ __forceinline__ void fb_stage(const T* __restrict__ base,
-                                         long long rs, int r0, int rows,
-                                         int S, float* __restrict__ dst,
-                                         int ld) {
-  constexpr int EPV = 16 / sizeof(T);  // elements of one 16-byte vector
-  constexpr int VPR = D / EPV;
-  for (int i = threadIdx.x; i < rows * VPR; i += FB_THREADS) {
-    const int r = i / VPR, c = (i % VPR) * EPV;
-    float* d = dst + r * ld + c;
-    if (r0 + r < S) {
-      fb_unpack(*reinterpret_cast<const uint4*>(base + (long long)(r0 + r) *
-                                                           rs + c),
-                d, T());
-    } else {
-#pragma unroll
-      for (int e = 0; e < EPV; e += 4)
-        *reinterpret_cast<float4*>(d + e) = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  }
+template <int D>
+constexpr int fb_dq_smem() {
+  return 4 * (2 * FB_BQ + 4 * FB_BK) * fb_ld<D>();
 }
 
-__device__ __forceinline__ float dot4(float4 a, float4 b, float t) {
-  t = fmaf(a.x, b.x, t);
-  t = fmaf(a.y, b.y, t);
-  t = fmaf(a.z, b.z, t);
-  return fmaf(a.w, b.w, t);
+template <int D>
+constexpr int fb_dkv_smem() {
+  return 4 * (2 * FB_BKV + 4 * FB_BQ2) * fb_ld<D>();
 }
 
 __device__ __forceinline__ bool fb_visible(const FbArgs& a, int qpos,
@@ -111,67 +97,34 @@ __device__ __forceinline__ bool fb_visible(const FbArgs& a, int qpos,
   return ok;
 }
 
-template <int D>
-constexpr int fb_dq_smem() {
-  return 4 * ((2 * FB_BQ + 2 * FB_BK) * (D + 4) + FB_BQ * (FB_BK + 4));
-}
-
-template <int D, int R>
-constexpr int fb_dkv_smem() {
-  return 4 * ((2 * 16 * R + 2 * FB_BQ2) * (D + 4) +
-              2 * 16 * R * (FB_BQ2 + 4) + 2 * FB_BQ2);
-}
-
 // ---- pass 1: D and dq ------------------------------------------------------
 
-template <class T, int D>
-__global__ void __launch_bounds__(FB_THREADS) fa_bwd_dq_kernel(const FbArgs a) {
-  constexpr int LD = D + 4;       // q, dO, k, v tile row pitch (floats)
-  constexpr int LDP = FB_BK + 4;  // ds tile row pitch
-  constexpr int NC = D / 16;      // dq columns per thread
+template <int D>
+__global__ void __launch_bounds__(FB_THREADS, 2)
+    fa_bwd_dq_kernel(const FbArgs a) {
+  constexpr int LD = fb_ld<D>();
+  constexpr int NS = FB_BK / 8;  // 8-key column tiles of S
+  constexpr int NO = D / 8;      // 8-column tiles of dq
+  static_assert(NS == 2, "one ldmatrix.x4 of K or V per k-step");
   extern __shared__ float4 fb_smem[];
   float* Qs = reinterpret_cast<float*>(fb_smem);  // [FB_BQ][LD]
   float* dOs = Qs + FB_BQ * LD;                   // [FB_BQ][LD]
-  float* Ks = dOs + FB_BQ * LD;                   // [FB_BK][LD]
-  float* Vs = Ks + FB_BK * LD;                    // [FB_BK][LD]
-  float* dSs = Vs + FB_BK * LD;                   // [FB_BQ][LDP]
+  float* Ks = dOs + FB_BQ * LD;                   // [2][FB_BK][LD]
+  float* Vs = Ks + 2 * FB_BK * LD;                // [2][FB_BK][LD]
+  __shared__ float lse_s[FB_BQ], dl_s[FB_BQ];
 
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  // the last q tiles see the most keys under the causal mask: first
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H, kvh = h / a.G;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int wr = (threadIdx.x >> 5) * 16;  // the warp's first row
+  // the last q tiles see the most keys under the causal mask: first, every
+  // head's
+  const int qt = gridDim.y - 1 - blockIdx.y;
+  const int b = blockIdx.x / a.H, h = blockIdx.x % a.H, kvh = h / a.G;
   const int q0 = qt * FB_BQ;
   const long long qrs = (long long)a.H * D, krs = (long long)a.KH * D;
   const long long qhead = ((long long)b * a.Sq * a.H + h) * D;
   const long long khead = ((long long)b * a.Sk * a.KH + kvh) * D;
-  const T* qb = static_cast<const T*>(a.q) + qhead;
-  const T* ob = static_cast<const T*>(a.o) + qhead;
-  const T* dob = static_cast<const T*>(a.dout) + qhead;
-  const T* kb = static_cast<const T*>(a.k) + khead;
-  const T* vb = static_cast<const T*>(a.v) + khead;
-
-  // D_i = rowsum(dO_i * O_i): O staged over the K and V tiles (64 rows)
-  fb_stage<T, D>(qb, qrs, q0, FB_BQ, a.Sq, Qs, LD);
-  fb_stage<T, D>(dob, qrs, q0, FB_BQ, a.Sq, dOs, LD);
-  fb_stage<T, D>(ob, qrs, q0, FB_BQ, a.Sq, Ks, LD);
-  __syncthreads();
-  float lse[4], dl[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = ty + 16 * r;
-    float t = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-      t = fmaf(dOs[row * LD + tx + 16 * c], Ks[row * LD + tx + 16 * c], t);
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-      t += __shfl_xor_sync(0xffffffffu, t, off, 16);
-    dl[r] = t;
-    const int qrow = q0 + row;
-    lse[r] = qrow < a.Sq ? a.lse[((long long)b * a.Sq + qrow) * a.H + h] : 0.f;
-    if (tx == 0 && qrow < a.Sq)
-      a.dl[((long long)b * a.H + h) * a.Sq + qrow] = t;
-  }
+  const float* kb = a.k + khead;
+  const float* vb = a.v + khead;
 
   const int q_offset = a.Sk - a.Sq;
   const int qp_lo = q_offset + q0;
@@ -179,277 +132,418 @@ __global__ void __launch_bounds__(FB_THREADS) fa_bwd_dq_kernel(const FbArgs a) {
   const int k_end = a.causal ? min(a.Sk, qp_hi + 1) : a.Sk;
   const int k_begin =
       a.window > 0 ? max(0, qp_lo - a.window + 1) / FB_BK * FB_BK : 0;
+  const int ntiles = k_end > k_begin ? (k_end - k_begin + FB_BK - 1) / FB_BK
+                                     : 0;
 
-  float dq[4][NC];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) dq[r][c] = 0.f;
+  stage_rows_async<D>(a.q + qhead, qrs, q0, FB_BQ, a.Sq, Qs, LD, FB_THREADS);
+  stage_rows_async<D>(a.dout + qhead, qrs, q0, FB_BQ, a.Sq, dOs, LD,
+                      FB_THREADS);
+  if (ntiles > 0) {
+    stage_rows_async<D>(kb, krs, k_begin, FB_BK, a.Sk, Ks, LD, FB_THREADS);
+    stage_rows_async<D>(vb, krs, k_begin, FB_BK, a.Sk, Vs, LD, FB_THREADS);
+  }
+  cp_async_commit();
 
-  for (int k0 = k_begin; k0 < k_end; k0 += FB_BK) {
-    __syncthreads();  // O, or the last tile's K, V and ds, are read
-    fb_stage<T, D>(kb, krs, k0, FB_BK, a.Sk, Ks, LD);
-    fb_stage<T, D>(vb, krs, k0, FB_BK, a.Sk, Vs, LD);
+  // D_i = rowsum(dO_i * O_i), a warp per row, while the copies fly
+#pragma unroll 4
+  for (int r = wr; r < wr + 16; ++r) {
+    const int row = q0 + r;
+    float sdl = 0.f;
+    if (row < a.Sq) {
+      const float* gr = a.dout + qhead + row * qrs;
+      const float* orow = a.o + qhead + row * qrs;
+      for (int c = lane * 4; c < D; c += 128) {
+        const float4 x = *reinterpret_cast<const float4*>(gr + c);
+        const float4 y = *reinterpret_cast<const float4*>(orow + c);
+        sdl = fmaf(x.x, y.x, sdl);
+        sdl = fmaf(x.y, y.y, sdl);
+        sdl = fmaf(x.z, y.z, sdl);
+        sdl = fmaf(x.w, y.w, sdl);
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      sdl += __shfl_xor_sync(0xffffffffu, sdl, off);
+    if (lane == 0) {
+      dl_s[r] = sdl;
+      lse_s[r] = row < a.Sq ? a.lse[((long long)b * a.Sq + row) * a.H + h]
+                            : 0.f;
+      if (row < a.Sq) a.dl[((long long)b * a.H + h) * a.Sq + row] = sdl;
+    }
+  }
+  __syncwarp();
+  const float lse[2] = {lse_s[wr + g], lse_s[wr + g + 8]};
+  const float dl[2] = {dl_s[wr + g], dl_s[wr + g + 8]};
+
+  float dq[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = k_begin + it * FB_BK;
+    const float* Kt = Ks + (it & 1) * FB_BK * LD;
+    const float* Vt = Vs + (it & 1) * FB_BK * LD;
+    __syncthreads();  // the other stage's last reads are done
+    if (it + 1 < ntiles) {
+      stage_rows_async<D>(kb, krs, k0 + FB_BK, FB_BK, a.Sk,
+                          Ks + ((it + 1) & 1) * FB_BK * LD, LD, FB_THREADS);
+      stage_rows_async<D>(vb, krs, k0 + FB_BK, FB_BK, a.Sk,
+                          Vs + ((it + 1) & 1) * FB_BK * LD, LD, FB_THREADS);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
 
-    // s = q k^T and dp = dO v^T for rows ty + 16 r, keys tx + 16 c
-    float s[4][2], dp[4][2];
+    // s = q k^T and dp = dO v^T for the warp's 16 rows and the tile's keys
+    float s[NS][4], dp[NS][4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
-      s[r][0] = s[r][1] = dp[r][0] = dp[r][1] = 0.f;
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll 2
-    for (int d = 0; d < D; d += 4) {
-      float4 kv[2], vv[2];
+    for (int kk = 0; kk < D; kk += 8) {
+      uint32_t qhi[4], qlo[4], ghi[4], glo[4], khi[4], klo[4], vhi[4],
+          vlo[4];
+      load_a_split(Qs, LD, wr, kk, qhi, qlo);
+      load_a_split(dOs, LD, wr, kk, ghi, glo);
+      load_b2_split(Kt, LD, 0, kk, khi, klo);
+      load_b2_split(Vt, LD, 0, kk, vhi, vlo);
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        kv[c] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * c) * LD + d);
-        vv[c] = *reinterpret_cast<const float4*>(Vs + (tx + 16 * c) * LD + d);
-      }
+      for (int j = 0; j < NS; ++j) {
+        float c[4] = {0.f, 0.f, 0.f, 0.f}, d[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_split(c, c, qhi, qlo, khi + 2 * j, klo + 2 * j);
+        mma_split(d, d, ghi, glo, vhi + 2 * j, vlo + 2 * j);
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float4 qv =
-            *reinterpret_cast<const float4*>(Qs + (ty + 16 * r) * LD + d);
-        const float4 gv =
-            *reinterpret_cast<const float4*>(dOs + (ty + 16 * r) * LD + d);
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          s[r][c] = dot4(qv, kv[c], s[r][c]);
-          dp[r][c] = dot4(gv, vv[c], dp[r][c]);
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] += c[e];
+          dp[j][e] += d[e];
         }
       }
     }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int qpos = qp_lo + ty + 16 * r;
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const float p = fb_visible(a, qpos, k0 + tx + 16 * c)
-                            ? expf(s[r][c] * a.scale - lse[r])
-                            : 0.f;
-        const float ds = p * (dp[r][c] - dl[r]) * a.scale;
-        dSs[(ty + 16 * r) * LDP + tx + 16 * c] = fb_round(ds, T());
-      }
-    }
-    __syncthreads();
 
-    // dq += ds k for rows ty + 16 r, columns tx + 16 c
-#pragma unroll 4
-    for (int j = 0; j < FB_BK; ++j) {
-      float kr[NC];
+    // ds = p (dp - D) scale (the mask only where the tile straddles the
+    // band), then dq += ds k
+    const bool whole = k0 + FB_BK <= a.Sk &&
+                       (!a.causal || k0 + FB_BK - 1 <= qp_lo + wr) &&
+                       (a.window <= 0 || qp_lo + wr + 15 - k0 < a.window);
+    uint32_t dhi[NS][4], dlo[NS][4];
 #pragma unroll
-      for (int c = 0; c < NC; ++c) kr[c] = Ks[j * LD + tx + 16 * c];
+    for (int j = 0; j < NS; ++j) {
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float w = dSs[(ty + 16 * r) * LDP + j];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) dq[r][c] = fmaf(w, kr[c], dq[r][c]);
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float p =
+            whole || fb_visible(a, qp_lo + wr + g + 8 * r,
+                                k0 + j * 8 + 2 * t + (e & 1))
+                ? expf(s[j][e] * a.scale - lse[r])
+                : 0.f;
+        s[j][e] = p * (dp[j][e] - dl[r]) * a.scale;
       }
+      c_as_a_split(s[j], dhi[j], dlo[j]);
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      float c[4] = {0.f, 0.f, 0.f, 0.f}, cl[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        uint32_t bhi[2], blo[2];
+        c_operand_b(Kt, LD, j * 8, n * 8, bhi, blo);
+        mma_split(c, cl, dhi[j], dlo[j], bhi, blo);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dq[n][e] += c[e] + cl[e];
     }
   }
+  cp_async_wait<0>();
 
-  T* dqb = static_cast<T*>(a.dq) + qhead;
+  float* dqb = a.dq + qhead;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = q0 + ty + 16 * r;
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + wr + g + 8 * r;
     if (row >= a.Sq) continue;
 #pragma unroll
-    for (int c = 0; c < NC; ++c)
-      fb_store(dqb + (long long)row * qrs + tx + 16 * c, dq[r][c]);
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<float2*>(dqb + row * qrs + n * 8 + 2 * t) =
+          make_float2(dq[n][2 * r], dq[n][2 * r + 1]);
   }
 }
 
 // ---- pass 2: dk and dv -----------------------------------------------------
 
-template <class T, int D, int R>
-__global__ void __launch_bounds__(FB_THREADS)
-    fa_bwd_dkv_kernel(const FbArgs a) {
-  constexpr int BK = 16 * R;       // keys of one CTA
-  constexpr int LD = D + 4;
-  constexpr int LDP = FB_BQ2 + 4;  // p and ds tile row pitch
-  constexpr int NC = D / 16;       // dk / dv columns per thread
-  extern __shared__ float4 fb_smem[];
-  float* Ks = reinterpret_cast<float*>(fb_smem);  // [BK][LD]
-  float* Vs = Ks + BK * LD;                       // [BK][LD]
-  float* Qs = Vs + BK * LD;                       // [FB_BQ2][LD]
-  float* dOs = Qs + FB_BQ2 * LD;                  // [FB_BQ2][LD]
-  float* Ps = dOs + FB_BQ2 * LD;                  // [BK][LDP]
-  float* dSs = Ps + BK * LDP;                     // [BK][LDP]
-  float* lse_s = dSs + BK * LDP;                  // [FB_BQ2]
-  float* dl_s = lse_s + FB_BQ2;                   // [FB_BQ2]
+// Stage one q tile of pass 2: q and dO rows [q0, q0 + FB_BQ2) and their lse
+// and D.
+template <int D>
+__device__ __forceinline__ void fb_stage_q(const FbArgs& a, int b, int h,
+                                           int q0, float* Qt, float* dOt,
+                                           float* rows) {
+  constexpr int LD = fb_ld<D>();
+  const long long qrs = (long long)a.H * D;
+  const long long qhead = ((long long)b * a.Sq * a.H + h) * D;
+  stage_rows_async<D>(a.q + qhead, qrs, q0, FB_BQ2, a.Sq, Qt, LD,
+                      FB_THREADS);
+  stage_rows_async<D>(a.dout + qhead, qrs, q0, FB_BQ2, a.Sq, dOt, LD,
+                      FB_THREADS);
+  if (threadIdx.x < 2 * FB_BQ2) {
+    const int i = threadIdx.x % FB_BQ2, row = q0 + i;
+    const bool in = row < a.Sq;
+    const float* src =
+        threadIdx.x < FB_BQ2
+            ? a.lse + (in ? ((long long)b * a.Sq + row) * a.H + h : 0)
+            : a.dl + (in ? ((long long)b * a.H + h) * a.Sq + row : 0);
+    cp_async4_zfill(rows + threadIdx.x, src, in);
+  }
+}
 
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  // the first key tiles are seen by the most q rows under the causal mask
-  const int k0 = blockIdx.x * BK;
-  const int b = blockIdx.y / a.KH, kvh = blockIdx.y % a.KH;
-  const long long qrs = (long long)a.H * D, krs = (long long)a.KH * D;
+template <int D, int NDC>
+__global__ void __launch_bounds__(FB_THREADS, 2)
+    fa_bwd_dkv_kernel(const FbArgs a) {
+  constexpr int LD = fb_ld<D>();
+  constexpr int NS = FB_BQ2 / 8;  // 8-row column tiles of S^T
+  constexpr int NO = NDC / 8;     // 8-column tiles of dk / dv
+  static_assert(NS == 2, "one ldmatrix.x4 of Q or dO per k-step");
+  extern __shared__ float4 fb_smem[];
+  float* Ks = reinterpret_cast<float*>(fb_smem);  // [FB_BKV][LD]
+  float* Vs = Ks + FB_BKV * LD;                   // [FB_BKV][LD]
+  float* Qs = Vs + FB_BKV * LD;                   // [2][FB_BQ2][LD]
+  float* dOs = Qs + 2 * FB_BQ2 * LD;              // [2][FB_BQ2][LD]
+  __shared__ __align__(16) float rows_s[2][2 * FB_BQ2];  // lse, then D
+
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int wk = (threadIdx.x >> 5) * 16;  // the warp's first key
+  // the first key tiles are seen by the most q rows under the causal mask:
+  // first, every head's
+  const int k0 = blockIdx.y * FB_BKV;
+  const int b = blockIdx.x / a.H, h = blockIdx.x % a.H, kvh = h / a.G;
+  const int c0 = blockIdx.z * NDC;  // the CTA's dk / dv columns
+  const long long krs = (long long)a.KH * D;
   const long long khead = ((long long)b * a.Sk * a.KH + kvh) * D;
-  fb_stage<T, D>(static_cast<const T*>(a.k) + khead, krs, k0, BK, a.Sk, Ks,
-                 LD);
-  fb_stage<T, D>(static_cast<const T*>(a.v) + khead, krs, k0, BK, a.Sk, Vs,
-                 LD);
+  stage_rows_async<D>(a.k + khead, krs, k0, FB_BKV, a.Sk, Ks, LD,
+                      FB_THREADS);
+  stage_rows_async<D>(a.v + khead, krs, k0, FB_BKV, a.Sk, Vs, LD,
+                      FB_THREADS);
 
   // the q rows that can see a key of this tile
   const int q_offset = a.Sk - a.Sq;
   const int q_lo = a.causal ? max(0, k0 - q_offset) / FB_BQ2 * FB_BQ2 : 0;
   const int q_hi =
-      a.window > 0 ? min(a.Sq, k0 + BK - 1 + a.window - q_offset) : a.Sq;
+      a.window > 0 ? min(a.Sq, k0 + FB_BKV - 1 + a.window - q_offset) : a.Sq;
+  const int ntiles =
+      q_hi > q_lo ? (q_hi - q_lo + FB_BQ2 - 1) / FB_BQ2 : 0;
+  if (ntiles > 0)
+    fb_stage_q<D>(a, b, h, q_lo, Qs, dOs, rows_s[0]);
+  cp_async_commit();
 
-  float dk[R][NC], dv[R][NC];
+  float dk[NO][4], dv[NO][4];
 #pragma unroll
-  for (int r = 0; r < R; ++r)
+  for (int n = 0; n < NO; ++n)
 #pragma unroll
-    for (int c = 0; c < NC; ++c) dk[r][c] = dv[r][c] = 0.f;
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
 
-  for (int g = 0; g < a.G; ++g) {
-    const int h = kvh * a.G + g;
-    const long long qhead = ((long long)b * a.Sq * a.H + h) * D;
-    const T* qb = static_cast<const T*>(a.q) + qhead;
-    const T* dob = static_cast<const T*>(a.dout) + qhead;
-    for (int q0 = q_lo; q0 < q_hi; q0 += FB_BQ2) {
-      __syncthreads();  // the last q tile's Q, dO, p and ds are read
-      fb_stage<T, D>(qb, qrs, q0, FB_BQ2, a.Sq, Qs, LD);
-      fb_stage<T, D>(dob, qrs, q0, FB_BQ2, a.Sq, dOs, LD);
-      if (threadIdx.x < FB_BQ2) {
-        const int qrow = q0 + threadIdx.x;
-        const bool in = qrow < a.Sq;
-        lse_s[threadIdx.x] =
-            in ? a.lse[((long long)b * a.Sq + qrow) * a.H + h] : 0.f;
-        dl_s[threadIdx.x] =
-            in ? a.dl[((long long)b * a.H + h) * a.Sq + qrow] : 0.f;
-      }
-      __syncthreads();
+  for (int it = 0; it < ntiles; ++it) {
+    const int q0 = q_lo + it * FB_BQ2;
+    const float* Qt = Qs + (it & 1) * FB_BQ2 * LD;
+    const float* dOt = dOs + (it & 1) * FB_BQ2 * LD;
+    const float* lse_t = rows_s[it & 1];
+    const float* dl_t = lse_t + FB_BQ2;
+    __syncthreads();  // the other stage's last reads are done
+    if (it + 1 < ntiles)
+      fb_stage_q<D>(a, b, h, q0 + FB_BQ2, Qs + ((it + 1) & 1) * FB_BQ2 * LD,
+                    dOs + ((it + 1) & 1) * FB_BQ2 * LD, rows_s[(it + 1) & 1]);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
 
-      // s^T = k q^T and dp^T = v dO^T for keys ty + 16 r, rows tx + 16 c
-      float s[R][2], dp[R][2];
+    // s^T = k q^T and dp^T = v dO^T for the warp's 16 keys and the tile's
+    // 16 q rows
+    float s[NS][4], dp[NS][4];
 #pragma unroll
-      for (int r = 0; r < R; ++r)
-        s[r][0] = s[r][1] = dp[r][0] = dp[r][1] = 0.f;
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll 2
-      for (int d = 0; d < D; d += 4) {
-        float4 qv[2], gv[2];
+    for (int kk = 0; kk < D; kk += 8) {
+      uint32_t khi[4], klo[4], vhi[4], vlo[4], qhi[4], qlo[4], ghi[4],
+          glo[4];
+      load_a_split(Ks, LD, wk, kk, khi, klo);
+      load_a_split(Vs, LD, wk, kk, vhi, vlo);
+      load_b2_split(Qt, LD, 0, kk, qhi, qlo);
+      load_b2_split(dOt, LD, 0, kk, ghi, glo);
 #pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          qv[c] = *reinterpret_cast<const float4*>(Qs + (tx + 16 * c) * LD + d);
-          gv[c] =
-              *reinterpret_cast<const float4*>(dOs + (tx + 16 * c) * LD + d);
-        }
+      for (int j = 0; j < NS; ++j) {
+        float c[4] = {0.f, 0.f, 0.f, 0.f}, d[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_split(c, c, khi, klo, qhi + 2 * j, qlo + 2 * j);
+        mma_split(d, d, vhi, vlo, ghi + 2 * j, glo + 2 * j);
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const float4 kv =
-              *reinterpret_cast<const float4*>(Ks + (ty + 16 * r) * LD + d);
-          const float4 vv =
-              *reinterpret_cast<const float4*>(Vs + (ty + 16 * r) * LD + d);
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            s[r][c] = dot4(qv[c], kv, s[r][c]);
-            dp[r][c] = dot4(gv[c], vv, dp[r][c]);
-          }
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int kpos = k0 + ty + 16 * r;
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int qi = tx + 16 * c, qrow = q0 + qi;
-          const float p = qrow < a.Sq && fb_visible(a, q_offset + qrow, kpos)
-                              ? expf(s[r][c] * a.scale - lse_s[qi])
-                              : 0.f;
-          const float ds = p * (dp[r][c] - dl_s[qi]) * a.scale;
-          Ps[(ty + 16 * r) * LDP + qi] = fb_round(p, T());
-          dSs[(ty + 16 * r) * LDP + qi] = fb_round(ds, T());
-        }
-      }
-      __syncthreads();
-
-      // dv += p^T dO, dk += ds^T q for keys ty + 16 r, columns tx + 16 c
-#pragma unroll 4
-      for (int i = 0; i < FB_BQ2; ++i) {
-        float gr[NC], qr[NC];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          gr[c] = dOs[i * LD + tx + 16 * c];
-          qr[c] = Qs[i * LD + tx + 16 * c];
-        }
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const float p = Ps[(ty + 16 * r) * LDP + i];
-          const float ds = dSs[(ty + 16 * r) * LDP + i];
-#pragma unroll
-          for (int c = 0; c < NC; ++c) {
-            dv[r][c] = fmaf(p, gr[c], dv[r][c]);
-            dk[r][c] = fmaf(ds, qr[c], dk[r][c]);
-          }
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] += c[e];
+          dp[j][e] += d[e];
         }
       }
     }
-  }
 
-  T* dkb = static_cast<T*>(a.dk) + khead;
-  T* dvb = static_cast<T*>(a.dv) + khead;
+    // p^T and ds^T (the mask only where the tile straddles the band or Sq),
+    // then dv += p^T dO and dk += ds^T q
+    const bool whole =
+        q0 + FB_BQ2 <= a.Sq && k0 + wk + 16 <= a.Sk &&
+        (!a.causal || q_offset + q0 >= k0 + wk + 15) &&
+        (a.window <= 0 || q_offset + q0 + FB_BQ2 - 1 - (k0 + wk) < a.window);
+    uint32_t phi[NS][4], plo[NS][4], dhi[NS][4], dlo[NS][4];
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int key = k0 + ty + 16 * r;
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kpos = k0 + wk + g + 8 * (e >> 1);
+        const int qi = j * 8 + 2 * t + (e & 1), qrow = q0 + qi;
+        const float p =
+            whole || (qrow < a.Sq && fb_visible(a, q_offset + qrow, kpos))
+                ? expf(s[j][e] * a.scale - lse_t[qi])
+                : 0.f;
+        s[j][e] = p;
+        dp[j][e] = p * (dp[j][e] - dl_t[qi]) * a.scale;
+      }
+      c_as_a_split(s[j], phi[j], plo[j]);
+      c_as_a_split(dp[j], dhi[j], dlo[j]);
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      float c[4] = {0.f, 0.f, 0.f, 0.f}, cl[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        uint32_t bhi[2], blo[2];
+        c_operand_b(dOt, LD, j * 8, c0 + n * 8, bhi, blo);
+        mma_split(c, cl, phi[j], plo[j], bhi, blo);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dv[n][e] += c[e] + cl[e];
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      float c[4] = {0.f, 0.f, 0.f, 0.f}, cl[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        uint32_t bhi[2], blo[2];
+        c_operand_b(Qt, LD, j * 8, c0 + n * 8, bhi, blo);
+        mma_split(c, cl, dhi[j], dlo[j], bhi, blo);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[n][e] += c[e] + cl[e];
+    }
+  }
+  cp_async_wait<0>();
+
+  // G == 1: dk and dv themselves; else this q head's share, [2, B, Sk, H, D]
+  const bool whole = a.G == 1;
+  const long long rs = whole ? krs : (long long)a.H * D;
+  const long long base =
+      whole ? khead : ((long long)b * a.Sk * a.H + h) * D;
+  float* dkb = (whole ? a.dk : a.part) + base;
+  float* dvb = (whole ? a.dv : a.part + (long long)gridDim.x * a.Sk * D) +
+               base;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + wk + g + 8 * r;
     if (key >= a.Sk) continue;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      fb_store(dkb + (long long)key * krs + tx + 16 * c, dk[r][c]);
-      fb_store(dvb + (long long)key * krs + tx + 16 * c, dv[r][c]);
+    for (int n = 0; n < NO; ++n) {
+      const long long off = key * rs + c0 + n * 8 + 2 * t;
+      *reinterpret_cast<float2*>(dkb + off) =
+          make_float2(dk[n][2 * r], dk[n][2 * r + 1]);
+      *reinterpret_cast<float2*>(dvb + off) =
+          make_float2(dv[n][2 * r], dv[n][2 * r + 1]);
     }
   }
+}
+
+// dk, dv [B, Sk, KH, D] = the sum over g = 0 .. G - 1, in order, of the
+// shares of q heads kvh * G + g in part [2, B, Sk, H, D]; four floats a
+// thread, dk's then dv's
+__global__ void __launch_bounds__(256)
+    fa_bwd_sum_kernel(const float* __restrict__ part, float* dk, float* dv,
+                      long long n4, long long half, int KH, int G, int D) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= 2 * n4) return;
+  const bool second = i >= n4;
+  const long long e = (second ? i - n4 : i) * 4;  // element of dk / dv
+  const long long bs = e / ((long long)KH * D);   // b * Sk + key
+  const int kvh = (int)(e / D % KH), d = (int)(e % D);
+  const float* src =
+      part + (second ? half : 0) + (bs * KH * G + (long long)kvh * G) * D + d;
+  float4 acc = *reinterpret_cast<const float4*>(src);
+  for (int g = 1; g < G; ++g) {
+    const float4 x = *reinterpret_cast<const float4*>(src + (long long)g * D);
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
+  }
+  *reinterpret_cast<float4*>((second ? dv : dk) + e) = acc;
 }
 
 // ---- host side ---------------------------------------------------------------
 
-template <class T, int D>
+template <int D>
 static int fb_launch(const FbArgs& a, int B, cudaStream_t stream) {
-  constexpr int R = D > 128 ? 2 : 4;  // D = 256: 32 keys, dk + dv in 64 regs
+  constexpr int NDC = D > 128 ? 128 : D;  // dk / dv columns of one CTA
   constexpr int smem1 = fb_dq_smem<D>();
-  constexpr int smem2 = fb_dkv_smem<D, R>();
-  static_assert(smem1 <= RT_SMEM_BYTES && smem2 <= RT_SMEM_BYTES,
+  constexpr int smem2 = fb_dkv_smem<D>();
+  static_assert(smem1 + 4 * 2 * FB_BQ <= RT_SMEM_BYTES &&
+                    smem2 + 4 * 4 * FB_BQ2 <= RT_SMEM_BYTES,
                 "flash_attention_bwd tile too large");
   cudaError_t err = cudaFuncSetAttribute(
-      fa_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fa_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem1);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(fa_bwd_dkv_kernel<T, D, R>,
+  err = cudaFuncSetAttribute(fa_bwd_dkv_kernel<D, NDC>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem2);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid1((a.Sq + FB_BQ - 1) / FB_BQ, B * a.H);
-  fa_bwd_dq_kernel<T, D><<<grid1, FB_THREADS, smem1, stream>>>(a);
+  const dim3 grid1(B * a.H, (a.Sq + FB_BQ - 1) / FB_BQ);
+  fa_bwd_dq_kernel<D><<<grid1, FB_THREADS, smem1, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid2((a.Sk + 16 * R - 1) / (16 * R), B * a.KH);
-  fa_bwd_dkv_kernel<T, D, R><<<grid2, FB_THREADS, smem2, stream>>>(a);
+  const dim3 grid2(B * a.H, (a.Sk + FB_BKV - 1) / FB_BKV, D / NDC);
+  fa_bwd_dkv_kernel<D, NDC><<<grid2, FB_THREADS, smem2, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.G == 1) return (int)err;
+  const long long n4 = (long long)B * a.Sk * a.KH * D / 4;
+  const long long half = (long long)B * a.Sk * a.H * D;
+  fa_bwd_sum_kernel<<<(unsigned)((2 * n4 + 255) / 256), 256, 0, stream>>>(
+      a.part, a.dk, a.dv, n4, half, a.KH, a.G, D);
   return (int)cudaGetLastError();
 }
 
-template <class T>
-static int fb_dispatch(const FbArgs& a, int B, int D, cudaStream_t s) {
-  switch (D) {
-    case 16: return fb_launch<T, 16>(a, B, s);
-    case 64: return fb_launch<T, 64>(a, B, s);
-    case 96: return fb_launch<T, 96>(a, B, s);
-    case 128: return fb_launch<T, 128>(a, B, s);
-    case 256: return fb_launch<T, 256>(a, B, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
 // Both passes, in order on `stream`.  q, k, v, out, dout, dq, dk, dv, lse
-// and dl float32; every tensor contiguous.
+// float32, every tensor contiguous.  scratch: float32, B * H * Sq rounded up
+// to a multiple of 4 (D), then where H > KH 2 * B * Sk * H * D (each q
+// head's dk and dv), 16-byte aligned.
 extern "C" int rt_flash_attention_bwd(const void* q, const void* k,
                                       const void* v, const void* o,
                                       const void* dout, const float* lse,
-                                      void* dq, void* dk, void* dv, float* dl,
-                                      int B, int Sq, int Sk, int H, int KH,
-                                      int D, float scale, int causal,
-                                      int window, void* stream) {
+                                      void* dq, void* dk, void* dv,
+                                      float* scratch, int B, int Sq, int Sk,
+                                      int H, int KH, int D, float scale,
+                                      int causal, int window, void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || KH < 1 || H % KH != 0 ||
       (long long)B * H > 65535)
     return (int)cudaErrorInvalidValue;
-  FbArgs a{q, k, v, o, dout, lse, dq, dk, dv, dl, H, KH, H / KH, Sq, Sk,
-           scale, causal, window};
-  return fb_dispatch<float>(a, B, D, (cudaStream_t)stream);
+  float* part = scratch + ((long long)B * H * Sq + 3) / 4 * 4;
+  FbArgs a{static_cast<const float*>(q),    static_cast<const float*>(k),
+           static_cast<const float*>(v),    static_cast<const float*>(o),
+           static_cast<const float*>(dout), lse,
+           static_cast<float*>(dq),         static_cast<float*>(dk),
+           static_cast<float*>(dv),         scratch,
+           part,                            H,
+           KH,                              H / KH,
+           Sq,                              Sk,
+           scale,                           causal,
+           window};
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (D) {
+    case 16: return fb_launch<16>(a, B, s);
+    case 64: return fb_launch<64>(a, B, s);
+    case 96: return fb_launch<96>(a, B, s);
+    case 128: return fb_launch<128>(a, B, s);
+    case 256: return fb_launch<256>(a, B, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

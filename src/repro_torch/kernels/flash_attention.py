@@ -12,7 +12,10 @@ fp32 accumulators, output in q's dtype.  q: [B, Sq, H, D]; k, v:
 (``repro/kernels/ref.py::flash_attention``); CPU tensors take it.  On CUDA
 tensors the wrapper launches a kernel chosen by dtype, with D in
 ``HEAD_DIMS``, or raises: bf16 runs on the tensor cores (``wgmma`` fed by
-TMA, softmax in base 2), fp32 on SIMT FMAs (TF32 would lose digits).
+TMA, softmax in base 2), fp32 on the tensor cores too, in split TF32
+(``csrc/split_tf32.cuh``: each fp32 operand as a sum of two TF32 values,
+three ``mma.sync`` products per fp32 product, an fp32 FMA loop's accuracy;
+plain TF32 would lose digits).
 
 Where autograd needs it (grad enabled and an input requiring grad), the
 wrapper is a ``torch.autograd.Function``: the forward also writes each
@@ -21,7 +24,8 @@ backward is ``flash_attention_bwd``, the streaming VJP of
 ``repro.models.flash_cvjp._bwd_impl`` (the reference's gradient is XLA
 code, so these kernels have no Pallas counterpart).  bf16 runs it on the
 tensor cores (``wgmma`` fed by TMA, two passes with one writer per output
-element), fp32 on SIMT FMAs.  Its plain version
+element), fp32 in split TF32 (the same two passes, then a sum of the q
+heads' shares of dk / dv where G > 1).  Its plain version
 ``flash_attention_bwd_plain`` is the port of ``_bwd_impl`` itself.
 
 Both directions are custom ops of the dispatcher
@@ -50,8 +54,8 @@ LOG2E = 1.4426950408889634
 # head dims the kernels are instantiated for (every reduced config: 16,
 # musicgen: 64, phi3: 96, qwen3: 128, gemma3: 256)
 HEAD_DIMS = (16, 64, 96, 128, 256)
-# (q rows of one CTA, keys of one kv tile) by dtype and head dim: the SIMT
-# kernel's (FA_BQ, FA_BK) and the tensor-core kernel's (TC_BQ, tc_bk(D)),
+# (q rows of one CTA, keys of one kv tile) by dtype and head dim: the fp32
+# kernel's (FA_BQ, FA_BK) and the bf16 kernel's (TC_BQ, tc_bk(D)),
 # checked against csrc/abi.cuh when the library loads
 KERNEL_TILES = {
     torch.float32: {d: (ABI["fa_bq"], ABI["fa_bk"]) for d in HEAD_DIMS},
@@ -204,7 +208,7 @@ def _fwd_cpu(q, k, v, causal, window, want_lse):
 
 
 def _fwd_cuda(q, k, v, causal, window, want_lse):
-    """CUDA: the tensor-core kernel for bf16, the SIMT one for fp32."""
+    """CUDA: the wgmma kernel for bf16, the split-TF32 one for fp32."""
     B, Sq, H, D = q.shape
     _, Sk, KH, _ = k.shape
     _check_cuda(q, k, v)
@@ -337,8 +341,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     plain version.  CUDA tensors: bf16 ``csrc/flash_attention_bwd_tc.cu``
     (its preprocess and both passes, one launch count), which reads the
     operands through their strides where TMA can (else a contiguous copy);
-    fp32 ``csrc/flash_attention_bwd.cu`` (both passes, one launch count),
-    which reads contiguous copies."""
+    fp32 ``csrc/flash_attention_bwd.cu`` (both passes and, where G > 1,
+    the sum of the q heads' dk / dv shares; one launch count), which reads
+    contiguous copies."""
     refuse_dtensor("flash_attention_bwd", q, k, v, out, lse, dout)
     _check_shapes(q, k, v)
     if q.device.type not in ("cpu", "cuda", "meta"):
@@ -374,11 +379,15 @@ def _bwd_cuda(q, k, v, out, lse, dout, causal, window):
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    dl = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    # rowsum(dO * O) by (batch, head, row), padded to 4 floats, then where
+    # G > 1 each q head's share of dk and dv, [2, B, Sk, H, D]
+    scratch = torch.empty((-(-B * H * Sq // 4) * 4
+                           + (2 * B * Sk * H * D if H > KH else 0),),
+                          dtype=torch.float32, device=q.device)
     rc = load_library().rt_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), dl.data_ptr(), B, Sq, Sk, H, KH, D,
+        dv.data_ptr(), scratch.data_ptr(), B, Sq, Sk, H, KH, D,
         1.0 / math.sqrt(D), int(bool(causal)), window,
         stream_handle(q.device))
     check_launch(rc, "flash_attention_bwd")

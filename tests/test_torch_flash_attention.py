@@ -13,9 +13,11 @@ evaluation and the port's error may be at most twice the reference's.
 the tile sizes the wrapper exports (``KERNEL_TILES``): the q and kv tiles,
 the tiles they skip, bf16 rounding of P and, for the bf16 tensor-core
 kernel, the base-2 softmax and the per-warpgroup choice of the kv tiles that
-need a mask.  So the tiling, skipping and masking logic of
-``csrc/flash_attention.cu`` and ``csrc/flash_attention_tc.cu`` is checked
-here although the kernels run only on the card.
+need a mask; for the fp32 kernel, its split-TF32 products
+(``test_torch_attention_split_tf32.split_matmul``).  So the tiling, skipping
+and masking logic of ``csrc/flash_attention.cu`` and
+``csrc/flash_attention_tc.cu`` is checked here although the kernels run
+only on the card.
 """
 
 import math
@@ -33,6 +35,7 @@ from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 from repro_torch.models import layers as tlayers
+from test_torch_attention_split_tf32 import K_STEP, split_matmul
 
 SEED = 77
 
@@ -71,7 +74,8 @@ def _emulate_kernel(q, k, v, *, causal=True, window=0):
     """The CUDA kernels' schedules in plain torch: per (b, h, q tile) the kv
     tile range of the kernel, online softmax per kv tile, P rounded to v's
     dtype, l over the unrounded P.  fp32 (csrc/flash_attention.cu) takes
-    exp of scores scaled by 1/sqrt(D) and masks every tile.  bf16
+    its products in split TF32 (scores folded every k-step of 8, P V every
+    tile) and exp of scores scaled by 1/sqrt(D), masking every tile.  bf16
     (csrc/flash_attention_tc.cu) scales by log2(e)/sqrt(D), takes exp2, and
     each 64-row consumer warpgroup masks only the kv tiles that straddle the
     diagonal, the window edge or Sk: on every other tile the mask it skips
@@ -102,7 +106,11 @@ def _emulate_kernel(q, k, v, *, causal=True, window=0):
             kt = k[:, k0:k0 + BK].float().repeat_interleave(G, dim=2)
             vt = v[:, k0:k0 + BK].float().repeat_interleave(G, dim=2)
             kpos = k0 + torch.arange(kt.shape[1])
-            s = torch.einsum("bqhd,bkhd->bhqk", qt, kt) * scale
+            if tc:
+                s = torch.einsum("bqhd,bkhd->bhqk", qt, kt) * scale
+            else:
+                s = split_matmul(qt.permute(0, 2, 1, 3),
+                                 kt.permute(0, 2, 3, 1), K_STEP) * scale
             ok = (kpos < Sk)[None, :].expand(rows, -1)
             if causal:
                 ok = ok & (qpos[:, None] >= kpos[None, :])
@@ -118,8 +126,10 @@ def _emulate_kernel(q, k, v, *, causal=True, window=0):
             corr = exp(m - m_new)
             p = exp(s - m_new[..., None])
             l = l * corr + p.sum(-1)
-            acc = acc * corr[..., None] + torch.einsum(
-                "bhqk,bkhd->bhqd", p.to(v.dtype).float(), vt)
+            pv = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(),
+                              vt) if tc else split_matmul(
+                p, vt.permute(0, 2, 1, 3), BK)
+            acc = acc * corr[..., None] + pv
             m = m_new
         o = acc / torch.clamp_min(l, 1e-30)[..., None]
         out[:, q0:q0 + rows] = o.permute(0, 2, 1, 3).to(q.dtype)
