@@ -1,0 +1,3 @@
+"""The kernels' share of their roofline: least time of the window's served work over summed kernel time, in %."""
+
+from inrbench.readers import kernel_roofline as read  # noqa: F401
